@@ -1,0 +1,361 @@
+// FAVOR+ causal linear attention, forward, for Hopper (sm_90a).
+//
+// Replaces two Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py:
+//   _kmax_kernel      (:487, via _fused_key_max)  -> favor_kmax_kernel
+//   _fused_fwd_kernel (:533, via _fused_fwd_impl) -> favor_fwd_kernel
+//
+// Function (per batch*head row, q/k [L, Dh], v [L, Dv], omega [Dh, M]):
+//   h(x)   = (x d^-1/4) . omega - ||x d^-1/4||^2 / 2
+//   phi_q  = exp(h(q) - max_m h(q)) / sqrt(M)        (per-position stabilizer)
+//   phi_k  = exp(h(k) - max_{L,M} h(k)) / sqrt(M)    (one stabilizer per row)
+//   out_i  = phi_q_i . S_i / (phi_q_i . z_i + eps),  S_i = sum_{j<=i} phi_k_j v_j^T,
+//                                                    z_i = sum_{j<=i} phi_k_j
+// The key max is taken over the true L; the TPU path also covered its
+// zero-padded rows when L % 128 != 0, which changes the result only at the
+// level of eps.
+//
+// Bound on the H100: at the serving shapes (Dh = Dv = 64, M = 128) each row
+// reads q, k, v once (3 x L x 64 elements) and does ~2.1k flop per position
+// (feature maps ~0.8k in f32, chunk products ~1.3k).  The feature maps are
+// f32 arithmetic (67 TFLOP/s), so the kernel is bounded by operations, not
+// by its few MB of traffic.
+//
+// Design (simple first): the TPU grid's sequential chunk axis becomes a loop
+// inside one thread block per row, with the running (S [M, Dv], z [M])
+// state, omega and the chunk's phi_q / phi_k / scores in shared memory
+// (~183 KB at the serving shapes, so 64-row chunks).  The key maxima come
+// from a separate chunk-parallel launch (favor_kmax_kernel writes one max
+// per 64-row chunk; favor_fwd_kernel reduces them), so the stabilizer pass
+// is not serialized behind the row.  The small products are 4x4 register
+// micro-tiles over shared memory, columns strided across lanes so reads
+// are bank-conflict free or broadcast.  No tensor cores, TMA or
+// pipelining yet.  Under bf16 inputs, the operands of the chunk products
+// (phi_q, phi_k, scores, S, z) are rounded to bf16 with f32 accumulation,
+// as the TPU kernel does (its _dot_dtype_for); f32 inputs stay exact.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int C = 64;          // rows per chunk
+constexpr int THREADS = 256;
+
+template <class T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <class T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// a dot-product operand as the TPU kernel feeds it: bf16 under bf16 inputs
+template <class T> __device__ __forceinline__ float rnd(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// acc[r][c] += sum_k A(it + r*RT, k) * B(k, jt + c*NT)
+// with A(i, k) = A[i*ai + k*ak] and B(k, j) = B[k*bk + j*bj] in shared memory.
+template <class T, bool RA, bool RB>
+__device__ __forceinline__ void mma4x4(float acc[4][4], const float* A, int ai, int ak,
+                                       int it, int RT, const float* B, int bk, int bj,
+                                       int jt, int NT, int K) {
+  for (int k = 0; k < K; ++k) {
+    float a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[r] = A[(it + r * RT) * ai + k * ak];
+      if (RA) a[r] = rnd<T>(a[r]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      b[c] = B[k * bk + (jt + c * NT) * bj];
+      if (RB) b[c] = rnd<T>(b[c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
+}
+
+__device__ __forceinline__ void zero4x4(float acc[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// xs[i][d] = x[i][d] * scale for i < n, 0 for the ragged tail; then
+// sq[i] = ||xs_i||^2 / 2.
+template <class T>
+__device__ void load_scaled(float* xs, float* sq, const T* x, int n, int D, float scale) {
+  for (int idx = threadIdx.x; idx < C * D; idx += blockDim.x) {
+    int i = idx / D, d = idx - i * D;
+    xs[i * (D + 1) + d] = i < n ? to_f<T>(x[(size_t)i * D + d]) * scale : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    float s = 0.f;
+    for (int d = 0; d < D; ++d) s = fmaf(xs[i * (D + 1) + d], xs[i * (D + 1) + d], s);
+    sq[i] = 0.5f * s;
+  }
+  __syncthreads();
+}
+
+template <class T>
+__global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restrict__ omega,
+                                  float* __restrict__ partial, int L, int Dh, int M,
+                                  float scale) {
+  extern __shared__ float smem[];
+  float* om = smem;                    // [Dh][M]
+  float* xs = om + Dh * M;             // [C][Dh+1]
+  float* sq = xs + C * (Dh + 1);       // [C]
+  float* red = sq + C;                 // [32]
+  const int chunk = blockIdx.x, row = blockIdx.y, nch = gridDim.x;
+  const int r0 = chunk * C, n = min(C, L - r0);
+  for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
+  load_scaled<T>(xs, sq, k + ((size_t)row * L + r0) * Dh, n, Dh, scale);
+
+  float mx = -INFINITY;
+  const int RT = C / 4, NT = M / 4;
+  for (int t = threadIdx.x; t < RT * NT; t += blockDim.x) {
+    const int it = t / NT, jt = t - it * NT;
+    float acc[4][4];
+    zero4x4(acc);
+    mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, RT, om, M, 1, jt, NT, Dh);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = it + r * RT;
+      if (i < n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx = fmaxf(mx, acc[r][c] - sq[i]);
+    }
+  }
+  mx = warp_max(mx);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    mx = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : -INFINITY;
+    mx = warp_max(mx);
+    if (threadIdx.x == 0) partial[(size_t)row * nch + chunk] = mx;
+  }
+}
+
+template <class T>
+__global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const float* __restrict__ omega,
+                                 const float* __restrict__ partial, T* __restrict__ out,
+                                 int L, int Dh, int Dv, int M, float scale, float rsqm,
+                                 float eps) {
+  extern __shared__ float smem[];
+  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
+  float* om = smem;                    // [Dh][M]
+  float* S = om + Dh * M;              // [M][Dv+1]   running sum phi_k v^T
+  float* z = S + M * DVP;              // [M]         running sum phi_k
+  float* pq = z + M;                   // [C][M+1]    phi_q (dot operands)
+  float* pk = pq + C * MP;             // [C][M+1]    phi_k (f32)
+  float* vv = pk + C * MP;             // [C][Dv+1]
+  float* xs = vv + C * DVP;            // [C][Dh+1]
+  float* sc = xs + C * (Dh + 1);       // [C][C+1]    masked intra-chunk scores
+  float* sq = sc + C * CP;             // [C]
+  float* den = sq + C;                 // [C]
+  const int row = blockIdx.x, nch = (L + C - 1) / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+
+  for (int i = tid; i < Dh * M; i += blockDim.x) om[i] = omega[i];
+  for (int i = tid; i < M * DVP; i += blockDim.x) S[i] = 0.f;
+  for (int i = tid; i < M; i += blockDim.x) z[i] = 0.f;
+  float kmax = -INFINITY;
+  for (int c = 0; c < nch; ++c) kmax = fmaxf(kmax, partial[(size_t)row * nch + c]);
+  __syncthreads();
+
+  const size_t base = (size_t)row * L;
+  for (int r0 = 0; r0 < L; r0 += C) {
+    const int n = min(C, L - r0);
+
+    // phi_q: h into pq, then the per-position max and exp (a warp per row)
+    load_scaled<T>(xs, sq, q + (base + r0) * Dh, n, Dh, scale);
+    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+      const int it = t / (M / 4), jt = t - it * (M / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, C / 4, om, M, 1, jt, M / 4, Dh);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = it + r * (C / 4), m = jt + c * (M / 4);
+          pq[i * MP + m] = acc[r][c] - sq[i];
+        }
+    }
+    __syncthreads();
+    for (int i = warp; i < C; i += nwarp) {
+      float mx = -INFINITY;
+      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, pq[i * MP + m]);
+      mx = warp_max(mx);
+      for (int m = lane; m < M; m += 32)
+        pq[i * MP + m] = i < n ? rnd<T>(expf(pq[i * MP + m] - mx) * rsqm) : 0.f;
+    }
+    __syncthreads();
+
+    // phi_k with the row's stabilizer; v rows
+    load_scaled<T>(xs, sq, k + (base + r0) * Dh, n, Dh, scale);
+    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+      const int it = t / (M / 4), jt = t - it * (M / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, C / 4, om, M, 1, jt, M / 4, Dh);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = it + r * (C / 4), m = jt + c * (M / 4);
+          pk[i * MP + m] = i < n ? expf(acc[r][c] - sq[i] - kmax) * rsqm : 0.f;
+        }
+    }
+    for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
+      const int i = idx / Dv, d = idx - i * Dv;
+      vv[i * DVP + d] = i < n ? to_f<T>(v[(base + r0 + i) * Dv + d]) : 0.f;
+    }
+    __syncthreads();
+
+    // sc[i][j] = phi_q_i . phi_k_j for j <= i
+    for (int t = tid; t < (C / 4) * (C / 4); t += blockDim.x) {
+      const int it = t / (C / 4), jt = t - it * (C / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<T, false, true>(acc, pq, MP, 1, it, C / 4, pk, 1, MP, jt, C / 4, M);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = it + r * (C / 4), j = jt + c * (C / 4);
+          sc[i * CP + j] = j <= i ? acc[r][c] : 0.f;
+        }
+    }
+    __syncthreads();
+
+    // den_i = sum_j sc[i][j] + phi_q_i . z
+    for (int i = tid; i < C; i += blockDim.x) {
+      float s = 0.f, t = 0.f;
+      for (int j = 0; j <= i; ++j) s += sc[i * CP + j];
+      for (int m = 0; m < M; ++m) t = fmaf(pq[i * MP + m], rnd<T>(z[m]), t);
+      den[i] = s + t;
+    }
+    __syncthreads();
+
+    // out_i = (sc_i . v + phi_q_i . S) / (den_i + eps)
+    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<T, true, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
+      mma4x4<T, false, true>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = it + r * (C / 4);
+        if (i < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int d = jt + c * (Dv / 4);
+            out[(base + r0 + i) * Dv + d] = from_f<T>(acc[r][c] / (den[i] + eps));
+          }
+      }
+    }
+    __syncthreads();
+
+    // S += phi_k^T v, z += sum_j phi_k_j
+    for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
+      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<T, true, false>(acc, pk, 1, MP, it, M / 4, vv, DVP, 1, jt, Dv / 4, n);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          S[(it + r * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[r][c];
+    }
+    for (int m = tid; m < M; m += blockDim.x) {
+      float s = 0.f;
+      for (int j = 0; j < n; ++j) s += pk[j * MP + m];
+      z[m] += s;
+    }
+    __syncthreads();
+  }
+}
+
+// d^-1/4, rounded once from double as the reference computes it
+float feature_scale(int Dh) { return (float)pow((double)Dh, -0.25); }
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <class T>
+int launch_kmax(const void* k, const float* omega, float* partial, int BH, int L, int Dh,
+                int M, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (Dh * M + C * (Dh + 1) + C + 32);
+  cudaError_t err = allow_smem(favor_kmax_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + C - 1) / C, BH);
+  favor_kmax_kernel<T><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega,
+                                                        partial, L, Dh, M, feature_scale(Dh));
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_fwd(const void* q, const void* k, const void* v, const float* omega,
+               const float* partial, void* out, int BH, int L, int Dh, int Dv, int M,
+               float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (Dh * M + M * (Dv + 1) + M + 2 * C * (M + 1) +
+                                       C * (Dv + 1) + C * (Dh + 1) + C * (C + 1) + 2 * C + 32);
+  cudaError_t err = allow_smem(favor_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  favor_fwd_kernel<T><<<BH, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), omega,
+      partial, static_cast<T*>(out), L, Dh, Dv, M, feature_scale(Dh),
+      (float)(1.0 / sqrt((double)M)), eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// k [BH, L, Dh] (f32, or bf16 when bf16 != 0), omega [Dh, M] f32 ->
+// partial [BH, ceil(L/64)] f32: the key max of each 64-row chunk.
+int favor_kmax(const void* k, const float* omega, float* partial, int BH, int L, int Dh,
+               int M, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_kmax<__nv_bfloat16>(k, omega, partial, BH, L, Dh, M, s)
+              : launch_kmax<float>(k, omega, partial, BH, L, Dh, M, s);
+}
+
+// q, k [BH, L, Dh], v [BH, L, Dv] (one dtype), omega [Dh, M] f32, partial from
+// favor_kmax -> out [BH, L, Dv] in the inputs' dtype.
+int favor_fwd(const void* q, const void* k, const void* v, const float* omega,
+              const float* partial, void* out, int BH, int L, int Dh, int Dv, int M, int bf16,
+              float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, omega, partial, out, BH, L, Dh, Dv, M,
+                                          eps, s)
+              : launch_fwd<float>(q, k, v, omega, partial, out, BH, L, Dh, Dv, M, eps, s);
+}
+
+}  // extern "C"

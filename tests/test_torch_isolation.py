@@ -1,0 +1,65 @@
+"""The port stands alone: no module of ``emo_disentanger_tpu_torch`` nor
+``chip_smoke.py`` imports JAX, flax or the JAX package, and its entry
+points refuse to fall back to the CPU silently."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'emo_disentanger_tpu')
+SOURCES = sorted((ROOT / 'emo_disentanger_tpu_torch').rglob('*.py')) + [
+    ROOT / 'chip_smoke.py']
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f'{path.name} imports {bad}'
+
+
+def test_sources_found():
+    assert len(SOURCES) > 15
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    from emo_disentanger_tpu_torch.models import MusicPerformer
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    small = dict(n_token=12, n_layer=1, n_head=2, d_model=16, d_ff=32,
+                 d_embed=16, favor_dims=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        MusicPerformer(**small)
+    model = MusicPerformer(**small, device='cpu')
+    omegas = model.draw_omegas(torch.Generator().manual_seed(0))
+    vocab = Vocab({'Bar_None': 0}, {0: 'Bar_None'})
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Stage2BatchGenerator(model, vocab, batch=2, omegas=omegas)
+    Stage2BatchGenerator(model, vocab, batch=2, omegas=omegas, device='cpu')
+
+
+def test_kernel_wrappers_never_fall_back():
+    """The CUDA wrappers refuse non-CUDA tensors instead of running the
+    plain version; only the public functions choose the plain version, and
+    only for CPU tensors."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    from emo_disentanger_tpu_torch.ops import performer_decode as pd
+    x = torch.zeros(2, 16, 8)
+    om = torch.zeros(8, 16)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        la._favor_kmax_cuda(x, om)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        la._favor_fwd_cuda(x, x, x, om, torch.zeros(2, 1))
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        pd._decode_layer_cuda(torch.zeros(2, 8), None, None, {}, om, None, 2)
