@@ -4,23 +4,34 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
-holds each against its plain PyTorch version at the main path's shapes, then
-drives the main path at the full width of the flagship stage-2 Performer
-(12 layers, 8 heads, d_model 512, d_ff 2048, 128 FAVOR+ features; random
-weights from a seed): the forward at B=2, L=1024, an f32 decode that must
-reproduce the forward's logits, and ``Stage2BatchGenerator.serve`` over 24
-jobs in 16 slots with bf16 weights.  It checks that every kernel of the path
-was launched, times each kernel, its plain version and its bound, profiles
-where a serving step's time goes, and prints one JSON line of kernel
-records, the card's name and power limit, and a last line
-``{"ok": true, "device": {...}}``.  Any failed check raises and
-the exit code is non-zero; without CUDA, or without the package beside it,
-it exits non-zero and prints no result.
+holds each against its plain PyTorch version at the main paths' shapes, then
+drives the two main paths at the full width of the flagship stage-2
+Performer (12 layers, 8 heads, d_model 512, d_ff 2048, 128 FAVOR+ features;
+random weights from a seed):
+
+* serving: the forward at B=2, L=1024, an f32 decode that must reproduce
+  the forward's logits, and ``Stage2BatchGenerator.serve`` over 24 jobs in
+  16 slots with bf16 weights;
+* training: full-model gradients through the kernels against the plain
+  path, ``train_stage2.run`` on a synthetic corpus with the values of
+  ``configs/stage2/pop1k7_pretrain.yaml`` (f32, B=4, L=3072), bf16 steps at
+  B=16, L=3072, and a fixed batch whose loss must fall.
+
+It checks that every kernel of each path was launched on it, times each
+kernel, its plain version and its bound, profiles where a serving step's and
+a training step's time goes, and prints one JSON line of kernel records, the
+card's name and power limit, and a last line ``{"ok": true, "device": {...}}``.
+Any failed check raises and the exit code is non-zero; without CUDA, or
+without the package beside it, it exits non-zero and prints no result.
 """
 
+import collections
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +48,11 @@ D_HEAD = D_MODEL // N_HEAD
 ENTRY_B, ENTRY_L = 2, 1024
 WINDOW_B, WINDOW_L = 16, 2048
 SERVE_B = 16
+# training: configs/stage2/pop1k7_pretrain.yaml (f32) and the bench.py:42
+# train-step shape (bf16); the synthetic corpus's pieces run past TRAIN_L
+TRAIN_B, TRAIN_L, TRAIN_BATCHES = 4, 3072, 3
+BF16_B, BF16_STEPS = 16, 3
+CORPUS_PIECES, CORPUS_BARS = 20, 32
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -49,6 +65,15 @@ TOL_BF16 = 3e-2
 TOL_DECODE_VS_FORWARD = 1e-3
 # bf16 forward against the f32 forward: bf16 rounding through 12 layers
 TOL_BF16_MODEL = 5e-2
+# f32 parameter gradients through the kernels against the plain path, per
+# parameter as ||kernel - plain|| / ||plain||.  Summation order alone gives
+# ~1e-6 a kernel (phase 2c), but a ReLU unit whose pre-activation sits within
+# that noise of 0 takes another branch on each path and moves its
+# weight-gradient row by one token's term; F such flips among the B L d_ff
+# units give ~sqrt(F / (B L d_ff)).  Measured on the H100: 1.7e-3 on a
+# linear1 weight (2.6e-2 by its largest element), 1.4e-4 on the attention
+# projections; a wrong backward kernel gives errors of order 1
+TOL_GRAD = 1e-2
 
 
 def rel_err(got, ref):
@@ -109,6 +134,21 @@ def fwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk):
     return bound(nbytes, feat / F32_FLOP_PER_S + prod / rate)
 
 
+def bwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk, n_partial):
+    """Either backward pass: A reads q, k, v, g and writes dq, u, w; B reads
+    q, k, v, u, w and writes dk, dv -- 3 Dh + 3 Dv + 1 values a position
+    both ways.  Each recomputes both feature maps and the chain rule through
+    one of them (f32, omega exact), and runs twice the forward's chunk
+    products: the lower triangles of two chunk-square products into M and
+    two into Dv, and three [M, Dv] state products."""
+    nbytes = (BH * L * (3 * Dh + 3 * Dv + 1) * in_bytes + Dh * M * 4
+              + BH * n_partial * 4)
+    feat = 2 * 2 * BH * L * Dh * (M + 1) + 2 * BH * L * M * Dh
+    prod = BH * (2 * L * (chunk + 1) * (M + Dv) + 6 * L * M * Dv)
+    rate = BF16_FLOP_PER_S if in_bytes == 2 else F32_FLOP_PER_S
+    return bound(nbytes, feat / F32_FLOP_PER_S + prod / rate)
+
+
 def decode_bound(B, D, H, M, F, w_bytes, x_bytes):
     Dh = D // H
     n_params = 4 * D * D + 2 * D * F + 4 * D + F + D + 4 * D
@@ -144,14 +184,20 @@ def layer_params(gen, dtype, dev):
     return p
 
 
-def synthetic_vocab():
+def synthetic_dictionary():
+    """(event2word, word2event) of the port's functional vocabulary with
+    velocities (327 events and PAD)."""
     from emo_disentanger_tpu_torch.core.vocab import (
-        MAJOR_KEY, MINOR_KEY, Vocab, events_to_dictionary)
+        MAJOR_KEY, MINOR_KEY, events_to_dictionary)
     corpus = (['Bar_None', 'EOS_None', 'Track_LeadSheet', 'Track_Full']
               + [f'Beat_{b}' for b in range(16)]
               + [f'Key_{k}' for k in list(MAJOR_KEY) + list(MINOR_KEY)])
-    return Vocab(*events_to_dictionary([corpus], add_velocity=True,
-                                       relative=True))
+    return events_to_dictionary([corpus], add_velocity=True, relative=True)
+
+
+def synthetic_vocab():
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    return Vocab(*synthetic_dictionary())
 
 
 def synthetic_jobs(vocab, n_jobs, rng):
@@ -175,6 +221,85 @@ def synthetic_jobs(vocab, n_jobs, rng):
             bars.append(bar)
         sheets.append(bars)
     return primers, sheets
+
+
+def write_corpus(root, rng):
+    """A synthetic stage-2 corpus in the pipeline's pickle format under
+    ``root`` (``events/<piece>.pkl`` = (lead_pos, full_pos, events),
+    ``dictionary.pkl``, train/valid splits), each piece CORPUS_BARS bars of
+    an interleaved lead sheet and full track (~104 events a bar), and a
+    training config with the values of ``configs/stage2/pop1k7_pretrain.yaml``
+    (log and checkpoint every epoch)."""
+    e2w, w2e = synthetic_dictionary()
+    vels = [ev for ev in e2w if ev.startswith('Note_Velocity_')]
+    deg = lambda: ['I', 'II', 'III', 'IV', 'V', 'VI', 'VII'][rng.randint(7)]
+    events_dir = os.path.join(root, 'events')
+    os.makedirs(events_dir)
+    names = []
+    for p in range(CORPUS_PIECES):
+        evs = [f'Emotion_Q{1 + p % 4}', 'Key_C' if p % 2 == 0 else 'Key_a',
+               'Tempo_110']
+        lead_pos, full_pos = [], []
+        for bar in range(CORPUS_BARS):
+            lead = ['Track_LeadSheet', 'Bar_None']
+            for beat in range(0, 16, 4):
+                lead += [f'Beat_{beat}', f'Chord_{deg()}_M',
+                         f'Note_Octave_{rng.randint(4, 6)}',
+                         f'Note_Degree_{deg()}', 'Note_Duration_480']
+            if bar == CORPUS_BARS - 1:
+                lead.append('EOS_None')
+            full = ['Track_Full', 'Bar_None']
+            for beat in range(0, 16, 2):
+                full += [f'Beat_{beat}', f'Chord_{deg()}_M']
+                for _ in range(2):
+                    full += [f'Note_Octave_{rng.randint(3, 6)}',
+                             f'Note_Degree_{deg()}',
+                             f'Note_Duration_{120 * rng.randint(1, 9)}',
+                             vels[rng.randint(len(vels))]]
+            lead_pos.append((len(evs), len(evs) + len(lead)))
+            evs += lead
+            full_pos.append((len(evs), len(evs) + len(full)))
+            evs += full
+        names.append(f'Q{1 + p % 4}_piece{p}.pkl')
+        with open(os.path.join(events_dir, names[-1]), 'wb') as f:
+            pickle.dump((lead_pos, full_pos, evs), f)
+    paths = {k: os.path.join(root, f'{k}.pkl')
+             for k in ('dictionary', 'train', 'valid')}
+    for key, obj in (('dictionary', (e2w, w2e)), ('train', names[:-4]),
+                     ('valid', names[-4:])):
+        with open(paths[key], 'wb') as f:
+            pickle.dump(obj, f)
+    return {
+        'data_loader': {'batch_size': TRAIN_B, 'data_path': events_dir,
+                        'train_split': paths['train'],
+                        'val_split': paths['valid'],
+                        'vocab_path': paths['dictionary']},
+        'model': {'d_embed': D_MODEL, 'd_ff': D_FF, 'd_model': D_MODEL,
+                  'feature_map': {'n_dims': FAVOR}, 'max_len': TRAIN_L,
+                  'n_head': N_HEAD, 'n_layer': N_LAYER, 'use_segemb': True,
+                  'n_segment_types': 2},
+        'training': {'ckpt_dir': os.path.join(root, 'ckpt_{}'),
+                     'ckpt_interval': 1, 'log_interval': 1,
+                     'feat_redraw_prob': 0.05, 'lr': 1e-4,
+                     'lr_scheduler': {'T_max': 500000, 'eta_min': 1e-5},
+                     'num_epochs': 1, 'warmup_steps': 200,
+                     'trained_params': None, 'trained_optim': None},
+    }
+
+
+def kernel_breakdown(prof, steps, n_top=8):
+    """(device busy ms per step, the top kernels by device ms per step) from
+    a torch.profiler run over ``steps`` steps; device events only, so
+    nothing is counted twice.  Busy is 0 when the profiler saw no device
+    events."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    top = '; '.join(f'{e.key[:48]} x{e.count // steps} '
+                    f'{e.self_device_time_total / 1e3 / steps:.4f}'
+                    for e in kern[:n_top])
+    return busy, top
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +344,52 @@ def phase_kernel_a(dev, rec):
             if L == ENTRY_L and dtype == torch.bfloat16:
                 rec['favor_kmax']['max_abs_err'] = max_abs(got_m, ref_m)
                 rec['favor_fwd']['max_abs_err'] = max_abs(got, ref)
+
+
+def phase_kernel_c(dev, rec):
+    """Kernels #3 and #4: pass A against the plain pass A, pass B against
+    the plain pass B fed the kernel's own (u, w), both at the kernels'
+    dot dtype and chunk; in f32 also dq/dk/dv against autograd through the
+    plain forward."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(15)
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    C = la.KERNEL_CHUNK
+    for L in (ENTRY_L, 1000):
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            q, k, v, g = (t.reshape(-1, L, D_HEAD) for t in
+                          qkv(gen, ENTRY_B, N_HEAD, L, dtype, dev)
+                          + qkv(gen, ENTRY_B, N_HEAD, L, dtype, dev)[:1])
+            part = la._favor_kmax_cuda(k, omega)
+            dq, u, w = la._favor_bwd_a_cuda(q, k, v, g, omega, part)
+            dk, dv = la._favor_bwd_b_cuda(q, k, v, u, w, omega, part)
+            kmax, dt = part.amax(1), la._dot_dtype_for(q)
+            rdq, ru, rw = la._favor_bwd_a_plain(q, k, v, g, omega, kmax, C,
+                                                dot_dtype=dt)
+            rdk, rdv = la._favor_bwd_b_plain(q, k, v, u, w, omega, kmax, C,
+                                             dot_dtype=dt)
+            torch.cuda.synchronize()
+            pairs = {'dq': (dq, rdq), 'u': (u, ru), 'w': (w, rw),
+                     'dk': (dk, rdk), 'dv': (dv, rdv)}
+            for name, (a, b) in pairs.items():
+                expect(a.dtype == dtype and a.shape == b.shape,
+                       f'favor_bwd {name} dtype/shape')
+            errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
+            if dtype == torch.float32:
+                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                la._favor_compose(*leaves, omega).backward(g)
+                for name, a, b in zip(('dq', 'dk', 'dv'), (dq, dk, dv), leaves):
+                    errs[f'{name} vs autograd'] = rel_err(a, b.grad)
+            line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+            name = str(dtype).replace('torch.', '')
+            print(f'phase 2c kernels #3/#4 {name} B={ENTRY_B} H={N_HEAD} L={L}: '
+                  f'rel err {line} (tol {tol})')
+            expect(max(errs.values()) <= tol, f'favor_bwd {name} L={L}')
+            if L == ENTRY_L and dtype == torch.bfloat16:
+                rec['favor_bwd_a']['max_abs_err'] = max(
+                    max_abs(dq, rdq), max_abs(u, ru), max_abs(w, rw))
+                rec['favor_bwd_b']['max_abs_err'] = max(max_abs(dk, rdk),
+                                                        max_abs(dv, rdv))
 
 
 def phase_kernel_b(dev, rec):
@@ -325,6 +496,141 @@ def phase_serve(model, omegas, vocab, dev):
                and pad not in s, f'job {j} stream')
 
 
+def phase_grad(vocab, dev):
+    """Full-width f32 loss and every parameter's gradient at B=2, L=1024,
+    dropout off, through the kernels and through the plain path (autograd
+    through the plain forward on the card).  Every parameter must get a
+    finite gradient that is not None and not all zero -- the q/k/v
+    projections get theirs only through favor_bwd_a/favor_bwd_b."""
+    from emo_disentanger_tpu_torch.models import performer as pm
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    model, omegas = build_model(vocab, dev)                # eval: no dropout
+    gen = torch.Generator().manual_seed(16)
+    tokens = torch.randint(0, vocab.size - 1, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+    seg = torch.randint(0, 2, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+    targets = torch.randint(0, vocab.size, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model.compute_loss(model(tokens, omegas, seg), targets)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad for n, p in model.named_parameters()}
+
+    n_bwd = _build.LAUNCHES['favor_bwd_a']
+    loss_k, got = loss_and_grads()
+    expect(_build.LAUNCHES['favor_bwd_a'] - n_bwd == N_LAYER,
+           'the kernel backward ran once a layer')
+    plain = lambda q, k, v, om: la._favor_compose(q, k, v, om).to(q.dtype)
+    pm.favor_causal_attention, kernel_path = plain, pm.favor_causal_attention
+    try:
+        loss_p, ref = loss_and_grads()
+    finally:
+        pm.favor_causal_attention = kernel_path
+    for name, g in got.items():
+        expect(g is not None and bool(torch.isfinite(g).all())
+               and float(g.abs().max()) > 0, f'gradient of {name}')
+    norm_err = lambda a, b: float((a - b).norm() / b.norm())
+    errs = {name: norm_err(got[name], ref[name]) for name in got}
+    worst = max(errs, key=errs.get)
+    qkv_err = max(e for n, e in errs.items() if 'attention.' in n)
+    elem = max(rel_err(got[n], ref[n]) for n in got)
+    print(f'phase 4b gradients {N_LAYER}L f32 B={ENTRY_B} L={ENTRY_L}: loss '
+          f'{loss_k:.6f} kernels vs {loss_p:.6f} plain; {len(got)} parameters '
+          f'all finite and non-zero; worst norm rel err {errs[worst]:.2e} '
+          f'({worst}), attention projections {qkv_err:.2e} (tol {TOL_GRAD}); '
+          f'worst largest-element rel err {elem:.2e}')
+    expect(abs(loss_k - loss_p) <= TOL_GRAD * abs(loss_p), 'loss matches')
+    expect(errs[worst] <= TOL_GRAD, 'gradients match the plain path')
+
+
+def phase_train(dev, smi):
+    """The training path: ``train_stage2.run`` (f32, B=4, L=3072, dropout
+    0.1, redraw 0.05, warmup 200, a checkpoint and the logs), then bf16
+    steps at B=16, L=3072 with launches per step, then a fixed batch whose
+    loss must fall.  Returns what phase 7b profiles."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.data.datasets import Stage2Dataset
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.train import train_stage2
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer, make_train_step,
+        stage2_performer_loss_fn)
+    from emo_disentanger_tpu_torch.utils.io import pickle_load
+    gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
+    with tempfile.TemporaryDirectory() as root:
+        config = write_corpus(root, np.random.RandomState(9))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = train_stage2.run(config, 'functional', max_epoch_override=1,
+                               max_batches_per_epoch=TRAIN_BATCHES, device=dev)
+        wall = time.time() - t0
+        secs = out['step_seconds']
+        ckpt = out['ckpt_dir']
+        files = sorted(os.listdir(os.path.join(ckpt, 'params')))
+        logs = {n: open(os.path.join(ckpt, n)).read().splitlines()
+                for n in ('log.txt', 'valloss.txt')}
+        print(f'phase 8a train_stage2.run f32 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/'
+              f'{D_FF}ff M={FAVOR} B={TRAIN_B} L={TRAIN_L} [{smi}]: '
+              f'{out["steps"]} steps, losses '
+              f'{[round(x, 5) for x in out["step_losses"]]}, step seconds '
+              f'{[round(x, 3) for x in secs]} ({TRAIN_B * TRAIN_L / min(secs):.0f} '
+              f'tokens/s at the fastest step), run {wall:.1f} s, peak '
+              f'{gib():.2f} GiB; wrote {files}, log.txt {len(logs["log.txt"])} '
+              f'lines, valloss.txt: {logs["valloss.txt"]}')
+        expect(out['steps'] == TRAIN_BATCHES
+               and all(np.isfinite(out['step_losses'])), 'f32 losses finite')
+        expect(any(f.startswith('ep001_loss') and f.endswith('_params.pt')
+                   for f in files)
+               and any(f.endswith('_optim.pt') for f in files),
+               'a checkpoint was written')
+        expect(len(logs['log.txt']) == 2 + TRAIN_BATCHES
+               and len(logs['valloss.txt']) == 1, 'the logs were written')
+
+        dconf = config['data_loader']
+        vocab = Vocab.load(dconf['vocab_path'])
+        dset = Stage2Dataset(dconf['data_path'], vocab,
+                             pieces=pickle_load(dconf['train_split']),
+                             model_dec_seqlen=TRAIN_L)
+    batch = batch_to_device(next(dset.batches(BF16_B, shuffle=False)), dev)
+    model, omegas = train_stage2.build_model_and_params(
+        config, vocab, device=dev, compute_dtype=torch.bfloat16)
+    extras = {'omegas': omegas}
+    loss_fn = stage2_performer_loss_fn(model, vocab.pad_id)
+    step = make_train_step(loss_fn, model, make_optimizer(
+        model.parameters(), OptimizerConfig()))
+    losses = [float(step(batch, extras)[0])]               # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = collections.Counter(_build.LAUNCHES)
+    t0 = time.time()
+    for _ in range(BF16_STEPS):
+        losses.append(float(step(batch, extras)[0]))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    per_step = {k: (_build.LAUNCHES[k] - before[k]) / BF16_STEPS
+                for k in ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')}
+    print(f'phase 8b bf16 train steps B={BF16_B} L={TRAIN_L} [{smi}]: '
+          f'{BF16_B * TRAIN_L * BF16_STEPS / secs:.0f} tokens/s '
+          f'({secs * 1e3 / BF16_STEPS:.1f} ms a step, host clock, synchronized), '
+          f'peak {gib():.2f} GiB, losses {[round(x, 5) for x in losses]}, '
+          f'launches per step {per_step}')
+    expect(all(np.isfinite(losses)), 'bf16 losses finite')
+    expect(all(p.dtype == torch.float32 for p in model.parameters()),
+           'master weights stay f32')
+    expect(all(n == N_LAYER for n in per_step.values()),
+           'each FAVOR kernel launched once a layer per step')
+
+    fixed = make_train_step(loss_fn, model, make_optimizer(
+        model.parameters(), OptimizerConfig(max_lr=1e-3, min_lr=1e-4,
+                                            warmup_steps=2, lr_decay_steps=100)))
+    falls = [float(fixed(batch, extras)[0]) for _ in range(8)]
+    print(f'phase 8c one bf16 batch, 8 steps, warmup 2, lr 1e-3: losses '
+          f'{[round(x, 4) for x in falls]}')
+    expect(np.mean(falls[-2:]) < np.mean(falls[:2]), 'the loss falls')
+    return step, batch, extras, secs / BF16_STEPS
+
+
 def phase_timing(dev, rec, smi):
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
@@ -372,12 +678,41 @@ def phase_timing(dev, rec, smi):
     rec['performer_decode_layer'].update(ms=t_d, plain_ms=p_d, bound_ms=b_d,
                                          bound_by=by_d)
 
+    # the backward passes at the bf16 train-step shape
+    B, L = BF16_B, TRAIN_L
+    BH = B * N_HEAD
+    q2, k2, v2, g2 = (t.reshape(BH, L, D_HEAD) for t in
+                      qkv(gen, B, N_HEAD, L, bf, dev)
+                      + qkv(gen, B, N_HEAD, L, bf, dev)[:1])
+    part = la._favor_kmax_cuda(k2, omega)
+    kmax = part.amax(1)
+    dq, u, w = la._favor_bwd_a_cuda(q2, k2, v2, g2, omega, part)
+    C = la.KERNEL_CHUNK
+    times = {
+        'favor_bwd_a': (
+            time_ms(lambda: la._favor_bwd_a_cuda(q2, k2, v2, g2, omega, part),
+                    iters=5, warmup=1),
+            time_ms(lambda: la._favor_bwd_a_plain(q2, k2, v2, g2, omega, kmax,
+                                                  C, dot_dtype=bf),
+                    iters=2, warmup=1)),
+        'favor_bwd_b': (
+            time_ms(lambda: la._favor_bwd_b_cuda(q2, k2, v2, u, w, omega, part),
+                    iters=5, warmup=1),
+            time_ms(lambda: la._favor_bwd_b_plain(q2, k2, v2, u, w, omega, kmax,
+                                                  C, dot_dtype=bf),
+                    iters=2, warmup=1)),
+    }
+    b_w, by_w = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, C, part.shape[1])
+    for name, (t, p) in times.items():
+        print(f'phase 6 kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
+              f'(plain {p:.4f}, bound {b_w:.4f} {by_w})')
+        rec[name].update(ms=t, plain_ms=p, bound_ms=b_w, bound_by=by_w)
+
 
 def phase_profile(model, omegas, vocab, dev, smi):
     """Where a serving step's time goes: a short serve() run timed on the
     host clock, then the same run under torch.profiler for device time by
     kernel (device events only, so nothing is counted twice)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
     primers, sheets = synthetic_jobs(vocab, SERVE_B, np.random.RandomState(6))
@@ -392,19 +727,34 @@ def phase_profile(model, omegas, vocab, dev, smi):
     expect(pstats['steps'] == stats['steps'], 'profiled run repeats the run')
     steps = stats['steps']
     wall = stats['wall_seconds'] * 1e3 / steps
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    busy, top = kernel_breakdown(prof, steps)
     if busy == 0:
         print('phase 7 profile: device time not measured (the profiler saw '
               'no device events)')
         return
-    top = '; '.join(f'{e.key[:48]} x{e.count // steps} '
-                    f'{e.self_device_time_total / 1e3 / steps:.4f}'
-                    for e in kern[:8])
     print(f'phase 7 profile serve B={SERVE_B}, {steps} steps [{smi}]: wall '
           f'{wall:.3f} ms/step, device busy {busy:.3f} ms/step (idle share '
           f'{1 - busy / wall:.3f}); device ms/step by kernel: {top}')
+
+
+def phase_profile_train(step, batch, extras, wall_ms, smi):
+    """Where a bf16 train step's device time goes: two steps under
+    torch.profiler, against the step's host-clock time from phase 8b."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(batch, extras)
+        torch.cuda.synchronize()
+    busy, top = kernel_breakdown(prof, 2, n_top=12)
+    if busy == 0:
+        print('phase 7b profile: device time not measured (the profiler saw '
+              'no device events)')
+        return
+    print(f'phase 7b profile bf16 train step B={BF16_B} L={TRAIN_L} [{smi}]: '
+          f'wall {wall_ms:.1f} ms/step (phase 8b), device busy {busy:.1f} '
+          f'ms/step (idle share {1 - busy / wall_ms:.3f}); device ms/step by '
+          f'kernel: {top}')
 
 
 def main():
@@ -429,24 +779,46 @@ def main():
         'performer_decode_layer': dict(
             route='cuda', source=src + 'performer_decode.cu',
             replaces='emo_disentanger_tpu/ops/performer_decode.py:59'),
+        'favor_bwd_a': dict(route='cuda', source=src + 'favor_bwd.cu',
+                            replaces='emo_disentanger_tpu/ops/linear_attention.py:578'),
+        'favor_bwd_b': dict(route='cuda', source=src + 'favor_bwd.cu',
+                            replaces='emo_disentanger_tpu/ops/linear_attention.py:644'),
     }
+    # each kernel's launches are read on the path it was ported for
+    paths = {'serving': ('favor_kmax', 'favor_fwd', 'performer_decode_layer'),
+             'training': ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')}
+    owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training'}
+    t_start = time.time()
     smi = phase_device()
     phase_kernel_a(dev, rec)
+    phase_kernel_c(dev, rec)
     phase_kernel_b(dev, rec)
 
     vocab = synthetic_vocab()
-    _build.LAUNCHES.clear()                  # the main path starts here
+    launches = {}
+    _build.LAUNCHES.clear()                  # the serving path starts here
     model, omegas = phase_model(vocab, dev)
     phase_serve(model, omegas, vocab, dev)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f'main path launches: {launches}')
+    launches['serving'] = dict(_build.LAUNCHES)
+
+    phase_grad(vocab, dev)
+    _build.LAUNCHES.clear()                  # the training path starts here
+    step, batch, extras, step_s = phase_train(dev, smi)
+    torch.cuda.synchronize()
+    launches['training'] = dict(_build.LAUNCHES)
+    for path, names in paths.items():
+        print(f'{path} path launches: {launches[path]}')
+        for name in names:
+            expect(launches[path].get(name, 0) > 0,
+                   f'{name} launched on the {path} path')
     for name, r in rec.items():
-        r['launches'] = launches.get(name, 0)
-        expect(r['launches'] > 0, f'{name} launched on the main path')
+        r['launches'] = launches[owner.get(name, 'serving')][name]
 
     phase_timing(dev, rec, smi)
     phase_profile(model, omegas, vocab, dev, smi)
+    phase_profile_train(step, batch, extras, step_s * 1e3, smi)
+    print(f'chip_smoke: all phases passed in {time.time() - t_start:.0f} s')
     kernels = [dict(name=name, library_ms=None, **r) for name, r in rec.items()]
     print(json.dumps({'kernels': kernels}))
     print(smi)

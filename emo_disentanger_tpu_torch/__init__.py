@@ -8,11 +8,17 @@ each counterpart is easy to find.
 Subpackages
 -----------
 core      vocabulary construction (copied constants and ``Vocab``)
-ops       FAVOR+ attention, the Performer decode layer, nucleus sampling;
-          hand-written Hopper kernels under ``csrc/`` built by ``ops._build``
-models    ``nn.Module`` Performer (forward + O(1)-state decode)
+ops       FAVOR+ attention (forward and backward), the Performer decode
+          layer, nucleus sampling; hand-written Hopper kernels under
+          ``csrc/`` built by ``ops._build``
+models    ``nn.Module`` Performer (training forward with dropout, loss,
+          O(1)-state decode)
+data      the stage-2 training dataset
+train     schedule, optimizer and train/eval steps, checkpoints, the
+          stage-2 driver ``train_stage2.run``
 infer     rule tables and the batched stage-2 generator / server
-utils     device resolution, serving precision
+cli       ``python -m emo_disentanger_tpu_torch.cli.train_stage2``
+utils     device resolution, serving precision, logs, file IO
 
 Entry points run on the GPU (``device='cuda'``) unless the caller passes
 ``device='cpu'``; on CPU tensors every kernel wrapper runs its plain PyTorch

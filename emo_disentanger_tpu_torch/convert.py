@@ -5,6 +5,10 @@ The inverse of ``convert_performer_pt`` in the JAX package
 becomes a torch ``weight`` [out, in], and a ``LayerNorm_0`` ``scale`` /
 ``bias`` pair becomes ``weight`` / ``bias``, under the reference
 checkpoint's names.
+
+A JAX gradient tree has the parameter tree's structure, so the same
+function maps ``jax.grad`` of a flax loss onto the port's parameter names
+(the tests hold the port's gradients against JAX's that way).
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ def _t(a) -> torch.Tensor:
 
 def flax_performer_to_torch(params: Dict[str, Any], n_layer: int
                             ) -> Dict[str, torch.Tensor]:
-    """``params`` is the ``{'params': {...}}`` tree flax's ``init`` returns,
-    as nested dicts of numpy arrays; returns a float32 CPU state dict for
+    """``params`` is the ``{'params': {...}}`` tree flax's ``init`` returns
+    (or a gradient tree of the same structure), as nested dicts of numpy
+    arrays; returns a float32 CPU state dict for
     ``MusicPerformer.load_state_dict`` (cast afterwards for bf16 serving)."""
     p = params['params']
     sd = {'token_emb.emb_lookup.weight': _t(p['token_emb']['embedding']),

@@ -5,7 +5,7 @@ Port of ``emo_disentanger_tpu/models/embeddings.py``:
 * ``TokenEmbedding`` scales by sqrt(d_proj); the optional bias-free ``proj``
   exists only when d_embed != d_proj.  Parameter names follow the reference
   checkpoint (``emb_lookup.weight``).
-* ``LayerNorm`` is ``nn.LayerNorm`` with eps 1e-5.
+* ``LayerNorm`` is ``nn.LayerNorm`` with eps 1e-5, in the input's dtype.
 * ``sinusoid_position_encoding`` interleaves sin (even features) and cos
   (odd features), the stage-2 convention.
 """
@@ -13,14 +13,20 @@ Port of ``emo_disentanger_tpu/models/embeddings.py``:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with eps 1e-5 (parameters ``weight``/``bias``)."""
+    """LayerNorm with eps 1e-5 (parameters ``weight``/``bias``), applied in
+    the input's dtype (its parameters cast to it)."""
 
     def __init__(self, d: int, *, device=None, dtype=None):
         super().__init__(d, eps=1e-5, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
 
 
 class TokenEmbedding(nn.Module):

@@ -1,9 +1,9 @@
 """Stage-2 model, option 1: Performer (FAVOR+ causal linear attention).
 
-Port of ``emo_disentanger_tpu/models/performer.py`` for serving: the
-deterministic forward and the O(1)-per-token decode (dropout and the loss
-come with training).  Token embedding scaled by sqrt(d), additive segment
-embedding, interleaved sinusoidal positions, post-norm layers of
+Port of ``emo_disentanger_tpu/models/performer.py``: the training forward
+(dropout at the JAX sites), the loss, and the O(1)-per-token decode.  Token
+embedding scaled by sqrt(d), additive segment embedding, interleaved
+sinusoidal positions, post-norm layers of
 attn -> add -> norm1 -> FF -> add -> norm2 with biased projections.
 
 Parameter names follow the reference checkpoint (``token_emb.emb_lookup``,
@@ -12,8 +12,24 @@ Parameter names follow the reference checkpoint (``token_emb.emb_lookup``,
 feature matrices ``omegas`` [n_layer, d_head, M] are explicit float32
 inputs, never parameters.
 
-The compute dtype follows the parameters' dtype (see ``utils.precision``);
-the vocabulary head runs in float32.
+Precision.  The forward computes in ``compute_dtype`` when it is given and
+in the parameters' dtype otherwise: the embedding sum is cast to it once,
+and every projection and LayerNorm casts its weights to the activations'
+dtype.  So bf16 training keeps float32 master weights (and float32 Adam
+state), computes in bf16 and gets float32 gradients through the casts, as
+the JAX modules with ``dtype=bfloat16`` do; serving casts the parameters
+themselves (``utils.precision.cast_params``).  The FAVOR+ kernels get bf16
+q/k/v under bf16 compute, so their bf16 path is the one that trains.  The
+vocabulary head runs in float32.  An explicit dtype was chosen over
+``torch.autocast`` because autocast would keep LayerNorm outputs and the
+residual stream in float32 and would also cast the float32 vocabulary head
+and the plain FAVOR+ scans to bf16.  The decode follows the parameters'
+dtype only.
+
+Dropout (rate ``dropout``, 0.1 by default) sits where the JAX model has it:
+on the embedding sum and, in each layer, on ``out_proj(attn)`` before the
+residual, on ``relu(linear1)`` and on ``linear2`` -- 1 + 3 * n_layer sites.
+It is active in ``train()`` mode only.
 """
 
 from __future__ import annotations
@@ -27,7 +43,14 @@ from torch import nn
 from ..ops.linear_attention import draw_orthogonal_features, favor_causal_attention
 from ..ops.performer_decode import fused_decode_layer
 from ..utils.device import resolve_device
+from .dropout import Dropout
 from .embeddings import LayerNorm, TokenEmbedding, sinusoid_position_encoding
+from .txl import masked_cross_entropy
+
+
+def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``mod`` applied in ``x``'s dtype (its weights cast to it)."""
+    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
 
 
 class AttentionLayer(nn.Module):
@@ -43,7 +66,8 @@ class AttentionLayer(nn.Module):
 
 
 class PerformerLayer(nn.Module):
-    def __init__(self, n_head: int, d_model: int, d_ff: int, *, device=None):
+    def __init__(self, n_head: int, d_model: int, d_ff: int,
+                 dropout: float = 0.1, *, device=None):
         super().__init__()
         self.n_head = n_head
         self.attention = AttentionLayer(d_model, device=device)
@@ -51,19 +75,22 @@ class PerformerLayer(nn.Module):
         self.linear2 = nn.Linear(d_ff, d_model, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         """x [B, L, D]; omega [d_head, M]."""
         B, L, D = x.shape
         a = self.attention
         heads = lambda t: t.reshape(B, L, self.n_head, -1).transpose(1, 2)
-        attn = favor_causal_attention(heads(a.query_projection(x)),
-                                      heads(a.key_projection(x)),
-                                      heads(a.value_projection(x)), omega)
+        attn = favor_causal_attention(heads(_linear(a.query_projection, x)),
+                                      heads(_linear(a.key_projection, x)),
+                                      heads(_linear(a.value_projection, x)),
+                                      omega)
         attn = attn.to(x.dtype).transpose(1, 2).reshape(B, L, D)
-        x = x + a.out_projection(attn)
+        x = x + self.drop(_linear(a.out_projection, attn))
         y = x = self.norm1(x)
-        y = self.linear2(F.relu(self.linear1(y)))
+        y = self.drop(F.relu(_linear(self.linear1, y)))
+        y = self.drop(_linear(self.linear2, y))
         return self.norm2(x + y)
 
     def decode_params(self) -> Dict[str, torch.Tensor]:
@@ -90,11 +117,11 @@ class PerformerLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, n_layer: int, n_head: int, d_model: int, d_ff: int, *,
-                 device=None):
+    def __init__(self, n_layer: int, n_head: int, d_model: int, d_ff: int,
+                 dropout: float = 0.1, *, device=None):
         super().__init__()
         self.decoder_layers = nn.ModuleList(
-            PerformerLayer(n_head, d_model, d_ff, device=device)
+            PerformerLayer(n_head, d_model, d_ff, dropout, device=device)
             for _ in range(n_layer))
 
 
@@ -103,9 +130,10 @@ class MusicPerformer(nn.Module):
 
     def __init__(self, n_token: int, n_layer: int = 12, n_head: int = 8,
                  d_model: int = 512, d_ff: int = 2048, d_embed: int = 512,
-                 favor_dims: int = 128, use_segment_emb: bool = True,
-                 n_segment_types: int = 2, use_pe: bool = True,
-                 max_len: int = 12000, *,
+                 dropout: float = 0.1, favor_dims: int = 128,
+                 use_segment_emb: bool = True, n_segment_types: int = 2,
+                 use_pe: bool = True, max_len: int = 12000, *,
+                 compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -118,11 +146,13 @@ class MusicPerformer(nn.Module):
         self.favor_dims = favor_dims
         self.use_pe = use_pe
         self.max_len = max_len
+        self.compute_dtype = compute_dtype
         self.token_emb = TokenEmbedding(n_token, d_embed, d_model, device=dev)
         self.segemb = (TokenEmbedding(n_segment_types, d_embed, d_model,
                                       device=dev) if use_segment_emb else None)
+        self.emb_dropout = Dropout(dropout)
         self.transformer_decoder = TransformerDecoder(n_layer, n_head, d_model,
-                                                      d_ff, device=dev)
+                                                      d_ff, dropout, device=dev)
         self.dec_out_proj = nn.Linear(d_model, n_token, device=dev)
         self.register_buffer('pe', sinusoid_position_encoding(
             max_len, d_embed, device=dev), persistent=False)
@@ -176,8 +206,12 @@ class MusicPerformer(nn.Module):
                 seg: Optional[torch.Tensor] = None, *,
                 keep_last_only: bool = False) -> torch.Tensor:
         """tokens [B, L], omegas [n_layer, d_head, M] -> logits [B, L, V]
-        float32 ([B, V] with ``keep_last_only``)."""
+        float32 ([B, V] with ``keep_last_only``).  Dropout is active in
+        ``train()`` mode."""
         h = self._embed(tokens, seg, self.pe[:tokens.shape[1]])
+        if self.compute_dtype is not None:
+            h = h.to(self.compute_dtype)
+        h = self.emb_dropout(h)
         for i, layer in enumerate(self.layers):
             h = layer(h, omegas[i])
         if keep_last_only:
@@ -225,3 +259,9 @@ class MusicPerformer(nn.Module):
             h = layer.decode_step(h, omegas[i], state['S'][i], state['z'][i],
                                   mask)
         return self._logits(h), state
+
+    def compute_loss(self, logits: torch.Tensor, targets: torch.Tensor
+                     ) -> torch.Tensor:
+        """Cross-entropy ignoring PAD (= n_token - 1), reference
+        ``music_performer.py:72-81``."""
+        return masked_cross_entropy(logits, targets, self.n_token - 1)

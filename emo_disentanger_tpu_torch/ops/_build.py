@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout, then loaded with ``ctypes``.  A library's file name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-build is never loaded.  ``build()`` starts one ``nvcc`` per source at once
-and waits for all of them.
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale build is never loaded.
+``build()`` starts one ``nvcc`` per source at once and waits for all of
+them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code.  ``LAUNCHES`` counts, per kernel
@@ -26,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
-SOURCES = ('favor_fwd', 'performer_decode')
+SOURCES = ('favor_fwd', 'favor_bwd', 'performer_decode')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
@@ -43,8 +44,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()
+    text = [(CSRC / f'{name}.cu').read_bytes()]
+    text += [h.read_bytes() for h in sorted(CSRC.glob('*.cuh'))]
+    digest = hashlib.sha256(b''.join(text)
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 

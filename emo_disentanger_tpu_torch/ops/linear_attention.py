@@ -5,19 +5,34 @@ Port of ``emo_disentanger_tpu/ops/linear_attention.py``:
 * :func:`favor_features` — positive softmax-kernel features
   phi(x) = exp(w^T x' - ||x'||^2/2) / sqrt(m), x' = x * d^{-1/4};
 * :func:`causal_linear_attention_ref` — the O(L^2) masked ground truth;
-* :func:`favor_causal_attention` — the forward of the fused op.  On CUDA
-  tensors it runs the hand-written kernels of ``csrc/favor_fwd.cu``
-  (``favor_kmax``: the key stabilizer; ``favor_fwd``: feature maps and the
-  chunked causal prefix sum); on CPU tensors it runs the plain version,
-  :func:`_favor_compose` (feature maps + the chunked scan);
+* :func:`favor_causal_attention` — the fused op, differentiable in q, k and
+  v (omega's gradient is None: omega is a random-feature input, never a
+  parameter).  On CUDA tensors it runs the hand-written kernels of
+  ``csrc/favor_fwd.cu`` (``favor_kmax``: the key stabilizer; ``favor_fwd``:
+  feature maps and the chunked causal prefix sum) and, backward, those of
+  ``csrc/favor_bwd.cu`` (``favor_bwd_a``: the forward replay, dq and the
+  (u, w) residual; ``favor_bwd_b``: the reverse suffix scan, dk and dv).
+  On CPU tensors it runs the plain versions: :func:`_favor_compose`
+  (feature maps + the chunked scan) forward, :func:`_favor_bwd_a_plain` and
+  :func:`_favor_bwd_b_plain` backward;
 * :func:`linear_attention_decode_step` — the O(1)-per-token decode step.
 
-Numerics: all accumulation in float32; the stabilizers (per-position max for
-queries, one max per batch*head row for keys) cancel in the normalization.
-For L % chunk != 0 the JAX fused kernel also takes the key max over the
-zero-padded rows (h = 0 there); the port takes it over the true L, as the
-JAX composed path does.  The two differ only at the level of the 1e-6
-denominator eps.
+Numerics: all accumulation in float32 (float64 for float64 inputs, which
+only the gradient check uses); the stabilizers (per-position max for
+queries, one max per batch*head row for keys) cancel in the normalization
+and carry no gradient.  For L % chunk != 0 the JAX fused kernel also takes
+the key max over the zero-padded rows (h = 0 there); the port takes it over
+the true L, as the JAX composed path does.  The two differ only at the level
+of the 1e-6 denominator eps.
+
+Backward (derivation in the JAX module, ``:231-243``): with out_i = N_i/D_i
+and g = dL/dout, u_i = g_i/D_i and w_i = -(g_i . out_i)/D_i;
+dphi_q_i = S_i u_i + w_i z_i from the prefix states (pass A, forward
+order), dv_j = phi_k_j R_j and dphi_k_j = R_j v_j + r_j from the suffix
+states R_j = sum_{i>=j} phi_q_i u_i^T, r_j = sum_{i>=j} w_i phi_q_i (pass
+B, reverse order); dx follows from dphi through the feature map
+(:func:`_dphi_to_dx`).  The forward saves q, k, v and the key maxima, not
+phi (the JAX residual choice, ``:466-481``).
 """
 
 from __future__ import annotations
@@ -37,6 +52,11 @@ CHUNK = 128
 # differs from other chunk sizes only in float summation order.  Shapes
 # whose tiles exceed shared memory are refused by the launch itself.
 KERNEL_CHUNK = 64
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32 accumulation, float64 for float64 inputs."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -66,18 +86,20 @@ def draw_orthogonal_features(d_head: int, n_dims: int,
 
 def favor_features(x: torch.Tensor, omega: torch.Tensor, *, is_query: bool,
                    key_stabilizer: Optional[float] = None) -> torch.Tensor:
-    """phi(x) for x [..., L, D] -> [..., L, M] (float32).
+    """phi(x) for x [..., L, D] -> [..., L, M] (float32; float64 for float64
+    x).
 
     Queries subtract their per-position max over features; keys subtract one
     scalar per batch*head (their max over (L, M)), or ``key_stabilizer``
-    when given (0 during decode, so the running state keeps one scale)."""
-    x = x.float()
-    xs = x * x.shape[-1] ** -0.25
-    h = xs @ omega.float() - 0.5 * (xs * xs).sum(-1, keepdim=True)
-    if is_query:
-        h = h - h.amax(-1, keepdim=True)
+    when given (0 during decode, so the running state keeps one scale; a
+    tensor broadcasts against h [..., L, M])."""
+    acc = _acc_dtype(x)
+    xs = x.to(acc) * x.shape[-1] ** -0.25
+    h = xs @ omega.to(acc) - 0.5 * (xs * xs).sum(-1, keepdim=True)
+    if is_query:                     # stabilizers carry no gradient
+        h = h - h.amax(-1, keepdim=True).detach()
     elif key_stabilizer is None:
-        h = h - h.amax(dim=(-2, -1), keepdim=True)
+        h = h - h.amax(dim=(-2, -1), keepdim=True).detach()
     else:
         h = h - key_stabilizer
     return torch.exp(h) / math.sqrt(omega.shape[-1])
@@ -101,12 +123,13 @@ def causal_linear_attention_ref(phi_q: torch.Tensor, phi_k: torch.Tensor,
 def _scan_impl(phi_q: torch.Tensor, phi_k: torch.Tensor, v: torch.Tensor,
                chunk: int, eps: float) -> torch.Tensor:
     """[BH, L, M] x [BH, L, Dv] -> [BH, L, Dv]; L must divide by chunk.
-    The running (S, z) state is carried from chunk to chunk in float32."""
+    The running (S, z) state is carried from chunk to chunk in the
+    features' type (float32, or float64 for float64 inputs)."""
     bh, L, M = phi_q.shape
     Dv = v.shape[-1]
     tri = torch.ones(chunk, chunk, dtype=phi_q.dtype, device=phi_q.device).tril()
-    S = torch.zeros(bh, M, Dv, dtype=torch.float32, device=phi_q.device)
-    z = torch.zeros(bh, M, dtype=torch.float32, device=phi_q.device)
+    S = torch.zeros(bh, M, Dv, dtype=phi_q.dtype, device=phi_q.device)
+    z = torch.zeros(bh, M, dtype=phi_q.dtype, device=phi_q.device)
     outs = []
     for c0 in range(0, L, chunk):
         q = phi_q[:, c0:c0 + chunk]
@@ -139,18 +162,134 @@ def _padded_call(impl, phi_q, phi_k, v, chunk, eps):
 
 def _favor_compose(q, k, v, omega, chunk=CHUNK, eps=EPS):
     """Plain version of the fused forward: favor_features + the chunked
-    scan, float32 out."""
+    scan, float32 out (float64 for float64 inputs).  Differentiable by
+    autograd, so it is also the reference for the backward."""
     phi_q = favor_features(q, omega, is_query=True)
     phi_k = favor_features(k, omega, is_query=False)
-    return _padded_call(_scan_impl, phi_q, phi_k, v.float(), chunk, eps)
+    return _padded_call(_scan_impl, phi_q, phi_k, v.to(phi_q.dtype), chunk, eps)
 
 
 def _key_max_plain(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """Plain version of the key-stabilizer pass: [BH, L, Dh] -> [BH], the
     max over (L, M) of h = ks @ omega - ||ks||^2/2."""
-    ks = k2.float() * k2.shape[-1] ** -0.25
-    h = ks @ omega.float() - 0.5 * (ks * ks).sum(-1, keepdim=True)
+    acc = _acc_dtype(k2)
+    ks = k2.to(acc) * k2.shape[-1] ** -0.25
+    h = ks @ omega.to(acc) - 0.5 * (ks * ks).sum(-1, keepdim=True)
     return h.amax(dim=(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# plain backward: the two passes of the fused kernels as chunked scans
+# ---------------------------------------------------------------------------
+
+def _dot_dtype_for(x: torch.Tensor) -> Optional[torch.dtype]:
+    """The dot-operand type of the fused kernels: bf16 operands (with
+    float32 accumulation) under bf16 inputs, exact operands otherwise."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else None
+
+
+def _features_padded(x, omega, stab, L_pad):
+    """(phi [BH, L_pad, M], xs [BH, L_pad, D]) in the accumulation type, with
+    ``stab`` None for queries (per-position max) or the key maxima [BH];
+    rows past the true L are zero in both."""
+    acc = _acc_dtype(x)
+    phi = favor_features(x, omega, is_query=stab is None,
+                         key_stabilizer=None if stab is None
+                         else stab.to(acc)[:, None, None])
+    xs = x.to(acc) * x.shape[-1] ** -0.25
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, L_pad - x.shape[1]))
+    return pad(phi), pad(xs)
+
+
+def _dphi_to_dx(dphi, phi, xs, omega, scale):
+    """Chain rule through phi = exp(xs @ omega - ||xs||^2/2), stabilizers
+    held constant: dx = scale * ((dphi*phi) @ omega^T - rowsum(dphi*phi) xs),
+    in the accumulation type (omega's product stays exact)."""
+    t = dphi * phi
+    return (t @ omega.t() - t.sum(-1, keepdim=True) * xs) * scale
+
+
+def _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, extra=()):
+    acc = _acc_dtype(q)
+    L = q.shape[1]
+    Lp = L + (-L) % chunk
+    om = omega.to(acc)
+    phi_q, qs = _features_padded(q, om, None, Lp)
+    phi_k, ks = _features_padded(k, om, kmax, Lp)
+    pad = lambda t: torch.nn.functional.pad(t.to(acc), (0, 0, 0, Lp - L))
+    c = ((lambda t: t.to(dot_dtype).to(acc)) if dot_dtype is not None
+         else (lambda t: t))
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
+    return (acc, L, Lp, om, phi_q, qs, phi_k, ks, pad(v),
+            [pad(t) for t in extra], c, tri, q.shape[-1] ** -0.25)
+
+
+def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
+                       eps: float = EPS, dot_dtype: Optional[torch.dtype] = None):
+    """Plain version of ``favor_bwd_a`` (pass A): replay the forward scan
+    over chunks carrying (S, z), and return dq [BH, L, Dh] (accumulation
+    type), u = g/den [BH, L, Dv] and w = -(g . out)/den [BH, L], the last
+    two stored in ``dot_dtype`` when given (the bf16 residual of the TPU
+    kernel) and in the accumulation type otherwise.  q/k [BH, L, Dh],
+    v/g [BH, L, Dv], omega [Dh, M], kmax [BH] the key maxima.
+    ``dot_dtype`` rounds exactly the operands of the products that the TPU
+    kernel rounds (``_fused_bwd_a_kernel``); omega's product stays exact."""
+    (acc, L, Lp, om, phi_q, qs, phi_k, _, v, (g,), c, tri,
+     scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, (g,))
+    bh, M, Dv = q.shape[0], om.shape[1], v.shape[-1]
+    S = torch.zeros(bh, M, Dv, dtype=acc, device=q.device)
+    z = torch.zeros(bh, M, dtype=acc, device=q.device)
+    res = dot_dtype or acc
+    dqs, us, ws = [], [], []
+    for c0 in range(0, Lp, chunk):
+        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
+        vv, gg = v[:, c0:c0 + chunk], g[:, c0:c0 + chunk]
+        intra = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
+        num = c(intra) @ c(vv) + c(pq) @ c(S)
+        den = intra.sum(-1) + (c(pq) @ c(z)[:, :, None])[..., 0] + eps
+        out = num / den[..., None]
+        u = gg / den[..., None]
+        w = -(gg * out).sum(-1) / den
+        a = (c(u) @ c(vv).transpose(1, 2) + w[..., None]).masked_fill(~tri, 0.0)
+        dphi = (c(a) @ c(pk) + c(u) @ c(S).transpose(1, 2)
+                + w[..., None] * z[:, None, :])
+        dqs.append(_dphi_to_dx(dphi, pq, qs[:, c0:c0 + chunk], om, scale))
+        us.append(u.to(res))
+        ws.append(w.to(res))
+        S = S + c(pk).transpose(1, 2) @ c(vv)
+        z = z + pk.sum(1)
+    cat = lambda ts: torch.cat(ts, dim=1)[:, :L]
+    return cat(dqs), cat(us), cat(ws)
+
+
+def _favor_bwd_b_plain(q, k, v, u, w, omega, kmax, chunk: int = CHUNK,
+                       dot_dtype: Optional[torch.dtype] = None):
+    """Plain version of ``favor_bwd_b`` (pass B): scan the chunks in reverse
+    carrying the suffix states R = sum phi_q u^T [M, Dv] and
+    r = sum w phi_q [M]; return dk [BH, L, Dh] and dv [BH, L, Dv] in the
+    accumulation type.  u [BH, L, Dv] and w [BH, L] come from pass A;
+    ``dot_dtype`` rounds the operands ``_fused_bwd_b_kernel`` rounds."""
+    (acc, L, Lp, om, phi_q, _, phi_k, ks, v, (u, w), c, tri,
+     scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype,
+                         (u, w[..., None]))
+    w = w[..., 0]
+    bh, M, Dv = q.shape[0], om.shape[1], v.shape[-1]
+    R = torch.zeros(bh, M, Dv, dtype=acc, device=q.device)
+    r = torch.zeros(bh, M, dtype=acc, device=q.device)
+    dks, dvs = [], []
+    for c0 in reversed(range(0, Lp, chunk)):
+        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
+        vv, uu, ww = v[:, c0:c0 + chunk], u[:, c0:c0 + chunk], w[:, c0:c0 + chunk]
+        a = (c(uu) @ c(vv).transpose(1, 2) + ww[..., None]).masked_fill(~tri, 0.0)
+        p = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
+        dphi = (c(a).transpose(1, 2) @ c(pq) + c(vv) @ c(R).transpose(1, 2)
+                + r[:, None, :])
+        dvs.append(c(p).transpose(1, 2) @ c(uu) + c(pk) @ c(R))
+        dks.append(_dphi_to_dx(dphi, pk, ks[:, c0:c0 + chunk], om, scale))
+        R = R + c(pq).transpose(1, 2) @ c(uu)
+        r = r + (ww[..., None] * pq).sum(1)
+    cat = lambda ts: torch.cat(ts[::-1], dim=1)[:, :L]
+    return cat(dks), cat(dvs)
 
 
 # ---------------------------------------------------------------------------
@@ -237,28 +376,153 @@ def _favor_fwd_cuda(q2, k2, v2, omega, partial, eps=EPS) -> torch.Tensor:
     return out
 
 
+_BWD_SIGNATURES = {
+    # (q, k, v, g, omega, partial, dq, u, w, BH, L, Dh, Dv, M, n_partial,
+    #  bf16, eps, stream)
+    'favor_bwd_a': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _I, ctypes.c_float, _P],
+    # (q, k, v, u, w, omega, partial, dk, dv, BH, L, Dh, Dv, M, n_partial,
+    #  bf16, stream)
+    'favor_bwd_b': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _I, _P],
+}
+
+
+def _bwd_lib():
+    return _build.library('favor_bwd', _BWD_SIGNATURES)
+
+
+def _check_bwd_shapes(name, q2, k2, v2, omega, partial):
+    BH, L, Dh = q2.shape
+    Dv, M = v2.shape[2], omega.shape[1]
+    if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
+            or omega.shape[0] != Dh or partial.shape[0] != BH):
+        raise ValueError(f'{name}: mismatched shapes q {tuple(q2.shape)} k '
+                         f'{tuple(k2.shape)} v {tuple(v2.shape)} omega '
+                         f'{tuple(omega.shape)} partial {tuple(partial.shape)}')
+    if M % 4 or Dv % 4 or Dh % 4:
+        raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must be '
+                         f'multiples of 4')
+    return BH, L, Dh, Dv, M
+
+
+def _favor_bwd_a_cuda(q2, k2, v2, g2, omega, partial, eps=EPS):
+    """Launch ``favor_bwd_a`` (pass A) on [BH, L, Dh] q/k, [BH, L, Dv] v and
+    g (one dtype), omega [Dh, M] f32 and the key maxima of
+    :func:`_favor_kmax_cuda` [BH, n] f32.  Returns dq [BH, L, Dh] in q's
+    dtype, u [BH, L, Dv] and w [BH, L] in q's dtype (bf16 under bf16)."""
+    dev = q2.device
+    _check_cuda('q', q2, (torch.float32, torch.bfloat16), 3, dev)
+    for name, t in (('k', k2), ('v', v2), ('g', g2)):
+        _check_cuda(name, t, (q2.dtype,), 3, dev)
+    _check_cuda('omega', omega, (torch.float32,), 2, dev)
+    _check_cuda('partial', partial, (torch.float32,), 2, dev)
+    BH, L, Dh, Dv, M = _check_bwd_shapes('favor_bwd_a', q2, k2, v2, omega,
+                                         partial)
+    if g2.shape != v2.shape:
+        raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
+                         f'{tuple(v2.shape)}')
+    dq = torch.empty_like(q2)
+    u = torch.empty_like(v2)
+    w = torch.empty(BH, L, dtype=q2.dtype, device=dev)
+    lib = _bwd_lib()
+    err = lib.favor_bwd_a(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                          g2.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+                          dq.data_ptr(), u.data_ptr(), w.data_ptr(),
+                          BH, L, Dh, Dv, M, partial.shape[1],
+                          int(q2.dtype == torch.bfloat16), eps,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, 'favor_bwd_a')
+    _build.LAUNCHES['favor_bwd_a'] += 1
+    return dq, u, w
+
+
+def _favor_bwd_b_cuda(q2, k2, v2, u, w, omega, partial):
+    """Launch ``favor_bwd_b`` (pass B) on the inputs of pass A and its
+    (u, w); returns dk [BH, L, Dh] and dv [BH, L, Dv] in q's dtype."""
+    dev = q2.device
+    _check_cuda('q', q2, (torch.float32, torch.bfloat16), 3, dev)
+    for name, t in (('k', k2), ('v', v2), ('u', u)):
+        _check_cuda(name, t, (q2.dtype,), 3, dev)
+    _check_cuda('w', w, (q2.dtype,), 2, dev)
+    _check_cuda('omega', omega, (torch.float32,), 2, dev)
+    _check_cuda('partial', partial, (torch.float32,), 2, dev)
+    BH, L, Dh, Dv, M = _check_bwd_shapes('favor_bwd_b', q2, k2, v2, omega,
+                                         partial)
+    if u.shape != v2.shape or tuple(w.shape) != (BH, L):
+        raise ValueError(f'favor_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} '
+                         f'vs v {tuple(v2.shape)}')
+    dk = torch.empty_like(k2)
+    dv = torch.empty_like(v2)
+    lib = _bwd_lib()
+    err = lib.favor_bwd_b(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+                          u.data_ptr(), w.data_ptr(), omega.data_ptr(),
+                          partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          BH, L, Dh, Dv, M, partial.shape[1],
+                          int(q2.dtype == torch.bfloat16),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, 'favor_bwd_b')
+    _build.LAUNCHES['favor_bwd_b'] += 1
+    return dk, dv
+
+
+class _FavorAttention(torch.autograd.Function):
+    """[BH, L, Dh] q/k, [BH, L, Dv] v, omega [Dh, M] -> [BH, L, Dv] in q's
+    dtype.  Saves q, k, v and the key maxima (the forward's own, reused by
+    the backward); omega gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, omega, chunk, eps):
+        if q2.device.type == 'cpu':
+            kmax = _key_max_plain(k2, omega)
+            out = _favor_compose(q2, k2, v2, omega, chunk, eps).to(q2.dtype)
+        else:
+            kmax = _favor_kmax_cuda(k2, omega)
+            out = _favor_fwd_cuda(q2, k2, v2, omega, kmax, eps)
+        ctx.save_for_backward(q2, k2, v2, omega, kmax)
+        ctx.chunk, ctx.eps = chunk, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q2, k2, v2, omega, kmax = ctx.saved_tensors
+        g2 = g.to(q2.dtype).contiguous()
+        if q2.device.type == 'cpu':
+            dt = _dot_dtype_for(q2)
+            dq, u, w = _favor_bwd_a_plain(q2, k2, v2, g2, omega, kmax,
+                                          ctx.chunk, ctx.eps, dt)
+            dk, dv = _favor_bwd_b_plain(q2, k2, v2, u, w, omega, kmax,
+                                        ctx.chunk, dt)
+        else:
+            dq, u, w = _favor_bwd_a_cuda(q2, k2, v2, g2, omega, kmax, ctx.eps)
+            dk, dv = _favor_bwd_b_cuda(q2, k2, v2, u, w, omega, kmax)
+        return (dq.to(q2.dtype), dk.to(k2.dtype), dv.to(v2.dtype),
+                None, None, None)
+
+
 def favor_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            omega: torch.Tensor, chunk: int = CHUNK,
                            eps: float = EPS) -> torch.Tensor:
-    """FAVOR+ causal linear attention, forward.  q/k [..., L, Dh] raw
-    projections, v [..., L, Dv], omega [Dh, M].  Returns [..., L, Dv] in
-    q's dtype, accumulated in float32.  The same function as
-    ``causal_linear_attention_ref(favor_features(q), favor_features(k), v)``.
+    """FAVOR+ causal linear attention.  q/k [..., L, Dh] raw projections,
+    v [..., L, Dv], omega [Dh, M].  Returns [..., L, Dv] in q's dtype,
+    accumulated in float32.  The same function as
+    ``causal_linear_attention_ref(favor_features(q), favor_features(k), v)``,
+    differentiable in q, k and v.
 
-    CPU tensors run the plain version (chunked by ``chunk``); CUDA tensors
-    launch ``favor_kmax`` and ``favor_fwd``, which mask the ragged last chunk
-    themselves.  Under bf16 inputs the kernels round the chunk products'
-    operands to bf16 with float32 accumulation, as the TPU kernel does."""
+    CPU tensors run the plain versions (chunked by ``chunk``); CUDA tensors
+    launch ``favor_kmax`` and ``favor_fwd`` forward and ``favor_bwd_a`` and
+    ``favor_bwd_b`` backward, which mask the ragged last chunk themselves.
+    Under bf16 inputs the kernels round the chunk products' operands to bf16
+    with float32 accumulation, as the TPU kernels do, and keep the (u, w)
+    residual in bf16."""
     *lead, L, Dh = q.shape
     Dv = v.shape[-1]
-    if q.device.type == 'cpu':
-        return _favor_compose(q, k, v, omega, chunk, eps).to(q.dtype)
     bh = math.prod(lead)
     q2 = q.reshape(bh, L, Dh).contiguous()
     k2 = k.reshape(bh, L, Dh).contiguous()
     v2 = v.reshape(bh, L, Dv).contiguous()
-    om = omega.float().contiguous()
-    out = _favor_fwd_cuda(q2, k2, v2, om, _favor_kmax_cuda(k2, om), eps)
+    om = omega.to(_acc_dtype(q)).contiguous()
+    out = _FavorAttention.apply(q2, k2, v2, om, chunk, eps)
     return out.reshape(*lead, L, Dv)
 
 

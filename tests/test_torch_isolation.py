@@ -63,3 +63,20 @@ def test_kernel_wrappers_never_fall_back():
         la._favor_fwd_cuda(x, x, x, om, torch.zeros(2, 1))
     with pytest.raises(ValueError, match='CUDA tensors'):
         pd._decode_layer_cuda(torch.zeros(2, 8), None, None, {}, om, None, 2)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        la._favor_bwd_a_cuda(x, x, x, x, om, torch.zeros(2, 1))
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        la._favor_bwd_b_cuda(x, x, x, x, torch.zeros(2, 16), om, torch.zeros(2, 1))
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """``train_stage2.run`` and the CLI raise without CUDA unless asked for
+    the CPU, before they read any file."""
+    from emo_disentanger_tpu_torch.cli import train_stage2 as cli
+    from emo_disentanger_tpu_torch.train import train_stage2
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train_stage2.run({}, 'functional')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        cli.main(['-m', 'performer', '-c', 'pop1k7_pretrain.yaml',
+                  '-r', 'functional'])

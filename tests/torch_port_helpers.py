@@ -40,7 +40,7 @@ def model_pair(n_token: int, *, seed: int = 0, std: float = 0.05,
     params = jax.tree.map(np.array, fill_params(params, seed, std))
     if bias_fn is not None:
         bias_fn(params['params']['out_proj']['bias'])
-    tm = TorchPerformer(n_token=n_token, device='cpu', **SMALL)
+    tm = TorchPerformer(n_token=n_token, dropout=0.0, device='cpu', **SMALL)
     tm.load_state_dict(flax_performer_to_torch(params, SMALL['n_layer']))
     params = jax.tree.map(jnp.asarray, params)
     return jm, params, jom, tm.eval(), torch.from_numpy(np.array(jom))
