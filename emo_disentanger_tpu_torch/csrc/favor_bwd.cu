@@ -42,7 +42,9 @@
 //
 // bf16: under bf16 inputs the operands the TPU kernels round are rounded
 // (_dot_dtype_for): phi_q, phi_k, the scores, a, u, S and R, with f32
-// accumulation; omega's product, w, z and r stay f32.  u and w are stored
+// accumulation; z is rounded as an operand of the denominator's product
+// (phi_q . z), as the TPU kernel does, and kept f32 in the w z term;
+// omega's product, w and r stay f32.  u and w are stored
 // in bf16 (the TPU's bf16 uw residual), and pass B reads them back rounded.
 
 #include "favor_common.cuh"

@@ -29,7 +29,17 @@ dtype only.
 Dropout (rate ``dropout``, 0.1 by default) sits where the JAX model has it:
 on the embedding sum and, in each layer, on ``out_proj(attn)`` before the
 residual, on ``relu(linear1)`` and on ``linear2`` -- 1 + 3 * n_layer sites.
-It is active in ``train()`` mode only.
+It is active in ``train()`` mode only, so serving calls ``eval()`` first.
+It is ``nn.Dropout`` with the reference PyTorch model's semantics
+(``stage2_accompaniment/model/fast_transformer_decoder.py``): each element
+is zeroed with probability ``dropout`` exactly and the survivors scaled by
+1 / (1 - dropout), drawn by torch's own generator (Philox on CUDA).  The
+JAX package defaults to another draw (``models/dropout.py:11-21,53-58``): a
+uint8 mask compared against round(rate * 256), which quantizes rate 0.1 to
+26/256 = 0.1016.  That is a TPU economy of random bits, not a property of
+the model; ``EMODIS_DROPOUT_BITECON=0`` gives the JAX package the semantics
+kept here.  Neither framework reproduces the other's random stream, so the
+two are compared by distribution only.
 """
 
 from __future__ import annotations
@@ -43,7 +53,6 @@ from torch import nn
 from ..ops.linear_attention import draw_orthogonal_features, favor_causal_attention
 from ..ops.performer_decode import fused_decode_layer
 from ..utils.device import resolve_device
-from .dropout import Dropout
 from .embeddings import LayerNorm, TokenEmbedding, sinusoid_position_encoding
 from .txl import masked_cross_entropy
 
@@ -66,8 +75,8 @@ class AttentionLayer(nn.Module):
 
 
 class PerformerLayer(nn.Module):
-    def __init__(self, n_head: int, d_model: int, d_ff: int,
-                 dropout: float = 0.1, *, device=None):
+    def __init__(self, n_head: int, d_model: int, d_ff: int, *,
+                 dropout: float = 0.1, device=None):
         super().__init__()
         self.n_head = n_head
         self.attention = AttentionLayer(d_model, device=device)
@@ -75,7 +84,7 @@ class PerformerLayer(nn.Module):
         self.linear2 = nn.Linear(d_ff, d_model, device=device)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
-        self.drop = Dropout(dropout)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         """x [B, L, D]; omega [d_head, M]."""
@@ -117,11 +126,11 @@ class PerformerLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    def __init__(self, n_layer: int, n_head: int, d_model: int, d_ff: int,
-                 dropout: float = 0.1, *, device=None):
+    def __init__(self, n_layer: int, n_head: int, d_model: int, d_ff: int, *,
+                 dropout: float = 0.1, device=None):
         super().__init__()
         self.decoder_layers = nn.ModuleList(
-            PerformerLayer(n_head, d_model, d_ff, dropout, device=device)
+            PerformerLayer(n_head, d_model, d_ff, dropout=dropout, device=device)
             for _ in range(n_layer))
 
 
@@ -130,9 +139,9 @@ class MusicPerformer(nn.Module):
 
     def __init__(self, n_token: int, n_layer: int = 12, n_head: int = 8,
                  d_model: int = 512, d_ff: int = 2048, d_embed: int = 512,
-                 dropout: float = 0.1, favor_dims: int = 128,
-                 use_segment_emb: bool = True, n_segment_types: int = 2,
-                 use_pe: bool = True, max_len: int = 12000, *,
+                 favor_dims: int = 128, use_segment_emb: bool = True,
+                 n_segment_types: int = 2, use_pe: bool = True,
+                 max_len: int = 12000, *, dropout: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
                  device: Union[str, torch.device] = 'cuda',
                  generator: Optional[torch.Generator] = None):
@@ -150,9 +159,9 @@ class MusicPerformer(nn.Module):
         self.token_emb = TokenEmbedding(n_token, d_embed, d_model, device=dev)
         self.segemb = (TokenEmbedding(n_segment_types, d_embed, d_model,
                                       device=dev) if use_segment_emb else None)
-        self.emb_dropout = Dropout(dropout)
-        self.transformer_decoder = TransformerDecoder(n_layer, n_head, d_model,
-                                                      d_ff, dropout, device=dev)
+        self.emb_dropout = nn.Dropout(dropout)
+        self.transformer_decoder = TransformerDecoder(
+            n_layer, n_head, d_model, d_ff, dropout=dropout, device=dev)
         self.dec_out_proj = nn.Linear(d_model, n_token, device=dev)
         self.register_buffer('pe', sinusoid_position_encoding(
             max_len, d_embed, device=dev), persistent=False)
@@ -207,7 +216,8 @@ class MusicPerformer(nn.Module):
                 keep_last_only: bool = False) -> torch.Tensor:
         """tokens [B, L], omegas [n_layer, d_head, M] -> logits [B, L, V]
         float32 ([B, V] with ``keep_last_only``).  Dropout is active in
-        ``train()`` mode."""
+        ``train()`` mode, which a new model is in: serving and evaluation
+        call ``eval()`` first."""
         h = self._embed(tokens, seg, self.pe[:tokens.shape[1]])
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)

@@ -160,12 +160,14 @@ def _padded_call(impl, phi_q, phi_k, v, chunk, eps):
     return out[:, :L].reshape(*lead, L, Dv)
 
 
-def _favor_compose(q, k, v, omega, chunk=CHUNK, eps=EPS):
+def _favor_compose(q, k, v, omega, chunk=CHUNK, eps=EPS, kmax=None):
     """Plain version of the fused forward: favor_features + the chunked
     scan, float32 out (float64 for float64 inputs).  Differentiable by
-    autograd, so it is also the reference for the backward."""
+    autograd, so it is also the reference for the backward.  ``kmax``, the
+    key maxima [BH] of :func:`_key_max_plain`, spares recomputing them."""
     phi_q = favor_features(q, omega, is_query=True)
-    phi_k = favor_features(k, omega, is_query=False)
+    phi_k = favor_features(k, omega, is_query=False, key_stabilizer=(
+        None if kmax is None else kmax[:, None, None]))
     return _padded_call(_scan_impl, phi_q, phi_k, v.to(phi_q.dtype), chunk, eps)
 
 
@@ -475,7 +477,8 @@ class _FavorAttention(torch.autograd.Function):
     def forward(ctx, q2, k2, v2, omega, chunk, eps):
         if q2.device.type == 'cpu':
             kmax = _key_max_plain(k2, omega)
-            out = _favor_compose(q2, k2, v2, omega, chunk, eps).to(q2.dtype)
+            out = _favor_compose(q2, k2, v2, omega, chunk, eps,
+                                 kmax).to(q2.dtype)
         else:
             kmax = _favor_kmax_cuda(k2, omega)
             out = _favor_fwd_cuda(q2, k2, v2, omega, kmax, eps)

@@ -159,3 +159,14 @@ def test_omega_gets_no_gradient():
     tla.favor_causal_attention(q, k, v, om, 8).sum().backward()
     assert om.grad is None or not om.grad.any()
     assert all(t.grad is not None and t.grad.abs().max() > 0 for t in (q, k, v))
+
+
+def test_compose_takes_the_key_maxima():
+    """The CPU forward hands its key maxima to the plain forward, which then
+    gives what it gives when it finds the maxima itself."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(_randn(rng, 4, 40, D)) for _ in range(3))
+    om = torch.from_numpy(_omega(9))
+    kmax = tla._key_max_plain(k, om)
+    torch.testing.assert_close(tla._favor_compose(q, k, v, om, 16, kmax=kmax),
+                               tla._favor_compose(q, k, v, om, 16))

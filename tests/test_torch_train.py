@@ -8,13 +8,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from emo_disentanger_tpu.models import MusicPerformer as JaxPerformer
 from emo_disentanger_tpu.models.txl import masked_cross_entropy as jax_mce
 from emo_disentanger_tpu.train import trainer as jtr
 from emo_disentanger_tpu.train.schedule import warmup_cosine as jax_schedule
 from emo_disentanger_tpu_torch.convert import flax_performer_to_torch
-from emo_disentanger_tpu_torch.models.dropout import Dropout
 from emo_disentanger_tpu_torch.models.txl import masked_cross_entropy
 from emo_disentanger_tpu_torch.train import trainer as ttr
 from emo_disentanger_tpu_torch.train.schedule import warmup_cosine
@@ -160,7 +160,7 @@ def test_dropout_sites_and_semantics():
     model = TorchPerformerWithDropout()
     calls = []
     for mod in model.modules():
-        if isinstance(mod, Dropout):
+        if isinstance(mod, nn.Dropout):
             mod.register_forward_hook(lambda m, i, o: calls.append(
                 bool((o != i[0]).any())))
     tokens = torch.randint(0, V - 1, (2, 16), generator=torch.Generator().manual_seed(0))
@@ -173,7 +173,7 @@ def test_dropout_sites_and_semantics():
 
     n, p = 1 << 20, 0.1
     torch.manual_seed(0)
-    out = Dropout(p).train()(torch.ones(n))
+    out = model.emb_dropout.train()(torch.ones(n))
     dropped = float((out == 0).float().mean())
     sd = (p * (1 - p) / n) ** 0.5
     assert abs(dropped - p) < 5 * sd                # 26/256 would be 5.4 sd off
@@ -186,3 +186,15 @@ def test_dropout_sites_and_semantics():
 def TorchPerformerWithDropout():
     from emo_disentanger_tpu_torch.models import MusicPerformer
     return MusicPerformer(n_token=V, dropout=0.1, device='cpu', **SMALL)
+
+
+def test_dropout_is_keyword_only():
+    """The positional arguments stay (n_token, n_layer, n_head, d_model,
+    d_ff, d_embed, favor_dims, use_segment_emb, n_segment_types, use_pe,
+    max_len); the dropout rate is passed by name."""
+    from emo_disentanger_tpu_torch.models import MusicPerformer
+    model = MusicPerformer(V, 2, 2, 32, 64, 32, 16, device='cpu')
+    assert model.favor_dims == 16 and model.emb_dropout.p == 0.1
+    with pytest.raises(TypeError):
+        MusicPerformer(V, 2, 2, 32, 64, 32, 16, True, 2, True, 96, 0.1,
+                       device='cpu')
