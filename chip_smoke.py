@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives the two main paths at the full width of the flagship stage-2
-Performer (12 layers, 8 heads, d_model 512, d_ff 2048, 128 FAVOR+ features;
-random weights from a seed):
+drives three main paths at full width with random weights from a seed.  Two
+run the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff
+2048, 128 FAVOR+ features):
 
 * serving: the forward at B=2, L=1024, an f32 decode that must reproduce
   the forward's logits, and ``Stage2BatchGenerator.serve`` over 24 jobs in
@@ -17,10 +17,23 @@ random weights from a seed):
   ``configs/stage2/pop1k7_pretrain.yaml`` (f32, B=4, L=3072), bf16 steps at
   B=16, L=3072, and a fixed batch whose loss must fall.
 
+The third runs the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
+(12 layers, 8 heads, d_model 512, d_ff 2048):
+
+* gpt2_serving: with bf16 weights, ``serve`` over 24 jobs in 16 slots whose
+  songs outgrow the 4096-position cache and re-anchor over a 2048-token
+  window, the lockstep ``generate`` through the (1024, 2048) cache ladder,
+  one host-driven ``Stage2Generator`` song that re-anchors, and the
+  reference-exact replay past its 2048-token window.  Before it, the f32
+  forward with the flash-attention kernel is held against the einsum path
+  and the KV-cache decode against the forward.
+
 It checks that every kernel of each path was launched on it, times each
-kernel, its plain version and its bound, profiles where a serving step's and
-a training step's time goes, and prints one JSON line of kernel records, the
-card's name and power limit, and a last line ``{"ok": true, "device": {...}}``.
+kernel, its plain version and its bound (and, for flash attention, PyTorch's
+``scaled_dot_product_attention`` as a yardstick the port never calls),
+profiles where a serving step's and a training step's time goes, and prints
+one JSON line of kernel records, the card's name and power limit, and a last
+line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is non-zero; without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -54,6 +67,24 @@ TRAIN_B, TRAIN_L, TRAIN_BATCHES = 4, 3072, 3
 BF16_B, BF16_STEPS = 16, 3
 CORPUS_PIECES, CORPUS_BARS = 20, 32
 
+# flagship stage-2 GPT-2 (configs/stage2/pop1k7_pretrain_gpt2.yaml) with
+# max_len 4096, the MusicGPT2 default that train_stage2.py:57 uses; serving
+# re-anchors the 4096-position cache over a 2048-token window (the generator
+# defaults), so every re-anchor forward runs at L = GPT2_WINDOW
+GPT2_MAX_LEN = 4096
+GPT2_CACHE, GPT2_WINDOW, GPT2_MARGIN, GPT2_BAR_TOKENS = 4096, 2048, 256, 256
+GPT2_EVENTS = 4160                  # songs pass the cache end: all re-anchor
+GPT2_JOB_BARS = (32, 48)            # lead-sheet bars a job, so songs run long
+GPT2_TIERS, GPT2_TIER_EVENTS = (1024, 2048), 1200
+# the host generator's least legal cache, to keep its one song short
+GPT2_HOST_CACHE = GPT2_WINDOW + GPT2_BAR_TOKENS + 2
+GPT2_HOST_EVENTS = 2400
+GPT2_DECODE_STEPS = 64
+# flash attention: the re-anchor shape and the smallest the dispatch sends
+# (H = N_HEAD, Dh = D_HEAD), inputs at std FLASH_STD so softmax rows peak
+FLASH_CASES = ((WINDOW_B, WINDOW_L), (2, 512))
+FLASH_STD = 2.0
+
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
 # product operands (and the output) to bf16, ~2^-8 relative each, while the
@@ -71,6 +102,9 @@ KERNEL_CASES = ((ENTRY_B, ENTRY_L, torch.float32), (ENTRY_B, ENTRY_L, torch.bflo
 TOL_DECODE_VS_FORWARD = 1e-3
 # bf16 forward against the f32 forward: bf16 rounding through 12 layers
 TOL_BF16_MODEL = 5e-2
+# the GPT-2 f32 forward through flash_attention_fwd against the einsum path:
+# summation order through 12 layers
+TOL_GPT2_KERNEL_PATH = 1e-3
 # f32 parameter gradients through the kernels against the plain path, per
 # parameter as ||kernel - plain|| / ||plain||.  The kernels differ from the
 # plain passes by summation order, ~1e-6 (phase 2c), and a ReLU unit whose
@@ -173,6 +207,15 @@ def decode_bound(B, D, H, M, F, w_bytes, x_bytes):
     return bound(nbytes, proj / rate + favor / F32_FLOP_PER_S)
 
 
+def flash_bound(B, H, L, Dh):
+    """Causal attention forward, f32: q, k, v read and o written once; the
+    products q k^T and p v over the causal triangle, 4 Dh L(L+1)/2 flop a
+    (batch, head) row at the f32 rate."""
+    nbytes = 4 * B * H * L * Dh * 4
+    ops = B * H * 4 * Dh * L * (L + 1) / 2
+    return bound(nbytes, ops / F32_FLOP_PER_S)
+
+
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
@@ -213,16 +256,17 @@ def synthetic_vocab():
     return Vocab(*synthetic_dictionary())
 
 
-def synthetic_jobs(vocab, n_jobs, rng):
-    """Primers (emotion, key, tempo) and 4-8 lead-sheet bars each."""
+def synthetic_jobs(vocab, n_jobs, rng, bars=(4, 9)):
+    """Primers (emotion, key, tempo) and lead-sheet bars, between bars[0]
+    and bars[1] - 1 a job."""
     e = vocab.event2idx
     degrees = ['I', 'II', 'III', 'IV', 'V', 'VI', 'VII']
     primers, sheets = [], []
     for j in range(n_jobs):
         primers.append([e[f'Emotion_Q{1 + j % 4}'],
                         e['Key_C' if j % 2 == 0 else 'Key_a'], e['Tempo_110']])
-        bars = []
-        for _ in range(rng.randint(4, 9)):
+        sheet = []
+        for _ in range(rng.randint(*bars)):
             bar = [e['Bar_None']]
             for beat in sorted(rng.choice(16, size=rng.randint(2, 5),
                                           replace=False)):
@@ -231,8 +275,8 @@ def synthetic_jobs(vocab, n_jobs, rng):
                         e[f'Note_Octave_{rng.randint(4, 7)}'],
                         e[f'Note_Degree_{degrees[rng.randint(7)]}'],
                         e[f'Note_Duration_{120 * rng.randint(1, 9)}']]
-            bars.append(bar)
-        sheets.append(bars)
+            sheet.append(bar)
+        sheets.append(sheet)
     return primers, sheets
 
 
@@ -809,6 +853,238 @@ def phase_profile_train(step, batch, extras, wall_ms, smi):
           f'kernel: {top}')
 
 
+def phase_kernel_flash(dev, rec, smi):
+    """Kernel #13: flash_attention_fwd against its plain version at the
+    re-anchor shape and the smallest shape the dispatch sends, f32; then its
+    time, the plain version's, scaled_dot_product_attention's (TF32 off, as
+    main() sets it; the port never calls it) and the bound at the re-anchor
+    shape."""
+    from emo_disentanger_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(17)
+    scale = 1.0 / D_HEAD ** 0.5
+    for B, L in FLASH_CASES:
+        q, k, v = [(FLASH_STD * torch.randn(B, N_HEAD, L, D_HEAD, generator=gen)
+                    ).to(dev) for _ in range(3)]
+        got = fa._flash_attention_cuda(q, k, v, scale)
+        ref = fa._flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        print(f'phase 2f kernel #13 f32 B={B} H={N_HEAD} L={L} Dh={D_HEAD}: '
+              f'flash_attention_fwd rel err {err:.2e} (tol {TOL_F32})')
+        expect(got.dtype == torch.float32 and got.shape == ref.shape,
+               'flash_attention_fwd output dtype/shape')
+        expect(err <= TOL_F32, f'flash_attention_fwd B={B} L={L}')
+        if (B, L) != FLASH_CASES[0]:
+            continue
+        rec['flash_attention_fwd']['max_abs_err'] = max_abs(got, ref)
+        del ref
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t_k = time_ms(lambda: fa._flash_attention_cuda(q, k, v, scale), iters=10)
+        t_p = time_ms(lambda: fa._flash_attention_plain(q, k, v, scale),
+                      iters=3, warmup=1)
+        t_l = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), iters=10)
+        b_k, by_k = flash_bound(B, N_HEAD, L, D_HEAD)
+        print(f'phase 6f kernel #13 f32 B={B} H={N_HEAD} L={L} [{smi}]: '
+              f'flash_attention_fwd {t_k:.4f} ms (plain {t_p:.4f}, '
+              f'scaled_dot_product_attention {t_l:.4f}, bound {b_k:.4f} {by_k})')
+        rec['flash_attention_fwd'].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                          bound_ms=b_k, bound_by=by_k)
+
+
+def build_gpt2(vocab, dev):
+    from emo_disentanger_tpu_torch.models import MusicGPT2
+    return MusicGPT2(n_token=vocab.size, n_layer=N_LAYER, n_head=N_HEAD,
+                     d_model=D_MODEL, d_ff=D_FF, d_embed=D_MODEL,
+                     max_len=GPT2_MAX_LEN, device=dev,
+                     generator=torch.Generator().manual_seed(2)).eval()
+
+
+@torch.no_grad()
+def phase_gpt2_model(vocab, dev):
+    """The f32 forward at B=2, L=GPT2_WINDOW through flash_attention_fwd
+    against the same model's einsum path; a 'khd' cache prefilled from that
+    forward's k/v (the re-anchor route) whose f32 decode of the next tokens
+    must reproduce the forward over the extended sequence (einsum path, L
+    not a multiple of 128); the bf16 forward against the f32 one.  Returns
+    the bf16 model."""
+    from emo_disentanger_tpu_torch.models import gpt2
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    model = build_gpt2(vocab, dev)
+    gen = torch.Generator().manual_seed(18)
+    B, P, S = ENTRY_B, GPT2_WINDOW, GPT2_DECODE_STEPS
+    tokens = torch.randint(0, vocab.size - 1, (B, P + S), generator=gen).to(dev)
+    seg = torch.randint(0, 2, (B, P + S), generator=gen).to(dev)
+    n0 = _build.LAUNCHES['flash_attention_fwd']
+    ref, k, v = model(tokens[:, :P], seg[:, :P], return_kv=True)
+    expect(_build.LAUNCHES['flash_attention_fwd'] - n0 == N_LAYER,
+           'the prefill forward ran flash_attention_fwd once a layer')
+    real = gpt2._flash_applies
+    gpt2._flash_applies = lambda training, q: False
+    try:
+        ein = model(tokens[:, :P], seg[:, :P])
+    finally:
+        gpt2._flash_applies = real
+    e_path = rel_err(ref, ein)
+    full = model(tokens, seg)                   # L = P + S: the einsum path
+    cache = model.init_decode_cache(B, GPT2_CACHE)
+    cache['k'][:, :, :P] = k
+    cache['v'][:, :, :P] = v
+    t = torch.full((B,), P, dtype=torch.long, device=dev)
+    dec = torch.stack([model.decode_step_batchpos(tokens[:, P + i], seg[:, P + i],
+                                                  t + i, cache)[0]
+                       for i in range(S)], 1)
+    e_dec = rel_err(dec, full[:, P:])
+    cast_params(model)
+    out = model(tokens[:, :P], seg[:, :P])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model(tokens[:, :P], seg[:, :P])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    e_bf = rel_err(out, ref)
+    print(f'phase 4g GPT-2 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/{D_FF}ff V={vocab.size} '
+          f'f32 B={B} L={P}: forward through flash_attention_fwd vs the einsum '
+          f'path rel err {e_path:.2e} (tol {TOL_GPT2_KERNEL_PATH}); decode of '
+          f'{S} tokens from the prefilled cache vs the forward rel err '
+          f'{e_dec:.2e} (tol {TOL_DECODE_VS_FORWARD}); bf16 forward in '
+          f'{secs * 1e3:.1f} ms, rel err vs f32 {e_bf:.2e} (tol {TOL_BF16_MODEL})')
+    expect(bool(torch.isfinite(out).all()) and tuple(out.shape) == (B, P, vocab.size),
+           'GPT-2 bf16 forward finite, shape')
+    expect(e_path <= TOL_GPT2_KERNEL_PATH, 'GPT-2 kernel path matches einsum')
+    expect(e_dec <= TOL_DECODE_VS_FORWARD, 'GPT-2 f32 decode matches the forward')
+    expect(e_bf <= TOL_BF16_MODEL, 'GPT-2 bf16 forward agrees with f32')
+    return model
+
+
+def check_streams(streams, primers, sheets, vocab, what):
+    """Each stream opens with its primer, Track_LeadSheet and bar 0 as
+    injected, and holds no PAD."""
+    lead = vocab.event2idx['Track_LeadSheet']
+    for j, s in enumerate(streams):
+        bar0 = sheets[j][0]
+        expect(s[:len(primers[j]) + 1] == primers[j] + [lead]
+               and s[len(primers[j]) + 1:len(primers[j]) + 1 + len(bar0)] == bar0
+               and vocab.pad_id not in s
+               and all(0 <= x < vocab.size for x in s), f'{what} stream {j}')
+
+
+def phase_gpt2_serve(model, vocab, dev, smi):
+    """The gpt2_serving path with bf16 weights.  Returns the number of
+    forwards at L = GPT2_WINDOW it ran (each should launch
+    flash_attention_fwd once a layer)."""
+    from emo_disentanger_tpu_torch.infer.reference_exact import (
+        generate_stage2_reference_exact)
+    from emo_disentanger_tpu_torch.infer.stage2 import Stage2Generator
+    from emo_disentanger_tpu_torch.infer.stage2_batch import (
+        STATUS_IDLE, STATUS_RUNNING, Stage2BatchGenerator)
+    windows = []
+    hook = model.register_forward_pre_hook(
+        lambda mod, args: windows.append(args[0].shape[1]))
+    kw = dict(temp=1.1, top_p=0.99, gpt2_cache_len=GPT2_CACHE,
+              gpt2_window=GPT2_WINDOW, reanchor_margin=GPT2_MARGIN,
+              max_bar_tokens=GPT2_BAR_TOKENS, device=dev)
+    try:
+        primers, sheets = synthetic_jobs(vocab, 24, np.random.RandomState(7),
+                                         bars=GPT2_JOB_BARS)
+        gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B,
+                                   max_events=GPT2_EVENTS, **kw)
+        streams, stats = gen.serve(primers, sheets, seed=9)
+        done = sum(s is not None for s in streams)
+        events = sum(stats['events'])
+        print(f'phase 5g GPT-2 serve bf16 [{smi}]: {done}/{len(primers)} jobs in '
+              f'{SERVE_B} slots, {events} events in {stats["wall_seconds"]:.2f} s '
+              f'= {events / stats["wall_seconds"]:.1f} events/s, {stats["steps"]} '
+              f'steps ({stats["wall_seconds"] * 1e3 / stats["steps"]:.3f} ms '
+              f'each), {stats["chunks"]} chunks, re-anchors '
+              f'{sum(stats["reanchors"])} (per job {sorted(set(stats["reanchors"]))}), '
+              f'statuses {sorted(set(stats["status"]))}')
+        expect(done == len(primers), 'every GPT-2 job finished')
+        expect(all(st not in (STATUS_RUNNING, STATUS_IDLE)
+                   for st in stats['status']), 'every GPT-2 job has a final status')
+        expect(sum(stats['reanchors']) > 0, 'serve() re-anchored')
+        check_streams(streams, primers, sheets, vocab, 'serve')
+
+        lad = Stage2BatchGenerator(model, vocab, batch=SERVE_B,
+                                   max_events=GPT2_TIER_EVENTS,
+                                   gpt2_tiers=GPT2_TIERS, **kw)
+        t0 = time.time()
+        lstreams, lstats = lad.generate(primers[:SERVE_B], sheets[:SERVE_B], seed=10)
+        secs = time.time() - t0
+        levents = sum(lstats['events'])
+        print(f'phase 5h GPT-2 generate B={SERVE_B} tiers {GPT2_TIERS}: '
+              f'{levents} events in {secs:.2f} s = {levents / secs:.1f} events/s, '
+              f'{lstats["steps"]} steps ({secs * 1e3 / lstats["steps"]:.3f} ms '
+              f'each), tier resumes {lstats["tier_resumes"]}, statuses '
+              f'{sorted(set(lstats["status"]))}')
+        expect(lstats['tier_resumes'] >= 1, 'the cache ladder resumed')
+        check_streams(lstreams, primers, sheets, vocab, 'ladder')
+
+        host = Stage2Generator(model, vocab, temp=1.1, top_p=0.99,
+                               max_events=GPT2_HOST_EVENTS,
+                               gpt2_cache_len=GPT2_HOST_CACHE,
+                               gpt2_window=GPT2_WINDOW,
+                               reanchor_margin=GPT2_MARGIN, device=dev)
+        hstream, hstats = host.generate(primers[0], sheets[0], seed=11)
+        print(f'phase 5i GPT-2 Stage2Generator, cache {GPT2_HOST_CACHE}: '
+              f'{hstats["n_events"]} events in {hstats["seconds"]:.2f} s, '
+              f'{hstats["reanchors"]} re-anchors, status {hstats["status"]}')
+        expect(hstats['reanchors'] >= 1, 'Stage2Generator re-anchored')
+        check_streams([hstream], primers[:1], sheets[:1], vocab, 'host')
+
+        np.random.seed(12)
+        t0 = time.time()
+        rstream, rsteps = generate_stage2_reference_exact(
+            model, vocab, lead_sheet_events=sheets[1], primer=primers[1],
+            max_events=GPT2_WINDOW + 16, temp=1.2, top_p=0.9,
+            window=GPT2_WINDOW)
+        print(f'phase 5j GPT-2 reference-exact replay, window {GPT2_WINDOW}: '
+              f'{len(rstream)} tokens, {rsteps} accepted samples in '
+              f'{time.time() - t0:.2f} s')
+        expect(len(rstream) >= GPT2_WINDOW, 'the replay passed its window')
+        check_streams([rstream], primers[1:2], sheets[1:2], vocab, 'replay')
+    finally:
+        hook.remove()
+    n = sum(w == GPT2_WINDOW for w in windows)
+    print(f'gpt2_serving forwards: {len(windows)}, {n} at L={GPT2_WINDOW}')
+    expect(n > 0 and n == len(windows), 'every GPT-2 path forward ran at the window')
+    return n
+
+
+def phase_profile_gpt2(model, vocab, dev, smi):
+    """Where a GPT-2 serving step's time goes: a short serve() (no re-anchor)
+    on the host clock, then under torch.profiler.  The decode attention's
+    two products run as aten::einsum; their device time (layout copies
+    included) is read from the profiler's operator events."""
+    from torch.profiler import ProfilerActivity, profile
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    primers, sheets = synthetic_jobs(vocab, SERVE_B, np.random.RandomState(8))
+    gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B, temp=1.1,
+                               top_p=0.99, max_events=64,
+                               gpt2_cache_len=GPT2_CACHE,
+                               gpt2_window=GPT2_WINDOW, device=dev)
+    _, stats = gen.serve(primers, sheets, seed=8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, pstats = gen.serve(primers, sheets, seed=8)
+        torch.cuda.synchronize()
+    expect(pstats['steps'] == stats['steps'], 'profiled run repeats the run')
+    steps = stats['steps']
+    wall = stats['wall_seconds'] * 1e3 / steps
+    busy, top = kernel_breakdown(prof, steps)
+    if busy == 0:
+        print('phase 7g profile: device time not measured (the profiler saw '
+              'no device events)')
+        return
+    einsum = sum(e.device_time_total for e in prof.key_averages()
+                 if e.key == 'aten::einsum') / 1e3 / steps
+    print(f'phase 7g profile GPT-2 serve B={SERVE_B} cache {GPT2_CACHE}, {steps} '
+          f'steps [{smi}]: wall {wall:.3f} ms/step, device busy {busy:.3f} '
+          f'ms/step (idle share {1 - busy / wall:.3f}); decode attention '
+          f'products (aten::einsum) {einsum:.3f} ms/step ({einsum / busy:.3f} '
+          f'of busy); device ms/step by kernel: {top}')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -835,16 +1111,22 @@ def main():
                             replaces='emo_disentanger_tpu/ops/linear_attention.py:578'),
         'favor_bwd_b': dict(route='cuda', source=src + 'favor_bwd.cu',
                             replaces='emo_disentanger_tpu/ops/linear_attention.py:644'),
+        # JAX's library kernel (jax/experimental/pallas/ops/tpu/flash_attention.py)
+        'flash_attention_fwd': dict(route='cuda', source=src + 'flash_attn_fwd.cu',
+                                    replaces='emo_disentanger_tpu/models/gpt2.py:68-79'),
     }
     # each kernel's launches are read on the path it was ported for
     paths = {'serving': ('favor_kmax', 'favor_fwd', 'performer_decode_layer'),
-             'training': ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')}
-    owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training'}
+             'training': ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b'),
+             'gpt2_serving': ('flash_attention_fwd',)}
+    owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
+             'flash_attention_fwd': 'gpt2_serving'}
     t_start = time.time()
     smi = phase_device()
     phase_kernel_a(dev, rec)
     phase_kernel_c(dev, rec)
     phase_kernel_b(dev, rec)
+    phase_kernel_flash(dev, rec, smi)
 
     vocab = synthetic_vocab()
     launches = {}
@@ -859,6 +1141,15 @@ def main():
     step, batch, extras, step_s = phase_train(dev, smi)
     torch.cuda.synchronize()
     launches['training'] = dict(_build.LAUNCHES)
+
+    gpt2_model = phase_gpt2_model(vocab, dev)
+    _build.LAUNCHES.clear()                  # the GPT-2 serving path starts here
+    n_windows = phase_gpt2_serve(gpt2_model, vocab, dev, smi)
+    torch.cuda.synchronize()
+    launches['gpt2_serving'] = dict(_build.LAUNCHES)
+    expect(launches['gpt2_serving'].get('flash_attention_fwd', 0)
+           == N_LAYER * n_windows,
+           'flash_attention_fwd launched once a layer per L=2048 forward')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -870,8 +1161,10 @@ def main():
     phase_timing(dev, rec, smi)
     phase_profile(model, omegas, vocab, dev, smi)
     phase_profile_train(step, batch, extras, step_s * 1e3, smi)
+    phase_profile_gpt2(gpt2_model, vocab, dev, smi)
     print(f'chip_smoke: all phases passed in {time.time() - t_start:.0f} s')
-    kernels = [dict(name=name, library_ms=None, **r) for name, r in rec.items()]
+    kernels = [dict(name=name, **{'library_ms': None, **r})
+               for name, r in rec.items()]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,13 +1,14 @@
-"""Weight bridge: flax ``MusicPerformer`` parameters -> this port's state dict.
+"""Weight bridge: flax stage-2 parameters -> this port's state dicts.
 
-The inverse of ``convert_performer_pt`` in the JAX package
-(``train/convert_pt.py:31-42,72-93``): a flax Dense ``kernel`` [in, out]
-becomes a torch ``weight`` [out, in], and a ``LayerNorm_0`` ``scale`` /
-``bias`` pair becomes ``weight`` / ``bias``, under the reference
-checkpoint's names.
+The inverses of ``convert_performer_pt`` and ``convert_gpt2_pt`` in the JAX
+package (``train/convert_pt.py:31-42,72-118``), under the reference
+checkpoints' names: a ``LayerNorm_0`` ``scale`` / ``bias`` pair becomes
+``weight`` / ``bias``; a flax Dense ``kernel`` [in, out] becomes a torch
+``nn.Linear`` ``weight`` [out, in], except in the GPT-2 blocks, whose HF
+``Conv1D`` weights keep the [in, out] layout.
 
 A JAX gradient tree has the parameter tree's structure, so the same
-function maps ``jax.grad`` of a flax loss onto the port's parameter names
+functions map ``jax.grad`` of a flax loss onto the port's parameter names
 (the tests hold the port's gradients against JAX's that way).
 """
 
@@ -24,19 +25,17 @@ _PROJ = (('q_proj', 'attention.query_projection'),
          ('out_proj', 'attention.out_projection'),
          ('linear1', 'linear1'),
          ('linear2', 'linear2'))
+_GPT2_DENSE = (('c_attn', 'attn.c_attn'), ('attn_proj', 'attn.c_proj'),
+               ('c_fc', 'mlp.c_fc'), ('mlp_proj', 'mlp.c_proj'))
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def flax_performer_to_torch(params: Dict[str, Any], n_layer: int
-                            ) -> Dict[str, torch.Tensor]:
-    """``params`` is the ``{'params': {...}}`` tree flax's ``init`` returns
-    (or a gradient tree of the same structure), as nested dicts of numpy
-    arrays; returns a float32 CPU state dict for
-    ``MusicPerformer.load_state_dict`` (cast afterwards for bf16 serving)."""
-    p = params['params']
+def _embeddings_and_head(p: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The token and segment embeddings and the vocabulary head, which both
+    stage-2 models name alike."""
     sd = {'token_emb.emb_lookup.weight': _t(p['token_emb']['embedding']),
           'dec_out_proj.weight': _t(p['out_proj']['kernel']).T.contiguous(),
           'dec_out_proj.bias': _t(p['out_proj']['bias'])}
@@ -48,6 +47,22 @@ def flax_performer_to_torch(params: Dict[str, Any], n_layer: int
         if 'proj' in p['segemb']:
             sd['segemb.proj.weight'] = _t(
                 p['segemb']['proj']['kernel']).T.contiguous()
+    return sd
+
+
+def _layer_norm(sd: Dict[str, torch.Tensor], name: str, src) -> None:
+    sd[f'{name}.weight'] = _t(src['LayerNorm_0']['scale'])
+    sd[f'{name}.bias'] = _t(src['LayerNorm_0']['bias'])
+
+
+def flax_performer_to_torch(params: Dict[str, Any], n_layer: int
+                            ) -> Dict[str, torch.Tensor]:
+    """``params`` is the ``{'params': {...}}`` tree flax's ``init`` returns
+    (or a gradient tree of the same structure), as nested dicts of numpy
+    arrays; returns a float32 CPU state dict for
+    ``MusicPerformer.load_state_dict`` (cast afterwards for bf16 serving)."""
+    p = params['params']
+    sd = _embeddings_and_head(p)
     for i in range(n_layer):
         src = p[f'layer_{i}']
         dst = f'transformer_decoder.decoder_layers.{i}'
@@ -56,7 +71,22 @@ def flax_performer_to_torch(params: Dict[str, Any], n_layer: int
                 src[flax_name]['kernel']).T.contiguous()
             sd[f'{dst}.{torch_name}.bias'] = _t(src[flax_name]['bias'])
         for norm in ('norm1', 'norm2'):
-            ln = src[norm]['LayerNorm_0']
-            sd[f'{dst}.{norm}.weight'] = _t(ln['scale'])
-            sd[f'{dst}.{norm}.bias'] = _t(ln['bias'])
+            _layer_norm(sd, f'{dst}.{norm}', src[norm])
+    return sd
+
+
+def flax_gpt2_to_torch(params: Dict[str, Any], n_layer: int
+                       ) -> Dict[str, torch.Tensor]:
+    """Like :func:`flax_performer_to_torch`, for ``MusicGPT2``: the blocks'
+    Dense kernels go over untransposed (``Conv1D`` [in, out])."""
+    p = params['params']
+    sd = _embeddings_and_head(p)
+    for i in range(n_layer):
+        src = p[f'block_{i}']
+        dst = f'transformer_decoder.{i}'
+        for flax_name, torch_name in _GPT2_DENSE:
+            sd[f'{dst}.{torch_name}.weight'] = _t(src[flax_name]['kernel'])
+            sd[f'{dst}.{torch_name}.bias'] = _t(src[flax_name]['bias'])
+        for norm in ('ln_1', 'ln_2'):
+            _layer_norm(sd, f'{dst}.{norm}', src[norm])
     return sd

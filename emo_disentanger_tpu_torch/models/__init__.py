@@ -1,1 +1,2 @@
+from .gpt2 import MusicGPT2
 from .performer import MusicPerformer

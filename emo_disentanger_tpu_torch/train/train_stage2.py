@@ -7,7 +7,7 @@ shape) -> datasets -> ``MusicPerformer`` -> train/eval steps -> per-interval
 ``valloss.txt`` in the reference formats.  The FAVOR+ feature matrices are
 redrawn before a step with the configured probability (reference
 ``feat_redraw_prob``, ``train.py:57,239``), from a ``torch.Generator``.
-GPT-2 waits for its attention kernel (#13) and raises.
+GPT-2 training is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -43,8 +43,8 @@ def build_model_and_params(config: dict, vocab: Vocab, model_type: str = 'perfor
     computing in ``compute_dtype`` (bf16 when the config says
     ``compute_dtype: bfloat16``), and its first omegas."""
     if model_type == 'gpt2':
-        raise NotImplementedError('the GPT-2 backbone waits for its attention '
-                                  'kernel (#13 in ROADMAP.md)')
+        raise NotImplementedError('GPT-2 training is not ported yet (ROADMAP.md, '
+                                  '"Still to port"); the port serves GPT-2 only')
     if model_type != 'performer':
         raise ValueError(f'unsupported model type {model_type!r}')
     mconf = config['model']

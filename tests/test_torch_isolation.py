@@ -49,10 +49,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
     Stage2BatchGenerator(model, vocab, batch=2, omegas=omegas, device='cpu')
 
 
+def test_gpt2_entry_points_default_to_cuda(monkeypatch):
+    """MusicGPT2 and both stage-2 generators raise without CUDA unless
+    asked for the CPU."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer.stage2 import Stage2Generator
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    from emo_disentanger_tpu_torch.models import MusicGPT2
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    small = dict(n_token=12, n_layer=1, n_head=2, d_model=16, d_ff=32,
+                 d_embed=16)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        MusicGPT2(**small)
+    model = MusicGPT2(**small, device='cpu').eval()
+    vocab = Vocab({'Bar_None': 0}, {0: 'Bar_None'})
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Stage2Generator(model, vocab, temp=1.0, top_p=0.9)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        Stage2BatchGenerator(model, vocab, batch=2)
+    Stage2Generator(model, vocab, temp=1.0, top_p=0.9, device='cpu')
+    Stage2BatchGenerator(model, vocab, batch=2, device='cpu')
+
+
 def test_kernel_wrappers_never_fall_back():
     """The CUDA wrappers refuse non-CUDA tensors instead of running the
     plain version; only the public functions choose the plain version, and
     only for CPU tensors."""
+    from emo_disentanger_tpu_torch.ops import flash_attention as fa
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
     x = torch.zeros(2, 16, 8)
@@ -67,6 +90,9 @@ def test_kernel_wrappers_never_fall_back():
         la._favor_bwd_a_cuda(x, x, x, x, om, torch.zeros(2, 1))
     with pytest.raises(ValueError, match='CUDA tensors'):
         la._favor_bwd_b_cuda(x, x, x, x, torch.zeros(2, 16), om, torch.zeros(2, 1))
+    q = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(ValueError, match='CUDA tensors'):
+        fa._flash_attention_cuda(q, q, q, 0.125)
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch):

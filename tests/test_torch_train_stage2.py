@@ -97,5 +97,5 @@ def test_cli_trains_from_yaml_on_cpu(config, tmp_path):
     assert out['steps'] == 2 and out['ckpt_dir'] == str(tmp_path / 'ck_remi')
     assert sorted(os.listdir(out['ckpt_dir'])) == [
         'config.yaml', 'log.txt', 'params', 'valloss.txt']
-    with pytest.raises(NotImplementedError, match='kernel'):
+    with pytest.raises(NotImplementedError, match='GPT-2 training'):
         cli.main(['-m', 'gpt2', '-c', path, '-r', 'remi', '--device', 'cpu'])
