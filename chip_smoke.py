@@ -15,11 +15,20 @@ run the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff
 * training: full-model gradients through the kernels against the plain
   path, ``train_stage2.run`` on a synthetic corpus with the values of
   ``configs/stage2/pop1k7_pretrain.yaml`` (f32, B=4, L=3072), bf16 steps at
-  B=16, L=3072, and a fixed batch whose loss must fall.
+  B=16, L=3072, and a fixed batch whose loss must fall;
+* heads_last_training: the same model in the heads-last attention layout
+  (``EMODIS_HL_ATTN=1``), whose FAVOR+ kernels read q, k, v [B, L, D] in
+  place: its gradients against the head-major model's on the same weights,
+  ``train_stage2.run`` at the same config, bf16 steps beside the head-major
+  ones, and a fixed batch whose loss must fall.
 
 The third runs the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
 (12 layers, 8 heads, d_model 512, d_ff 2048):
 
+* gpt2_training: ``train_stage2.run`` at the config's values (f32, B=4,
+  L=2048, two micro-batches an update), whose validation forwards launch
+  the flash-attention kernel and whose train steps (attention dropout) do
+  not, then a fixed batch whose loss must fall;
 * gpt2_serving: with bf16 weights, ``serve`` over 24 jobs in 16 slots whose
   songs outgrow the 4096-position cache and re-anchor over a 2048-token
   window, the lockstep ``generate`` through the (1024, 2048) cache ladder,
@@ -31,7 +40,8 @@ The third runs the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
 ``scaled_dot_product_attention`` as a yardstick the port never calls),
-profiles where a serving step's and a training step's time goes, and prints
+profiles where a serving step's and a training step's time goes (a
+training step in both attention layouts), and prints
 one JSON line of kernel records, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is non-zero; without CUDA, or
@@ -39,6 +49,7 @@ without the package beside it, it exits non-zero and prints no result.
 """
 
 import collections
+import contextlib
 import json
 import os
 import pickle
@@ -66,6 +77,9 @@ SERVE_B = 16
 TRAIN_B, TRAIN_L, TRAIN_BATCHES = 4, 3072, 3
 BF16_B, BF16_STEPS = 16, 3
 CORPUS_PIECES, CORPUS_BARS = 20, 32
+# GPT-2 training: configs/stage2/pop1k7_pretrain_gpt2.yaml (f32, B=4,
+# L=2048, accum_steps 2) over the same corpus
+GPT2_TRAIN_L, GPT2_ACCUM, GPT2_TRAIN_BATCHES = 2048, 2, 4
 
 # flagship stage-2 GPT-2 (configs/stage2/pop1k7_pretrain_gpt2.yaml) with
 # max_len 4096, the MusicGPT2 default that train_stage2.py:57 uses; serving
@@ -97,6 +111,11 @@ TOL_BF16 = 3e-2
 KERNEL_CASES = ((ENTRY_B, ENTRY_L, torch.float32), (ENTRY_B, ENTRY_L, torch.bfloat16),
                 (ENTRY_B, 1000, torch.float32), (ENTRY_B, 1000, torch.bfloat16),
                 (TRAIN_B, TRAIN_L, torch.float32), (BF16_B, TRAIN_L, torch.bfloat16))
+# the heads-last kernels: the training path's two shapes and a ragged L
+HL_CASES = ((TRAIN_B, TRAIN_L, torch.float32), (BF16_B, TRAIN_L, torch.bfloat16),
+            (ENTRY_B, 1000, torch.float32), (ENTRY_B, 1000, torch.bfloat16))
+HEAD_MAJOR = ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')
+HEADS_LAST = ('favor_kmax_hl', 'favor_fwd_hl', 'favor_bwd_a_hl', 'favor_bwd_b_hl')
 # f32 decode (key stabilizer 0) against the forward (row max stabilizer)
 # after 12 layers: the stabilizers cancel up to the 1e-6 eps and float order
 TOL_DECODE_VS_FORWARD = 1e-3
@@ -121,6 +140,10 @@ TOL_GPT2_KERNEL_PATH = 1e-3
 TOL_GRAD_SHARED = 1e-3
 TOL_GRAD_ATTN = 1e-3
 TOL_GRAD = 1e-2
+# f32 gradients of the heads-last model against the head-major model on the
+# same weights, per parameter by norm: the same kernel bodies run on the
+# same rows, so they are expected equal bit for bit
+TOL_GRAD_LAYOUT = 1e-6
 
 
 def rel_err(got, ref):
@@ -347,10 +370,15 @@ def write_corpus(root, rng):
 def kernel_breakdown(prof, steps, n_top=8):
     """(device busy ms per step, the top kernels by device ms per step) from
     a torch.profiler run over ``steps`` steps; device events only, so
-    nothing is counted twice.  Busy is 0 when the profiler saw no device
+    nothing is counted twice, and no user annotation (the optimizer's
+    ``Optimizer.step#...`` range also shows as a device event and would
+    count its kernels again).  Busy is 0 when the profiler saw no device
     events."""
     from torch.autograd import DeviceType
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    notes = {e.key for e in events if getattr(e, 'is_user_annotation', False)}
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in notes]
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     top = '; '.join(f'{e.key[:48]} x{e.count // steps} '
@@ -448,6 +476,69 @@ def phase_kernel_c(dev, rec):
             rec['favor_bwd_b']['max_abs_err'] = max(max_abs(dk, rdk),
                                                     max_abs(dv, rdv))
 
+def phase_kernel_hl(dev, rec):
+    """Kernels #8-#11 on heads-last [B, L, D] inputs: each against its plain
+    version (the key max and the f32 composed forward on the split heads;
+    the plain passes at the kernels' dot dtype and chunk, pass B fed the
+    kernel's own (u, w)), and against the head-major kernels #1-#4 on the
+    head-split inputs, which must agree bit for bit.  The bf16 train step's
+    shape gives the recorded error."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(19)
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    C, H = la.KERNEL_CHUNK, N_HEAD
+    for B, L, dtype in HL_CASES:
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        q, k, v, g = [(0.5 * torch.randn(B, L, D_MODEL, generator=gen)).to(dev, dtype)
+                      for _ in range(4)]
+        part = la._favor_kmax_hl_cuda(k, omega, H)
+        out = la._favor_fwd_hl_cuda(q, k, v, omega, part, H)
+        dq, u, w = la._favor_bwd_a_hl_cuda(q, k, v, g, omega, part, H)
+        dk, dv = la._favor_bwd_b_hl_cuda(q, k, v, u, w, omega, part, H)
+        sp = lambda t: la._split_heads(t, H)
+        merge = lambda t: la._merge_heads(t, B)
+        q2, k2, v2, g2 = sp(q), sp(k), sp(v), sp(g)
+        kmax, dt = part.amax(1), la._dot_dtype_for(q)
+        ref_m = la._key_max_plain(k2, omega)
+        ref_o = la._hl_compose(q, k, v, omega, H)
+        rdq, ru, rw = la._favor_bwd_a_plain(q2, k2, v2, g2, omega, kmax, C,
+                                            dot_dtype=dt)
+        rdk, rdv = la._favor_bwd_b_plain(q2, k2, v2, sp(u), w, omega, kmax, C,
+                                         dot_dtype=dt)
+        pairs = {'kmax': (kmax, ref_m), 'out': (out, ref_o),
+                 'dq': (dq, merge(rdq)), 'u': (u, merge(ru)), 'w': (w, rw),
+                 'dk': (dk, merge(rdk)), 'dv': (dv, merge(rdv))}
+        # the head-major kernels on the split heads
+        hpart = la._favor_kmax_cuda(k2, omega)
+        hout = la._favor_fwd_cuda(q2, k2, v2, omega, hpart)
+        hdq, hu, hw = la._favor_bwd_a_cuda(q2, k2, v2, g2, omega, hpart)
+        hdk, hdv = la._favor_bwd_b_cuda(q2, k2, v2, hu, hw, omega, hpart)
+        torch.cuda.synchronize()
+        for name, (a, b) in pairs.items():
+            expect(a.shape == b.shape and (name == 'kmax' or a.dtype == dtype),
+                   f'heads-last {name} dtype/shape')
+        errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
+        same = {'kmax': (part, hpart), 'out': (out, merge(hout)),
+                'dq': (dq, merge(hdq)), 'u': (u, merge(hu)), 'w': (w, hw),
+                'dk': (dk, merge(hdk)), 'dv': (dv, merge(hdv))}
+        unequal = [name for name, (a, b) in same.items() if not torch.equal(a, b)]
+        line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+        name = str(dtype).replace('torch.', '')
+        print(f'phase 2h kernels #8-#11 {name} B={B} H={H} L={L}: rel err '
+              f'{line} (tol {tol}); against #1-#4 on the split heads: '
+              f'{"all bitwise equal" if not unequal else "differ: " + str(unequal)}')
+        expect(max(errs.values()) <= tol, f'heads-last kernels {name} B={B} L={L}')
+        expect(not unequal, f'heads-last kernels equal the head-major ones '
+               f'{name} B={B} L={L}')
+        if (B, L, dtype) == (BF16_B, TRAIN_L, torch.bfloat16):
+            rec['favor_kmax_hl']['max_abs_err'] = max_abs(kmax, ref_m)
+            rec['favor_fwd_hl']['max_abs_err'] = max_abs(out, ref_o)
+            rec['favor_bwd_a_hl']['max_abs_err'] = max(
+                max_abs(*pairs[n]) for n in ('dq', 'u', 'w'))
+            rec['favor_bwd_b_hl']['max_abs_err'] = max(
+                max_abs(*pairs[n]) for n in ('dk', 'dv'))
+
+
 
 def phase_kernel_b(dev, rec):
     from emo_disentanger_tpu_torch.ops import linear_attention as la
@@ -483,11 +574,11 @@ def phase_kernel_b(dev, rec):
             rec['performer_decode_layer']['max_abs_err'] = abs_out
 
 
-def build_model(vocab, dev):
+def build_model(vocab, dev, heads_last=False):
     from emo_disentanger_tpu_torch.models import MusicPerformer
     model = MusicPerformer(n_token=vocab.size, n_layer=N_LAYER, n_head=N_HEAD,
                            d_model=D_MODEL, d_ff=D_FF, d_embed=D_MODEL,
-                           favor_dims=FAVOR, device=dev,
+                           favor_dims=FAVOR, heads_last=heads_last, device=dev,
                            generator=torch.Generator().manual_seed(0))
     omegas = model.draw_omegas(torch.Generator().manual_seed(1))
     return model.eval(), omegas
@@ -639,11 +730,81 @@ def phase_grad(vocab, dev):
     expect(errs[worst] <= TOL_GRAD, 'gradients match the plain path')
 
 
-def phase_train(dev, smi):
+def phase_grad_hl(vocab, dev):
+    """Full-width f32 loss and every parameter's gradient at B=2, L=1024,
+    dropout off, of the heads-last model (kernels #8-#11) against the
+    head-major model (#1-#4) on the same weights.  The same kernel bodies
+    run on the same rows, so the gradients are expected equal bit for bit;
+    each parameter is held to TOL_GRAD_LAYOUT by norm."""
+    from emo_disentanger_tpu_torch.ops import _build
+    gen = torch.Generator().manual_seed(20)
+    tokens = torch.randint(0, vocab.size - 1, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+    seg = torch.randint(0, 2, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+    targets = torch.randint(0, vocab.size, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+    runs = {}
+    for heads_last in (False, True):
+        model, omegas = build_model(vocab, dev, heads_last=heads_last)
+        before = collections.Counter(_build.LAUNCHES)
+        loss = model.compute_loss(model(tokens, omegas, seg), targets)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in HEAD_MAJOR + HEADS_LAST}
+        runs[heads_last] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                            launched)
+        del model
+    (loss_m, ref, n_m), (loss_h, got, n_h) = runs[False], runs[True]
+    for name, g in got.items():
+        expect(g is not None and bool(torch.isfinite(g).all())
+               and float(g.abs().max()) > 0, f'heads-last gradient of {name}')
+    errs = {n: float((got[n] - ref[n]).norm() / ref[n].norm()) for n in got}
+    worst = max(errs, key=errs.get)
+    equal = sum(torch.equal(got[n], ref[n]) for n in got)
+    print(f'phase 4h gradients {N_LAYER}L f32 B={ENTRY_B} L={ENTRY_L}, heads-last vs '
+          f'head-major on the same weights: loss {float(loss_h):.7f} vs '
+          f'{float(loss_m):.7f} (bitwise {bool(torch.equal(loss_h, loss_m))}); '
+          f'{equal} of {len(got)} parameters bitwise equal, worst norm rel err '
+          f'{errs[worst]:.2e} ({worst}; tol {TOL_GRAD_LAYOUT}); launches '
+          f'head-major {n_m}, heads-last {n_h}')
+    expect(errs[worst] <= TOL_GRAD_LAYOUT, 'heads-last gradients match head-major')
+    expect(all(n_h[k] == N_LAYER for k in HEADS_LAST)
+           and not any(n_h[k] for k in HEAD_MAJOR),
+           'the heads-last model ran #8-#11 once a layer and none of #1-#4')
+
+
+
+@contextlib.contextmanager
+def heads_last_env(heads_last):
+    """``EMODIS_HL_ATTN`` set to '1' (heads-last) or '0' (head-major) inside
+    the block, whatever the caller's environment held; restored after."""
+    saved = os.environ.get('EMODIS_HL_ATTN')
+    os.environ['EMODIS_HL_ATTN'] = '1' if heads_last else '0'
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop('EMODIS_HL_ATTN', None)
+        else:
+            os.environ['EMODIS_HL_ATTN'] = saved
+
+
+def step_ms(step, batch, extras, n=BF16_STEPS):
+    """Host-clock ms a train step over ``n`` steps ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        step(batch, extras)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / n
+
+
+def phase_train(dev, smi, heads_last=False):
     """The training path: ``train_stage2.run`` (f32, B=4, L=3072, dropout
     0.1, redraw 0.05, warmup 200, a checkpoint and the logs), then bf16
     steps at B=16, L=3072 with launches per step, then a fixed batch whose
-    loss must fall.  Returns what phase 7b profiles."""
+    loss must fall.  The run and the models are built under
+    ``EMODIS_HL_ATTN`` = '1' with ``heads_last`` (phases 8h-a to 8h-c), '0'
+    without (8a to 8c), so the variable chooses the layout as a user's
+    environment would.  Returns what phase 7b profiles."""
     from emo_disentanger_tpu_torch.core.vocab import Vocab
     from emo_disentanger_tpu_torch.data.datasets import Stage2Dataset
     from emo_disentanger_tpu_torch.ops import _build
@@ -653,7 +814,9 @@ def phase_train(dev, smi):
         stage2_performer_loss_fn)
     from emo_disentanger_tpu_torch.utils.io import pickle_load
     gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
-    with tempfile.TemporaryDirectory() as root:
+    tag = 'phase 8h-' if heads_last else 'phase 8'
+    layout = 'heads-last' if heads_last else 'head-major'
+    with heads_last_env(heads_last), tempfile.TemporaryDirectory() as root:
         config = write_corpus(root, np.random.RandomState(9))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -665,7 +828,7 @@ def phase_train(dev, smi):
         files = sorted(os.listdir(os.path.join(ckpt, 'params')))
         logs = {n: open(os.path.join(ckpt, n)).read().splitlines()
                 for n in ('log.txt', 'valloss.txt')}
-        print(f'phase 8a train_stage2.run f32 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/'
+        print(f'{tag}a train_stage2.run {layout} f32 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/'
               f'{D_FF}ff M={FAVOR} B={TRAIN_B} L={TRAIN_L} [{smi}]: '
               f'{out["steps"]} steps, losses '
               f'{[round(x, 5) for x in out["step_losses"]]}, step seconds '
@@ -687,9 +850,11 @@ def phase_train(dev, smi):
         dset = Stage2Dataset(dconf['data_path'], vocab,
                              pieces=pickle_load(dconf['train_split']),
                              model_dec_seqlen=TRAIN_L)
-    batch = batch_to_device(next(dset.batches(BF16_B, shuffle=False)), dev)
-    model, omegas = train_stage2.build_model_and_params(
-        config, vocab, device=dev, compute_dtype=torch.bfloat16)
+        batch = batch_to_device(next(dset.batches(BF16_B, shuffle=False)), dev)
+        model, omegas = train_stage2.build_model_and_params(
+            config, vocab, device=dev, compute_dtype=torch.bfloat16)
+    expect(all(layer.heads_last == heads_last for layer in model.layers),
+           f'EMODIS_HL_ATTN chose the {layout} layout')
     extras = {'omegas': omegas}
     loss_fn = stage2_performer_loss_fn(model, vocab.pad_id)
     step = make_train_step(loss_fn, model, make_optimizer(
@@ -704,8 +869,8 @@ def phase_train(dev, smi):
     torch.cuda.synchronize()
     secs = time.time() - t0
     per_step = {k: (_build.LAUNCHES[k] - before[k]) / BF16_STEPS
-                for k in ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')}
-    print(f'phase 8b bf16 train steps B={BF16_B} L={TRAIN_L} [{smi}]: '
+                for k in HEAD_MAJOR + HEADS_LAST}
+    print(f'{tag}b bf16 train steps {layout} B={BF16_B} L={TRAIN_L} [{smi}]: '
           f'{BF16_B * TRAIN_L * BF16_STEPS / secs:.0f} tokens/s '
           f'({secs * 1e3 / BF16_STEPS:.1f} ms a step, host clock, synchronized), '
           f'peak {gib():.2f} GiB, losses {[round(x, 5) for x in losses]}, '
@@ -713,17 +878,92 @@ def phase_train(dev, smi):
     expect(all(np.isfinite(losses)), 'bf16 losses finite')
     expect(all(p.dtype == torch.float32 for p in model.parameters()),
            'master weights stay f32')
-    expect(all(n == N_LAYER for n in per_step.values()),
-           'each FAVOR kernel launched once a layer per step')
+    ran, idle = (HEADS_LAST, HEAD_MAJOR) if heads_last else (HEAD_MAJOR, HEADS_LAST)
+    expect(all(per_step[k] == N_LAYER for k in ran)
+           and not any(per_step[k] for k in idle),
+           f'each {layout} FAVOR kernel launched once a layer per step, the '
+           f'other layout\'s none')
 
     fixed = make_train_step(loss_fn, model, make_optimizer(
         model.parameters(), OptimizerConfig(max_lr=1e-3, min_lr=1e-4,
                                             warmup_steps=2, lr_decay_steps=100)))
     falls = [float(fixed(batch, extras)[0]) for _ in range(8)]
-    print(f'phase 8c one bf16 batch, 8 steps, warmup 2, lr 1e-3: losses '
+    print(f'{tag}c one bf16 batch {layout}, 8 steps, warmup 2, lr 1e-3: losses '
           f'{[round(x, 4) for x in falls]}')
     expect(np.mean(falls[-2:]) < np.mean(falls[:2]), 'the loss falls')
     return step, batch, extras, secs / BF16_STEPS
+
+
+def phase_train_gpt2(dev, smi):
+    """The gpt2_training path: ``train_stage2.run`` for GPT-2 at
+    ``configs/stage2/pop1k7_pretrain_gpt2.yaml``'s values (f32, B=4,
+    L=2048, two micro-batches an update, warmup 200) for GPT2_TRAIN_BATCHES
+    micro-batches and the validation batches, then a fixed batch whose loss
+    must fall over 8 steps.  Returns the number of validation forwards: each
+    runs in eval() mode at L=2048 and launches flash_attention_fwd once a
+    layer, while the train steps take the einsum path."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.data.datasets import Stage2Dataset
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.train import train_stage2
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer, make_train_step,
+        stage2_gpt2_loss_fn)
+    from emo_disentanger_tpu_torch.utils.io import pickle_load
+    with tempfile.TemporaryDirectory() as root:
+        config = write_corpus(root, np.random.RandomState(9))
+        config['model']['max_len'] = GPT2_TRAIN_L
+        config['training'].pop('feat_redraw_prob')
+        config['training'].update(accum_steps=GPT2_ACCUM,
+                                  ckpt_dir=os.path.join(root, 'ckpt_gpt2_{}'))
+        dconf = config['data_loader']
+        vocab = Vocab.load(dconf['vocab_path'])
+        data = lambda split: Stage2Dataset(dconf['data_path'], vocab,
+                                           pieces=pickle_load(dconf[split]),
+                                           model_dec_seqlen=GPT2_TRAIN_L)
+        n_val = sum(1 for _ in data('val_split').batches(TRAIN_B, shuffle=False))
+        torch.cuda.reset_peak_memory_stats()
+        n0 = _build.LAUNCHES['flash_attention_fwd']
+        t0 = time.time()
+        out = train_stage2.run(config, 'functional', 'gpt2', max_epoch_override=1,
+                               max_batches_per_epoch=GPT2_TRAIN_BATCHES, device=dev)
+        wall = time.time() - t0
+        n_flash = _build.LAUNCHES['flash_attention_fwd'] - n0
+        ckpt = out['ckpt_dir']
+        files = sorted(os.listdir(os.path.join(ckpt, 'params')))
+        val = open(os.path.join(ckpt, 'valloss.txt')).read().splitlines()
+        secs = out['step_seconds']
+        print(f'phase 8g train_stage2.run GPT-2 f32 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/'
+              f'{D_FF}ff B={TRAIN_B} L={GPT2_TRAIN_L} accum {GPT2_ACCUM} [{smi}]: '
+              f'{out["steps"]} micro-batches, losses '
+              f'{[round(x, 5) for x in out["step_losses"]]}, step seconds '
+              f'{[round(x, 3) for x in secs]} ({TRAIN_B * GPT2_TRAIN_L / min(secs):.0f} '
+              f'tokens/s at the fastest), run {wall:.1f} s, peak '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; wrote '
+              f'{files}; valloss.txt: {val}; flash_attention_fwd launches '
+              f'{n_flash} for {n_val} validation forwards')
+        expect(out['steps'] == GPT2_TRAIN_BATCHES
+               and all(np.isfinite(out['step_losses'])), 'GPT-2 losses finite')
+        expect(any(f.startswith('ep001_loss') and f.endswith('_params.pt')
+                   for f in files), 'a GPT-2 checkpoint was written')
+        expect(len(val) == 1, 'the GPT-2 valloss line was written')
+        expect(n_flash == N_LAYER * n_val, 'flash_attention_fwd launched once a '
+               'layer per validation forward and never in a train step')
+        batch = batch_to_device(next(data('train_split').batches(
+            TRAIN_B, shuffle=False)), dev)
+        model, _ = train_stage2.build_model_and_params(config, vocab, 'gpt2',
+                                                       device=dev)
+    # the config's peak lr (1e-4): at the Performer check's 1e-3 this f32
+    # GPT-2 diverges within three steps
+    fixed = make_train_step(stage2_gpt2_loss_fn(model, vocab.pad_id), model,
+                            make_optimizer(model.parameters(), OptimizerConfig(
+                                max_lr=1e-4, min_lr=1e-5, warmup_steps=2,
+                                lr_decay_steps=100)))
+    falls = [float(fixed(batch, {})[0]) for _ in range(8)]
+    print(f'phase 8g-c one GPT-2 f32 batch, 8 steps, warmup 2, lr 1e-4: losses '
+          f'{[round(x, 4) for x in falls]}')
+    expect(np.mean(falls[-2:]) < np.mean(falls[:2]), 'the GPT-2 loss falls')
+    return n_val
 
 
 def phase_timing(dev, rec, smi):
@@ -804,6 +1044,50 @@ def phase_timing(dev, rec, smi):
               f'(plain {p:.4f}, bound {b_w:.4f} {by_w})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b_w, bound_by=by_w)
 
+    # the heads-last kernels #8-#11 at the same shape, on [B, L, D] tensors
+    # holding the same values, beside the head-major #1/#2 there; the plain
+    # versions split the heads first, as the CPU path does
+    H = N_HEAD
+    merge = lambda t: la._merge_heads(t, B)
+    q, k, v, g = merge(q2), merge(k2), merge(v2), merge(g2)
+    hpart = la._favor_kmax_hl_cuda(k, omega, H)
+    hdq, hu, hw = la._favor_bwd_a_hl_cuda(q, k, v, g, omega, hpart, H)
+    sp = lambda t: la._split_heads(t, H)
+    kmax = hpart.amax(1)
+    t_hm_k = time_ms(lambda: la._favor_kmax_cuda(k2, omega), iters=10)
+    t_hm_f = time_ms(lambda: la._favor_fwd_cuda(q2, k2, v2, omega, part), iters=5)
+    hl = {
+        'favor_kmax_hl': (
+            time_ms(lambda: la._favor_kmax_hl_cuda(k, omega, H), iters=10),
+            time_ms(lambda: la._key_max_plain(sp(k), omega), iters=5),
+            kmax_bound(BH, L, D_HEAD, FAVOR, 2, C)),
+        'favor_fwd_hl': (
+            time_ms(lambda: la._favor_fwd_hl_cuda(q, k, v, omega, hpart, H), iters=5),
+            time_ms(lambda: la._hl_compose(q, k, v, omega, H), iters=2, warmup=1),
+            fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, C)),
+        'favor_bwd_a_hl': (
+            time_ms(lambda: la._favor_bwd_a_hl_cuda(q, k, v, g, omega, hpart, H),
+                    iters=5, warmup=1),
+            time_ms(lambda: la._favor_bwd_a_plain(sp(q), sp(k), sp(v), sp(g), omega,
+                                                  kmax, C, dot_dtype=bf),
+                    iters=2, warmup=1),
+            (b_w, by_w)),
+        'favor_bwd_b_hl': (
+            time_ms(lambda: la._favor_bwd_b_hl_cuda(q, k, v, hu, hw, omega, hpart, H),
+                    iters=5, warmup=1),
+            time_ms(lambda: la._favor_bwd_b_plain(sp(q), sp(k), sp(v), sp(hu), hw,
+                                                  omega, kmax, C, dot_dtype=bf),
+                    iters=2, warmup=1),
+            (b_w, by_w)),
+    }
+    for name, (t, p, (b, by)) in hl.items():
+        print(f'phase 6h kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
+              f'(plain {p:.4f}, bound {b:.4f} {by})')
+        rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
+    print(f'phase 6h head-major at the same shape [{smi}]: favor_kmax '
+          f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms, favor_bwd_a '
+          f'{times["favor_bwd_a"][0]:.4f} ms, favor_bwd_b {times["favor_bwd_b"][0]:.4f} ms')
+
 
 def phase_profile(model, omegas, vocab, dev, smi):
     """Where a serving step's time goes: a short serve() run timed on the
@@ -833,9 +1117,20 @@ def phase_profile(model, omegas, vocab, dev, smi):
           f'{1 - busy / wall:.3f}); device ms/step by kernel: {top}')
 
 
-def phase_profile_train(step, batch, extras, wall_ms, smi):
+def copy_ms(prof, steps):
+    """Device ms a step of PyTorch's copy kernels (layout copies such as the
+    head split's and dtype casts) in a torch.profiler run."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and 'copy' in e.key.lower()
+               ) / 1e3 / steps
+
+
+def phase_profile_train(step, batch, extras, wall_ms, smi, label='phase 7b',
+                        layout='head-major'):
     """Where a bf16 train step's device time goes: two steps under
-    torch.profiler, against the step's host-clock time from phase 8b."""
+    torch.profiler, against the step's host-clock time from phase 8b (8h-b
+    for the heads-last layout); the copy kernels' share is read apart."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -844,13 +1139,13 @@ def phase_profile_train(step, batch, extras, wall_ms, smi):
         torch.cuda.synchronize()
     busy, top = kernel_breakdown(prof, 2, n_top=12)
     if busy == 0:
-        print('phase 7b profile: device time not measured (the profiler saw '
-              'no device events)')
+        print(f'{label} profile: device time not measured (the profiler saw '
+              f'no device events)')
         return
-    print(f'phase 7b profile bf16 train step B={BF16_B} L={TRAIN_L} [{smi}]: '
-          f'wall {wall_ms:.1f} ms/step (phase 8b), device busy {busy:.1f} '
-          f'ms/step (idle share {1 - busy / wall_ms:.3f}); device ms/step by '
-          f'kernel: {top}')
+    print(f'{label} profile bf16 train step {layout} B={BF16_B} L={TRAIN_L} [{smi}]: '
+          f'wall {wall_ms:.1f} ms/step, device busy {busy:.1f} ms/step (idle '
+          f'share {1 - busy / wall_ms:.3f}); copy kernels {copy_ms(prof, 2):.2f} '
+          f'ms/step; device ms/step by kernel: {top}')
 
 
 def phase_kernel_flash(dev, rec, smi):
@@ -1114,17 +1409,29 @@ def main():
         # JAX's library kernel (jax/experimental/pallas/ops/tpu/flash_attention.py)
         'flash_attention_fwd': dict(route='cuda', source=src + 'flash_attn_fwd.cu',
                                     replaces='emo_disentanger_tpu/models/gpt2.py:68-79'),
+        'favor_kmax_hl': dict(route='cuda', source=src + 'favor_fwd.cu',
+                              replaces='emo_disentanger_tpu/ops/linear_attention.py:955'),
+        'favor_fwd_hl': dict(route='cuda', source=src + 'favor_fwd.cu',
+                             replaces='emo_disentanger_tpu/ops/linear_attention.py:977'),
+        'favor_bwd_a_hl': dict(route='cuda', source=src + 'favor_bwd.cu',
+                               replaces='emo_disentanger_tpu/ops/linear_attention.py:1027'),
+        'favor_bwd_b_hl': dict(route='cuda', source=src + 'favor_bwd.cu',
+                               replaces='emo_disentanger_tpu/ops/linear_attention.py:1099'),
     }
     # each kernel's launches are read on the path it was ported for
     paths = {'serving': ('favor_kmax', 'favor_fwd', 'performer_decode_layer'),
-             'training': ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b'),
-             'gpt2_serving': ('flash_attention_fwd',)}
+             'training': HEAD_MAJOR,
+             'heads_last_training': HEADS_LAST,
+             'gpt2_serving': ('flash_attention_fwd',),
+             'gpt2_training': ('flash_attention_fwd',)}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
-             'flash_attention_fwd': 'gpt2_serving'}
+             'flash_attention_fwd': 'gpt2_serving',
+             **{name: 'heads_last_training' for name in HEADS_LAST}}
     t_start = time.time()
     smi = phase_device()
     phase_kernel_a(dev, rec)
     phase_kernel_c(dev, rec)
+    phase_kernel_hl(dev, rec)
     phase_kernel_b(dev, rec)
     phase_kernel_flash(dev, rec, smi)
 
@@ -1142,6 +1449,26 @@ def main():
     torch.cuda.synchronize()
     launches['training'] = dict(_build.LAUNCHES)
 
+    phase_grad_hl(vocab, dev)
+    _build.LAUNCHES.clear()                  # the heads-last training path starts here
+    hl_step, hl_batch, hl_extras, hl_step_s = phase_train(dev, smi, heads_last=True)
+    torch.cuda.synchronize()
+    launches['heads_last_training'] = dict(_build.LAUNCHES)
+    expect(not any(launches['heads_last_training'].get(k) for k in HEAD_MAJOR),
+           'no head-major FAVOR kernel launched on the heads-last path')
+    # the two layouts' bf16 steps in turns on one card: head-major (8b),
+    # heads-last (8h-b), then four more pairs, the order alternating
+    hm, hl = [step_s * 1e3], [hl_step_s * 1e3]
+    pair = ((hl, (hl_step, hl_batch, hl_extras)), (hm, (step, batch, extras)))
+    for i in range(4):
+        for times, args in (pair if i % 2 == 0 else pair[::-1]):
+            times.append(step_ms(*args))
+    fmt = lambda ts: ', '.join(f'{t:.1f}' for t in ts)
+    print(f'phase 8h-d bf16 train step B={BF16_B} L={TRAIN_L} in turns [{smi}]: '
+          f'head-major median {np.median(hm):.1f} ms ({fmt(hm)}), heads-last '
+          f'median {np.median(hl):.1f} ms ({fmt(hl)}); host clock, synchronized, '
+          f'{BF16_STEPS} steps a reading')
+
     gpt2_model = phase_gpt2_model(vocab, dev)
     _build.LAUNCHES.clear()                  # the GPT-2 serving path starts here
     n_windows = phase_gpt2_serve(gpt2_model, vocab, dev, smi)
@@ -1150,6 +1477,13 @@ def main():
     expect(launches['gpt2_serving'].get('flash_attention_fwd', 0)
            == N_LAYER * n_windows,
            'flash_attention_fwd launched once a layer per L=2048 forward')
+
+    _build.LAUNCHES.clear()                  # the GPT-2 training path starts here
+    n_val = phase_train_gpt2(dev, smi)
+    torch.cuda.synchronize()
+    launches['gpt2_training'] = dict(_build.LAUNCHES)
+    expect(launches['gpt2_training'] == {'flash_attention_fwd': N_LAYER * n_val},
+           'GPT-2 training launched flash_attention_fwd in validation only')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -1161,6 +1495,8 @@ def main():
     phase_timing(dev, rec, smi)
     phase_profile(model, omegas, vocab, dev, smi)
     phase_profile_train(step, batch, extras, step_s * 1e3, smi)
+    phase_profile_train(hl_step, hl_batch, hl_extras, hl_step_s * 1e3, smi,
+                        label='phase 7h', layout='heads-last')
     phase_profile_gpt2(gpt2_model, vocab, dev, smi)
     print(f'chip_smoke: all phases passed in {time.time() - t_start:.0f} s')
     kernels = [dict(name=name, **{'library_ms': None, **r})

@@ -4,9 +4,12 @@ reference ``stage2_accompaniment/train.py:196-212``): ``-m/--model_type``,
 
     python -m emo_disentanger_tpu_torch.cli.train_stage2 -m performer \\
         -c pop1k7_pretrain.yaml -r functional
+    python -m emo_disentanger_tpu_torch.cli.train_stage2 -m gpt2 \\
+        -c pop1k7_pretrain_gpt2.yaml -r functional
 
-A bare config name is looked up among the JAX package's stage-2 YAMLs, read
-by path (this package imports nothing of it).
+``EMODIS_HL_ATTN=1`` in the environment trains the Performer in the
+heads-last attention layout.  A bare config name is looked up among the JAX
+package's stage-2 YAMLs, read by path (this package imports nothing of it).
 """
 
 import argparse

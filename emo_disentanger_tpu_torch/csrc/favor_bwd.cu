@@ -1,8 +1,19 @@
 // FAVOR+ causal linear attention, backward, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py:
-//   _fused_bwd_a_kernel (:578, via _fused_bwd_impl :789) -> favor_bwd_a_kernel
-//   _fused_bwd_b_kernel (:644, via _fused_bwd_impl :803) -> favor_bwd_b_kernel
+// Replaces four Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py:
+//   _fused_bwd_a_kernel    (:578, via _fused_bwd_impl :789) -> favor_bwd_a_kernel
+//   _fused_bwd_b_kernel    (:644, via _fused_bwd_impl :803) -> favor_bwd_b_kernel
+//   _fused_bwd_a_kernel_hl (:1027, via _hl_bwd_impl :1239)  -> favor_bwd_a_kernel
+//   _fused_bwd_b_kernel_hl (:1099, via _hl_bwd_impl :1253)  -> favor_bwd_b_kernel
+// favor_bwd_a / favor_bwd_b take head-major [BH, L, Dh] rows; favor_bwd_a_hl /
+// favor_bwd_b_hl take the heads-last [B, L, H * Dh] tensors (q, k, v, g, u, dq,
+// dk, dv) and share the kernel bodies, each (b, h) row addressing head h's
+// columns in place (row_base in favor_common.cuh).  w stays [B * H, L] and
+// the key maxima [B * H, n] in both layouts.  The TPU's (u, w) residual of
+// the heads-last kernels packs [B, L, H * 128]; here u is [B, L, H * Dh] and
+// w its own tensor, in the same bf16 rounding.  The layout is a template flag
+// (HL), so the head-major instances fold H = 1 at compile time and keep the
+// code they had before the heads-last form.
 //
 // Function (per batch*head row; phi_q, phi_k the feature maps of favor_fwd.cu,
 // out_i = N_i / D_i with N_i = phi_q_i . S_i, D_i = phi_q_i . z_i + eps and the
@@ -124,11 +135,11 @@ __device__ void a_matrix(float* sc, const float* uu, const float* vv, const floa
   }
 }
 
-// rs[i] = sum_m t[i][m], then dx[i][d] = scale * (t_i . omega_d - rs[i] xs[i][d])
+// rs[i] = sum_m t[i][m], then dx[i * ld + d] = scale * (t_i . omega_d - rs[i] xs[i][d])
 // for rows i < n.  t [C][M+1] and omega [Dh][M+1] in shared memory.
 template <class T>
 __device__ void chain_rule(T* dx, const float* t, const float* xs, const float* om, float* rs,
-                           int n, int Dh, int M, float scale) {
+                           int n, int Dh, int ld, int M, float scale) {
   const int MP = M + 1, XP = Dh + 1, lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
   for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
     float s = 0.f;
@@ -149,7 +160,7 @@ __device__ void chain_rule(T* dx, const float* t, const float* xs, const float* 
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int d = jt + c * (Dh / 4);
-          dx[(size_t)i * Dh + d] = from_f<T>(scale * (acc[r][c] - rs[i] * xs[i * XP + d]));
+          dx[(size_t)i * ld + d] = from_f<T>(scale * (acc[r][c] - rs[i] * xs[i * XP + d]));
         }
     }
   }
@@ -171,15 +182,16 @@ __device__ float setup(float* om, const float* omega, float* state, float* vec,
   return kmax;
 }
 
-template <class T>
+template <class T, bool HL>
 __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const T* __restrict__ g,
                                    const float* __restrict__ omega,
                                    const float* __restrict__ partial, T* __restrict__ dq,
                                    T* __restrict__ u_out, T* __restrict__ w_out, int L,
-                                   int Dh, int Dv, int M, int np, float scale, float rsqm,
-                                   float eps) {
+                                   int Dh, int Dv, int M, int n_head, int np, float scale,
+                                   float rsqm, float eps) {
   extern __shared__ float smem[];
+  const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M+1]
   float* S = om + Dh * MP;             // [M][Dv+1]   running sum phi_k v^T
@@ -197,21 +209,29 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
   float* rs = wv + C;                  // [C]
   const int tid = threadIdx.x, lane = tid & 31, nwarp = blockDim.x >> 5;
   const float kmax = setup(om, omega, S, z, partial, Dh, Dv, M, np);
-  const size_t base = (size_t)blockIdx.x * L;
+  const int ldx = H * Dh, ldv = H * Dv;
+  const size_t xb = row_base(blockIdx.x, H, L, Dh), vb = row_base(blockIdx.x, H, L, Dv);
+  q += xb;                             // this row's first position
+  k += xb;
+  dq += xb;
+  v += vb;
+  g += vb;
+  u_out += vb;
+  w_out += (size_t)blockIdx.x * L;
 
   for (int r0 = 0; r0 < L; r0 += C) {
     const int n = min(C, L - r0);
 
     // phi_k, the v and g rows, then phi_q (xs keeps the scaled q for dq)
-    load_scaled<T>(xs, sq, k + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
     features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
     for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
       const int i = idx / Dv, d = idx - i * Dv;
-      const size_t at = (base + r0 + i) * Dv + d;
+      const size_t at = (size_t)(r0 + i) * ldv + d;
       vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
       gu[i * DVP + d] = i < n ? to_f<T>(g[at]) : 0.f;
     }
-    load_scaled<T>(xs, sq, q + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
     features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
 
     causal_scores<T>(sc, pq, pk, M);
@@ -242,7 +262,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
           const float gv = gu[i * DVP + d], u = gv / den[i];
           go[i * DVP + d] = gv * (acc[r][c] / den[i]);
           gu[i * DVP + d] = rnd<T>(u);
-          if (i < n) u_out[(base + r0 + i) * Dv + d] = from_f<T>(u);
+          if (i < n) u_out[(size_t)(r0 + i) * ldv + d] = from_f<T>(u);
         }
       }
     }
@@ -256,7 +276,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
       if (lane == 0) {
         const float w = -s / den[i];
         wv[i] = w;
-        if (i < n) w_out[base + r0 + i] = from_f<T>(w);
+        if (i < n) w_out[r0 + i] = from_f<T>(w);
       }
     }
     __syncthreads();
@@ -281,7 +301,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
     }
     __syncthreads();
 
-    chain_rule<T>(dq + (base + r0) * Dh, pq, xs, om, rs, n, Dh, M, scale);
+    chain_rule<T>(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
 
     // S += phi_k^T v, z += sum_j phi_k_j (chain_rule reads neither)
     for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
@@ -304,14 +324,15 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
   }
 }
 
-template <class T>
+template <class T, bool HL>
 __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const T* __restrict__ u,
                                    const T* __restrict__ w, const float* __restrict__ omega,
                                    const float* __restrict__ partial, T* __restrict__ dk,
-                                   T* __restrict__ dv, int L, int Dh, int Dv, int M, int np,
-                                   float scale, float rsqm) {
+                                   T* __restrict__ dv, int L, int Dh, int Dv, int M,
+                                   int n_head, int np, float scale, float rsqm) {
   extern __shared__ float smem[];
+  const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M+1]
   float* R = om + Dh * MP;             // [M][Dv+1]   suffix sum phi_q u^T
@@ -327,23 +348,31 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
   float* rs = wv + C;                  // [C]
   const int tid = threadIdx.x;
   const float kmax = setup(om, omega, R, r, partial, Dh, Dv, M, np);
-  const size_t base = (size_t)blockIdx.x * L;
+  const int ldx = H * Dh, ldv = H * Dv;
+  const size_t xb = row_base(blockIdx.x, H, L, Dh), vb = row_base(blockIdx.x, H, L, Dv);
+  q += xb;                             // this row's first position
+  k += xb;
+  dk += xb;
+  v += vb;
+  u += vb;
+  dv += vb;
+  w += (size_t)blockIdx.x * L;
 
   for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {
     const int n = min(C, L - r0);
 
     // phi_q, then phi_k (xs keeps the scaled k for dk), the v, u and w rows
-    load_scaled<T>(xs, sq, q + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
     features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
-    load_scaled<T>(xs, sq, k + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
     features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
     for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
       const int i = idx / Dv, d = idx - i * Dv;
-      const size_t at = (base + r0 + i) * Dv + d;
+      const size_t at = (size_t)(r0 + i) * ldv + d;
       vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
       uu[i * DVP + d] = i < n ? to_f<T>(u[at]) : 0.f;
     }
-    for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[base + r0 + i]) : 0.f;
+    for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[r0 + i]) : 0.f;
     causal_scores<T>(sc, pq, pk, M);
     __syncthreads();
 
@@ -361,7 +390,7 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int d = jt + c * (Dv / 4);
-            dv[(base + r0 + j) * Dv + d] = from_f<T>(acc[rr][c]);
+            dv[(size_t)(r0 + j) * ldv + d] = from_f<T>(acc[rr][c]);
           }
       }
     }
@@ -388,7 +417,7 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
     }
     __syncthreads();
 
-    chain_rule<T>(dk + (base + r0) * Dh, pk, xs, om, rs, n, Dh, M, scale);
+    chain_rule<T>(dk + (size_t)r0 * ldx, pk, xs, om, rs, n, Dh, ldx, M, scale);
 
     // R += phi_q^T u, r += sum_i w_i phi_q_i (chain_rule reads neither)
     for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
@@ -411,34 +440,34 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
   }
 }
 
-template <class T>
+template <class T, bool HL>
 int launch_bwd_a(const void* q, const void* k, const void* v, const void* g,
                  const float* omega, const float* partial, void* dq, void* u, void* w, int BH,
-                 int L, int Dh, int Dv, int M, int np, float eps, cudaStream_t stream) {
+                 int H, int L, int Dh, int Dv, int M, int np, float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (Dh * (M + 1) + M * (Dv + 1) + M + 2 * C * (M + 1) +
                                        C * (Dh + 1) + 3 * C * (Dv + 1) + C * (C + 1) + 4 * C);
-  cudaError_t err = allow_smem(favor_bwd_a_kernel<T>, smem);
+  cudaError_t err = allow_smem(favor_bwd_a_kernel<T, HL>, smem);
   if (err != cudaSuccess) return (int)err;
-  favor_bwd_a_kernel<T><<<BH, THREADS, smem, stream>>>(
+  favor_bwd_a_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), omega, partial, static_cast<T*>(dq), static_cast<T*>(u),
-      static_cast<T*>(w), L, Dh, Dv, M, np, feature_scale(Dh),
+      static_cast<T*>(w), L, Dh, Dv, M, H, np, feature_scale(Dh),
       (float)(1.0 / sqrt((double)M)), eps);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool HL>
 int launch_bwd_b(const void* q, const void* k, const void* v, const void* u, const void* w,
-                 const float* omega, const float* partial, void* dk, void* dv, int BH, int L,
-                 int Dh, int Dv, int M, int np, cudaStream_t stream) {
+                 const float* omega, const float* partial, void* dk, void* dv, int BH, int H,
+                 int L, int Dh, int Dv, int M, int np, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (Dh * (M + 1) + M * (Dv + 1) + M + 2 * C * (M + 1) +
                                        C * (Dh + 1) + 2 * C * (Dv + 1) + C * (C + 1) + 3 * C);
-  cudaError_t err = allow_smem(favor_bwd_b_kernel<T>, smem);
+  cudaError_t err = allow_smem(favor_bwd_b_kernel<T, HL>, smem);
   if (err != cudaSuccess) return (int)err;
-  favor_bwd_b_kernel<T><<<BH, THREADS, smem, stream>>>(
+  favor_bwd_b_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(u), static_cast<const T*>(w), omega, partial,
-      static_cast<T*>(dk), static_cast<T*>(dv), L, Dh, Dv, M, np, feature_scale(Dh),
+      static_cast<T*>(dk), static_cast<T*>(dv), L, Dh, Dv, M, H, np, feature_scale(Dh),
       (float)(1.0 / sqrt((double)M)));
   return (int)cudaGetLastError();
 }
@@ -456,10 +485,23 @@ int favor_bwd_a(const void* q, const void* k, const void* v, const void* g,
                 const float* omega, const float* partial, void* dq, void* u, void* w, int BH,
                 int L, int Dh, int Dv, int M, int np, int bf16, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_a<__nv_bfloat16>(q, k, v, g, omega, partial, dq, u, w, BH, L, Dh,
-                                            Dv, M, np, eps, s)
-              : launch_bwd_a<float>(q, k, v, g, omega, partial, dq, u, w, BH, L, Dh, Dv, M,
-                                    np, eps, s);
+  return bf16 ? launch_bwd_a<__nv_bfloat16, false>(q, k, v, g, omega, partial, dq, u, w, BH, 1,
+                                                   L, Dh, Dv, M, np, eps, s)
+              : launch_bwd_a<float, false>(q, k, v, g, omega, partial, dq, u, w, BH, 1, L, Dh,
+                                           Dv, M, np, eps, s);
+}
+
+// heads-last: q, k, v, g [B, L, H * Dh] (one dtype), omega [Dh, M] f32, partial
+// [B * H, np] f32 from favor_kmax_hl -> dq, u [B, L, H * Dh] and w [B * H, L] in
+// the inputs' dtype.
+int favor_bwd_a_hl(const void* q, const void* k, const void* v, const void* g,
+                   const float* omega, const float* partial, void* dq, void* u, void* w, int B,
+                   int H, int L, int Dh, int M, int np, int bf16, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_a<__nv_bfloat16, true>(q, k, v, g, omega, partial, dq, u, w, B * H,
+                                                  H, L, Dh, Dh, M, np, eps, s)
+              : launch_bwd_a<float, true>(q, k, v, g, omega, partial, dq, u, w, B * H, H, L,
+                                          Dh, Dh, M, np, eps, s);
 }
 
 // q, k, v as for favor_bwd_a, u [BH, L, Dv] and w [BH, L] from it ->
@@ -468,10 +510,22 @@ int favor_bwd_b(const void* q, const void* k, const void* v, const void* u, cons
                 const float* omega, const float* partial, void* dk, void* dv, int BH, int L,
                 int Dh, int Dv, int M, int np, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_b<__nv_bfloat16>(q, k, v, u, w, omega, partial, dk, dv, BH, L, Dh,
-                                            Dv, M, np, s)
-              : launch_bwd_b<float>(q, k, v, u, w, omega, partial, dk, dv, BH, L, Dh, Dv, M,
-                                    np, s);
+  return bf16 ? launch_bwd_b<__nv_bfloat16, false>(q, k, v, u, w, omega, partial, dk, dv, BH, 1,
+                                                   L, Dh, Dv, M, np, s)
+              : launch_bwd_b<float, false>(q, k, v, u, w, omega, partial, dk, dv, BH, 1, L, Dh,
+                                           Dv, M, np, s);
+}
+
+// heads-last: q, k, v, u [B, L, H * Dh] and w [B * H, L] as favor_bwd_a_hl gives
+// them -> dk, dv [B, L, H * Dh] in the inputs' dtype.
+int favor_bwd_b_hl(const void* q, const void* k, const void* v, const void* u, const void* w,
+                   const float* omega, const float* partial, void* dk, void* dv, int B, int H,
+                   int L, int Dh, int M, int np, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_b<__nv_bfloat16, true>(q, k, v, u, w, omega, partial, dk, dv, B * H,
+                                                  H, L, Dh, Dh, M, np, s)
+              : launch_bwd_b<float, true>(q, k, v, u, w, omega, partial, dk, dv, B * H, H, L,
+                                          Dh, Dh, M, np, s);
 }
 
 }  // extern "C"

@@ -74,13 +74,22 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// xs[i][d] = x[i][d] * scale for i < n, 0 for the ragged tail; then
+// Where row `row` = b * H + h of the batch*head rows starts in a tensor whose
+// positions are `H * D` values apart: at (b L) (H D) + h D.  H = 1 is the
+// head-major [BH, L, D] layout (row L D); H = n_head the heads-last
+// [B, L, H * D] layout, whose head h is the D columns from h D.
+__device__ __forceinline__ size_t row_base(int row, int H, int L, int D) {
+  return (size_t)(row / H) * L * ((size_t)H * D) + (size_t)(row % H) * D;
+}
+
+// xs[i][d] = x[i * ld + d] * scale for i < n, 0 for the ragged tail; then
 // sq[i] = ||xs_i||^2 / 2.
 template <class T>
-__device__ void load_scaled(float* xs, float* sq, const T* x, int n, int D, float scale) {
+__device__ void load_scaled(float* xs, float* sq, const T* x, int n, int D, int ld,
+                            float scale) {
   for (int idx = threadIdx.x; idx < C * D; idx += blockDim.x) {
     int i = idx / D, d = idx - i * D;
-    xs[i * (D + 1) + d] = i < n ? to_f<T>(x[(size_t)i * D + d]) * scale : 0.f;
+    xs[i * (D + 1) + d] = i < n ? to_f<T>(x[(size_t)i * ld + d]) * scale : 0.f;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < C; i += blockDim.x) {

@@ -1,8 +1,19 @@
 // FAVOR+ causal linear attention, forward, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py:
-//   _kmax_kernel      (:487, via _fused_key_max)  -> favor_kmax_kernel
-//   _fused_fwd_kernel (:533, via _fused_fwd_impl) -> favor_fwd_kernel
+// Replaces four Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py:
+//   _kmax_kernel         (:487, via _fused_key_max)  -> favor_kmax_kernel
+//   _fused_fwd_kernel    (:533, via _fused_fwd_impl) -> favor_fwd_kernel
+//   _kmax_kernel_hl      (:955, via _hl_key_max)     -> favor_kmax_kernel
+//   _fused_fwd_kernel_hl (:977, via _hl_fwd_impl)    -> favor_fwd_kernel
+// The entry points favor_kmax / favor_fwd take head-major [BH, L, Dh] rows;
+// favor_kmax_hl / favor_fwd_hl take the heads-last [B, L, H * Dh]
+// activations and share the same kernel bodies: a row (b, h) reads head h's
+// Dh columns in place, rows H * Dh apart (row_base in favor_common.cuh), so
+// no head-split copy is made.  The TPU kernels looped over the heads inside
+// one block to keep Mosaic's blocks lane-dense; here each (b, h) row keeps
+// its own block, as in the head-major layout.  The layout is a template
+// flag (HL): the head-major instances fold H = 1 at compile time, so their
+// addressing, and their code, is what it was before the heads-last form.
 //
 // Function (per batch*head row, q/k [L, Dh], v [L, Dv], omega [Dh, M]):
 //   h(x)   = (x d^-1/4) . omega - ||x d^-1/4||^2 / 2
@@ -37,10 +48,11 @@
 
 namespace {
 
-template <class T>
+template <class T, bool HL>
 __global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restrict__ omega,
                                   float* __restrict__ partial, int L, int Dh, int M,
-                                  float scale) {
+                                  int n_head, float scale) {
+  const int H = HL ? n_head : 1;
   extern __shared__ float smem[];
   float* om = smem;                    // [Dh][M]
   float* xs = om + Dh * M;             // [C][Dh+1]
@@ -49,7 +61,12 @@ __global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restri
   const int chunk = blockIdx.x, row = blockIdx.y, nch = gridDim.x;
   const int r0 = chunk * C, n = min(C, L - r0);
   for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
-  load_scaled<T>(xs, sq, k + ((size_t)row * L + r0) * Dh, n, Dh, scale);
+  // the head-major address keeps its original form: through row_base this
+  // short kernel measured 4.6% slower on the H100 (kernel_ab.py)
+  load_scaled<T>(xs, sq,
+                 HL ? k + row_base(row, H, L, Dh) + (size_t)r0 * H * Dh
+                    : k + ((size_t)row * L + r0) * Dh,
+                 n, Dh, H * Dh, scale);
 
   float mx = -INFINITY;
   const int RT = C / 4, NT = M / 4;
@@ -76,12 +93,13 @@ __global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restri
   }
 }
 
-template <class T>
+template <class T, bool HL>
 __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const float* __restrict__ omega,
                                  const float* __restrict__ partial, T* __restrict__ out,
-                                 int L, int Dh, int Dv, int M, float scale, float rsqm,
-                                 float eps) {
+                                 int L, int Dh, int Dv, int M, int n_head, float scale,
+                                 float rsqm, float eps) {
+  const int H = HL ? n_head : 1;
   extern __shared__ float smem[];
   const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M]
@@ -104,12 +122,16 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
   for (int c = 0; c < nch; ++c) kmax = fmaxf(kmax, partial[(size_t)row * nch + c]);
   __syncthreads();
 
-  const size_t base = (size_t)row * L;
+  const int ldx = H * Dh, ldv = H * Dv;
+  q += row_base(row, H, L, Dh);        // this row's first position
+  k += row_base(row, H, L, Dh);
+  v += row_base(row, H, L, Dv);
+  out += row_base(row, H, L, Dv);
   for (int r0 = 0; r0 < L; r0 += C) {
     const int n = min(C, L - r0);
 
     // phi_q: h into pq, then the per-position max and exp (a warp per row)
-    load_scaled<T>(xs, sq, q + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
     for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
       const int it = t / (M / 4), jt = t - it * (M / 4);
       float acc[4][4];
@@ -134,7 +156,7 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     __syncthreads();
 
     // phi_k with the row's stabilizer; v rows
-    load_scaled<T>(xs, sq, k + (base + r0) * Dh, n, Dh, scale);
+    load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
     for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
       const int it = t / (M / 4), jt = t - it * (M / 4);
       float acc[4][4];
@@ -150,7 +172,7 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     }
     for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
       const int i = idx / Dv, d = idx - i * Dv;
-      vv[i * DVP + d] = i < n ? to_f<T>(v[(base + r0 + i) * Dv + d]) : 0.f;
+      vv[i * DVP + d] = i < n ? to_f<T>(v[(size_t)(r0 + i) * ldv + d]) : 0.f;
     }
     __syncthreads();
 
@@ -193,7 +215,7 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int d = jt + c * (Dv / 4);
-            out[(base + r0 + i) * Dv + d] = from_f<T>(acc[r][c] / (den[i] + eps));
+            out[(size_t)(r0 + i) * ldv + d] = from_f<T>(acc[r][c] / (den[i] + eps));
           }
       }
     }
@@ -220,29 +242,30 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
   }
 }
 
-template <class T>
-int launch_kmax(const void* k, const float* omega, float* partial, int BH, int L, int Dh,
-                int M, cudaStream_t stream) {
+template <class T, bool HL>
+int launch_kmax(const void* k, const float* omega, float* partial, int BH, int H, int L,
+                int Dh, int M, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (Dh * M + C * (Dh + 1) + C + 32);
-  cudaError_t err = allow_smem(favor_kmax_kernel<T>, smem);
+  cudaError_t err = allow_smem(favor_kmax_kernel<T, HL>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + C - 1) / C, BH);
-  favor_kmax_kernel<T><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega,
-                                                        partial, L, Dh, M, feature_scale(Dh));
+  favor_kmax_kernel<T, HL><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega,
+                                                        partial, L, Dh, M, H,
+                                                        feature_scale(Dh));
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, bool HL>
 int launch_fwd(const void* q, const void* k, const void* v, const float* omega,
-               const float* partial, void* out, int BH, int L, int Dh, int Dv, int M,
+               const float* partial, void* out, int BH, int H, int L, int Dh, int Dv, int M,
                float eps, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (Dh * M + M * (Dv + 1) + M + 2 * C * (M + 1) +
                                        C * (Dv + 1) + C * (Dh + 1) + C * (C + 1) + 2 * C + 32);
-  cudaError_t err = allow_smem(favor_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(favor_fwd_kernel<T, HL>, smem);
   if (err != cudaSuccess) return (int)err;
-  favor_fwd_kernel<T><<<BH, THREADS, smem, stream>>>(
+  favor_fwd_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), omega,
-      partial, static_cast<T*>(out), L, Dh, Dv, M, feature_scale(Dh),
+      partial, static_cast<T*>(out), L, Dh, Dv, M, H, feature_scale(Dh),
       (float)(1.0 / sqrt((double)M)), eps);
   return (int)cudaGetLastError();
 }
@@ -258,8 +281,16 @@ const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_
 int favor_kmax(const void* k, const float* omega, float* partial, int BH, int L, int Dh,
                int M, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kmax<__nv_bfloat16>(k, omega, partial, BH, L, Dh, M, s)
-              : launch_kmax<float>(k, omega, partial, BH, L, Dh, M, s);
+  return bf16 ? launch_kmax<__nv_bfloat16, false>(k, omega, partial, BH, 1, L, Dh, M, s)
+              : launch_kmax<float, false>(k, omega, partial, BH, 1, L, Dh, M, s);
+}
+
+// heads-last: k [B, L, H * Dh] -> partial [B * H, ceil(L/64)] f32, row b * H + h.
+int favor_kmax_hl(const void* k, const float* omega, float* partial, int B, int H, int L,
+                  int Dh, int M, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_kmax<__nv_bfloat16, true>(k, omega, partial, B * H, H, L, Dh, M, s)
+              : launch_kmax<float, true>(k, omega, partial, B * H, H, L, Dh, M, s);
 }
 
 // q, k [BH, L, Dh], v [BH, L, Dv] (one dtype), omega [Dh, M] f32, partial from
@@ -268,9 +299,22 @@ int favor_fwd(const void* q, const void* k, const void* v, const float* omega,
               const float* partial, void* out, int BH, int L, int Dh, int Dv, int M, int bf16,
               float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16>(q, k, v, omega, partial, out, BH, L, Dh, Dv, M,
-                                          eps, s)
-              : launch_fwd<float>(q, k, v, omega, partial, out, BH, L, Dh, Dv, M, eps, s);
+  return bf16 ? launch_fwd<__nv_bfloat16, false>(q, k, v, omega, partial, out, BH, 1, L, Dh,
+                                                 Dv, M, eps, s)
+              : launch_fwd<float, false>(q, k, v, omega, partial, out, BH, 1, L, Dh, Dv, M,
+                                         eps, s);
+}
+
+// heads-last: q, k, v [B, L, H * Dh] (one dtype), omega [Dh, M] f32, partial
+// from favor_kmax_hl -> out [B, L, H * Dh] in the inputs' dtype.
+int favor_fwd_hl(const void* q, const void* k, const void* v, const float* omega,
+                 const float* partial, void* out, int B, int H, int L, int Dh, int M, int bf16,
+                 float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16, true>(q, k, v, omega, partial, out, B * H, H, L,
+                                                Dh, Dh, M, eps, s)
+              : launch_fwd<float, true>(q, k, v, omega, partial, out, B * H, H, L, Dh, Dh, M,
+                                        eps, s);
 }
 
 }  // extern "C"

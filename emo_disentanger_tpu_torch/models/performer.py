@@ -40,21 +40,40 @@ uint8 mask compared against round(rate * 256), which quantizes rate 0.1 to
 the model; ``EMODIS_DROPOUT_BITECON=0`` gives the JAX package the semantics
 kept here.  Neither framework reproduces the other's random stream, so the
 two are compared by distribution only.
+
+Attention layout.  By default a layer splits q, k and v into heads
+([B, H, L, Dh]) around ``favor_causal_attention``, as the JAX layer does.
+With ``heads_last=True``, or ``EMODIS_HL_ATTN`` set to anything but ``0``
+when ``heads_last`` is None (read at construction; the JAX layer reads it
+while it traces), the layer hands the [B, L, D] projections to
+``favor_causal_attention_heads_last`` and its [B, L, D] result straight to
+the output projection (``models/performer.py:83-88`` there): the same
+function, without the head-split copies.  Parameter names are the same in
+both layouts, and the decode is the same.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.linear_attention import draw_orthogonal_features, favor_causal_attention
+from ..ops.linear_attention import (
+    draw_orthogonal_features, favor_causal_attention,
+    favor_causal_attention_heads_last)
 from ..ops.performer_decode import fused_decode_layer
 from ..utils.device import resolve_device
 from .embeddings import LayerNorm, TokenEmbedding, sinusoid_position_encoding
 from .txl import masked_cross_entropy
+
+
+def _heads_last_from_env() -> bool:
+    """The JAX layer's switch: ``EMODIS_HL_ATTN`` unset or ``'0'`` means
+    head-major."""
+    return os.environ.get('EMODIS_HL_ATTN', '0') != '0'
 
 
 def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -76,9 +95,12 @@ class AttentionLayer(nn.Module):
 
 class PerformerLayer(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_ff: int, *,
-                 dropout: float = 0.1, device=None):
+                 dropout: float = 0.1, heads_last: Optional[bool] = None,
+                 device=None):
         super().__init__()
         self.n_head = n_head
+        self.heads_last = (_heads_last_from_env() if heads_last is None
+                           else heads_last)
         self.attention = AttentionLayer(d_model, device=device)
         self.linear1 = nn.Linear(d_model, d_ff, device=device)
         self.linear2 = nn.Linear(d_ff, d_model, device=device)
@@ -90,13 +112,15 @@ class PerformerLayer(nn.Module):
         """x [B, L, D]; omega [d_head, M]."""
         B, L, D = x.shape
         a = self.attention
-        heads = lambda t: t.reshape(B, L, self.n_head, -1).transpose(1, 2)
-        attn = favor_causal_attention(heads(_linear(a.query_projection, x)),
-                                      heads(_linear(a.key_projection, x)),
-                                      heads(_linear(a.value_projection, x)),
-                                      omega)
-        attn = attn.to(x.dtype).transpose(1, 2).reshape(B, L, D)
-        x = x + self.drop(_linear(a.out_projection, attn))
+        q, k, v = (_linear(p, x) for p in (a.query_projection, a.key_projection,
+                                           a.value_projection))
+        if self.heads_last:
+            attn = favor_causal_attention_heads_last(q, k, v, omega, self.n_head)
+        else:
+            heads = lambda t: t.reshape(B, L, self.n_head, -1).transpose(1, 2)
+            attn = favor_causal_attention(heads(q), heads(k), heads(v), omega)
+            attn = attn.transpose(1, 2).reshape(B, L, D)
+        x = x + self.drop(_linear(a.out_projection, attn.to(x.dtype)))
         y = x = self.norm1(x)
         y = self.drop(F.relu(_linear(self.linear1, y)))
         y = self.drop(_linear(self.linear2, y))
@@ -127,15 +151,18 @@ class PerformerLayer(nn.Module):
 
 class TransformerDecoder(nn.Module):
     def __init__(self, n_layer: int, n_head: int, d_model: int, d_ff: int, *,
-                 dropout: float = 0.1, device=None):
+                 dropout: float = 0.1, heads_last: Optional[bool] = None,
+                 device=None):
         super().__init__()
         self.decoder_layers = nn.ModuleList(
-            PerformerLayer(n_head, d_model, d_ff, dropout=dropout, device=device)
+            PerformerLayer(n_head, d_model, d_ff, dropout=dropout,
+                           heads_last=heads_last, device=device)
             for _ in range(n_layer))
 
 
 class MusicPerformer(nn.Module):
-    """Stage-2 Performer LM."""
+    """Stage-2 Performer LM.  ``heads_last`` selects the attention layout
+    (module docstring); None reads ``EMODIS_HL_ATTN`` once, here."""
 
     def __init__(self, n_token: int, n_layer: int = 12, n_head: int = 8,
                  d_model: int = 512, d_ff: int = 2048, d_embed: int = 512,
@@ -143,10 +170,13 @@ class MusicPerformer(nn.Module):
                  n_segment_types: int = 2, use_pe: bool = True,
                  max_len: int = 12000, *, dropout: float = 0.1,
                  compute_dtype: Optional[torch.dtype] = None,
+                 heads_last: Optional[bool] = None,
                  device: Union[str, torch.device] = 'cuda',
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
+        self.heads_last = (_heads_last_from_env() if heads_last is None
+                           else heads_last)
         self.n_token = n_token
         self.n_layer = n_layer
         self.n_head = n_head
@@ -161,7 +191,8 @@ class MusicPerformer(nn.Module):
                                       device=dev) if use_segment_emb else None)
         self.emb_dropout = nn.Dropout(dropout)
         self.transformer_decoder = TransformerDecoder(
-            n_layer, n_head, d_model, d_ff, dropout=dropout, device=dev)
+            n_layer, n_head, d_model, d_ff, dropout=dropout,
+            heads_last=self.heads_last, device=dev)
         self.dec_out_proj = nn.Linear(d_model, n_token, device=dev)
         self.register_buffer('pe', sinusoid_position_encoding(
             max_len, d_embed, device=dev), persistent=False)

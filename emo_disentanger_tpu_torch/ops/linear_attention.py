@@ -15,6 +15,11 @@ Port of ``emo_disentanger_tpu/ops/linear_attention.py``:
   On CPU tensors it runs the plain versions: :func:`_favor_compose`
   (feature maps + the chunked scan) forward, :func:`_favor_bwd_a_plain` and
   :func:`_favor_bwd_b_plain` backward;
+* :func:`favor_causal_attention_heads_last` — the same op on heads-last
+  ``[B, L, H * Dh]`` activations (the model's ``EMODIS_HL_ATTN=1``
+  configuration): on CUDA the ``*_hl`` entry points of the same kernels
+  read each head's columns in place, so no head-split copy is made; on the
+  CPU the head-major plain versions run on split copies;
 * :func:`linear_attention_decode_step` — the O(1)-per-token decode step.
 
 Numerics: all accumulation in float32 (float64 for float64 inputs, which
@@ -305,6 +310,12 @@ _SIGNATURES = {
     # (q, k, v, omega, partial, out, BH, L, Dh, Dv, M, bf16, eps, stream)
     'favor_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   ctypes.c_float, _P],
+    # heads-last: (k, omega, partial, B, H, L, Dh, M, bf16, stream)
+    'favor_kmax_hl': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # heads-last: (q, k, v, omega, partial, out, B, H, L, Dh, M, bf16, eps,
+    #  stream)
+    'favor_fwd_hl': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_float, _P],
 }
 
 
@@ -387,6 +398,14 @@ _BWD_SIGNATURES = {
     #  bf16, stream)
     'favor_bwd_b': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _I, _P],
+    # heads-last: (q, k, v, g, omega, partial, dq, u, w, B, H, L, Dh, M,
+    #  n_partial, bf16, eps, stream)
+    'favor_bwd_a_hl': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, ctypes.c_float, _P],
+    # heads-last: (q, k, v, u, w, omega, partial, dk, dv, B, H, L, Dh, M,
+    #  n_partial, bf16, stream)
+    'favor_bwd_b_hl': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P],
 }
 
 
@@ -527,6 +546,210 @@ def favor_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     om = omega.to(_acc_dtype(q)).contiguous()
     out = _FavorAttention.apply(q2, k2, v2, om, chunk, eps)
     return out.reshape(*lead, L, Dv)
+
+
+# ---------------------------------------------------------------------------
+# heads-last: [B, L, H * Dh] activations, the head split inside the kernels
+# ---------------------------------------------------------------------------
+
+# the JAX heads-last kernels keep each head's key max in one 128-lane tile
+# and refuse more features (``ops/linear_attention.py:1295-1299`` there); the
+# CUDA path refuses the same configurations
+HL_MAX_FEATURES = 128
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, L, H * Dh] -> contiguous [B * H, L, Dh], row b * H + h."""
+    B, L, D = x.shape
+    return x.reshape(B, L, n_head, D // n_head).transpose(1, 2).reshape(
+        B * n_head, L, D // n_head)
+
+
+def _merge_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
+    """[B * H, L, Dh] -> [B, L, H * Dh], the inverse of :func:`_split_heads`."""
+    BH, L, Dh = x.shape
+    return x.reshape(batch, BH // batch, L, Dh).transpose(1, 2).reshape(
+        batch, L, BH // batch * Dh)
+
+
+def _hl_compose(q, k, v, omega, n_head, chunk=CHUNK, eps=EPS, kmax=None):
+    """Plain version of the heads-last forward: head split, the head-major
+    :func:`_favor_compose`, merge back; in q's dtype.  ``kmax`` [B * H] as
+    :func:`_key_max_plain` gives it for the split keys."""
+    sp = lambda t: _split_heads(t, n_head)
+    out = _favor_compose(sp(q), sp(k), sp(v), omega, chunk, eps, kmax)
+    return _merge_heads(out, q.shape[0]).to(q.dtype)
+
+
+def _hl_shapes(name, q, omega, n_head):
+    """(B, L, Dh, M) of heads-last q [B, L, H * Dh] and omega [Dh, M]."""
+    B, L, D = q.shape
+    Dh, M = D // n_head, omega.shape[1]
+    if M > HL_MAX_FEATURES:
+        raise NotImplementedError(
+            f'{name}: the heads-last kernels take favor_dims <= '
+            f'{HL_MAX_FEATURES} (got {M}); use favor_causal_attention')
+    if D % n_head or omega.shape[0] != Dh:
+        raise ValueError(f'{name}: width {D} with {n_head} heads vs omega '
+                         f'{tuple(omega.shape)}')
+    if M % 4 or Dh % 4:
+        raise ValueError(f'{name}: Dh={Dh} and M={M} must be multiples of 4')
+    return B, L, Dh, M
+
+
+def _favor_kmax_hl_cuda(k, omega, n_head):
+    """Launch ``favor_kmax_hl`` on heads-last k [B, L, H * Dh]: per-chunk key
+    maxima [B * H, ceil(L/64)] f32, row b * H + h.  The first launch of the
+    op, so its shape check (M <= 128 first) comes before the device's."""
+    B, L, Dh, M = _hl_shapes('favor_kmax_hl', k, omega, n_head)
+    dev = k.device
+    _check_cuda('k', k, (torch.float32, torch.bfloat16), 3, dev)
+    _check_cuda('omega', omega, (torch.float32,), 2, dev)
+    partial = torch.empty(B * n_head, -(-L // KERNEL_CHUNK), dtype=torch.float32,
+                          device=dev)
+    lib = _lib()
+    err = lib.favor_kmax_hl(k.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+                            B, n_head, L, Dh, M, int(k.dtype == torch.bfloat16),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, 'favor_kmax_hl')
+    _build.LAUNCHES['favor_kmax_hl'] += 1
+    return partial
+
+
+def _check_hl_inputs(name, q, others, omega, partial, n_head):
+    dev = q.device
+    _check_cuda('q', q, (torch.float32, torch.bfloat16), 3, dev)
+    for n, t in others:
+        _check_cuda(n, t, (q.dtype,), 3, dev)
+        if t.shape != q.shape:
+            raise ValueError(f'{name}: {n} {tuple(t.shape)} vs q {tuple(q.shape)}')
+    _check_cuda('omega', omega, (torch.float32,), 2, dev)
+    _check_cuda('partial', partial, (torch.float32,), 2, dev)
+    B, L, Dh, M = _hl_shapes(name, q, omega, n_head)
+    if tuple(partial.shape) != (B * n_head, -(-L // KERNEL_CHUNK)):
+        raise ValueError(f'{name}: partial {tuple(partial.shape)} for B={B}, '
+                         f'H={n_head}, L={L}')
+    return B, L, Dh, M
+
+
+def _favor_fwd_hl_cuda(q, k, v, omega, partial, n_head, eps=EPS):
+    """Launch ``favor_fwd_hl`` on heads-last q, k, v [B, L, H * Dh] and the
+    key maxima of :func:`_favor_kmax_hl_cuda`; returns [B, L, H * Dh] in
+    q's dtype."""
+    B, L, Dh, M = _check_hl_inputs('favor_fwd_hl', q, (('k', k), ('v', v)),
+                                   omega, partial, n_head)
+    out = torch.empty_like(q)
+    lib = _lib()
+    err = lib.favor_fwd_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           omega.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                           B, n_head, L, Dh, M, int(q.dtype == torch.bfloat16),
+                           eps, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, 'favor_fwd_hl')
+    _build.LAUNCHES['favor_fwd_hl'] += 1
+    return out
+
+
+def _favor_bwd_a_hl_cuda(q, k, v, g, omega, partial, n_head, eps=EPS):
+    """Launch ``favor_bwd_a_hl`` (pass A) on heads-last q, k, v, g
+    [B, L, H * Dh].  Returns dq and u [B, L, H * Dh] and w [B * H, L], all
+    in q's dtype (bf16 under bf16)."""
+    B, L, Dh, M = _check_hl_inputs('favor_bwd_a_hl', q,
+                                   (('k', k), ('v', v), ('g', g)), omega,
+                                   partial, n_head)
+    dq = torch.empty_like(q)
+    u = torch.empty_like(v)
+    w = torch.empty(B * n_head, L, dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    err = lib.favor_bwd_a_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             g.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+                             dq.data_ptr(), u.data_ptr(), w.data_ptr(),
+                             B, n_head, L, Dh, M, partial.shape[1],
+                             int(q.dtype == torch.bfloat16), eps,
+                             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, 'favor_bwd_a_hl')
+    _build.LAUNCHES['favor_bwd_a_hl'] += 1
+    return dq, u, w
+
+
+def _favor_bwd_b_hl_cuda(q, k, v, u, w, omega, partial, n_head):
+    """Launch ``favor_bwd_b_hl`` (pass B) on the inputs of pass A and its
+    (u, w); returns dk and dv [B, L, H * Dh] in q's dtype."""
+    B, L, Dh, M = _check_hl_inputs('favor_bwd_b_hl', q,
+                                   (('k', k), ('v', v), ('u', u)), omega,
+                                   partial, n_head)
+    _check_cuda('w', w, (q.dtype,), 2, q.device)
+    if tuple(w.shape) != (B * n_head, L):
+        raise ValueError(f'favor_bwd_b_hl: w {tuple(w.shape)} for B={B}, '
+                         f'H={n_head}, L={L}')
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _bwd_lib()
+    err = lib.favor_bwd_b_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             u.data_ptr(), w.data_ptr(), omega.data_ptr(),
+                             partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             B, n_head, L, Dh, M, partial.shape[1],
+                             int(q.dtype == torch.bfloat16),
+                             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, 'favor_bwd_b_hl')
+    _build.LAUNCHES['favor_bwd_b_hl'] += 1
+    return dk, dv
+
+
+class _FavorAttentionHL(torch.autograd.Function):
+    """Heads-last q, k, v [B, L, H * Dh], omega [Dh, M] -> [B, L, H * Dh] in
+    q's dtype.  Saves q, k, v and the forward's key maxima; omega gets no
+    gradient.  The CPU runs the head-major plain versions on split copies,
+    so it gives exactly what :class:`_FavorAttention` gives on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, omega, n_head, chunk, eps):
+        if q.device.type == 'cpu':
+            kmax = _key_max_plain(_split_heads(k, n_head), omega)
+            out = _hl_compose(q, k, v, omega, n_head, chunk, eps, kmax)
+        else:
+            kmax = _favor_kmax_hl_cuda(k, omega, n_head)
+            out = _favor_fwd_hl_cuda(q, k, v, omega, kmax, n_head, eps)
+        ctx.save_for_backward(q, k, v, omega, kmax)
+        ctx.n_head, ctx.chunk, ctx.eps = n_head, chunk, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, omega, kmax = ctx.saved_tensors
+        H = ctx.n_head
+        g = g.to(q.dtype).contiguous()
+        if q.device.type == 'cpu':
+            sp = lambda t: _split_heads(t, H)
+            dt = _dot_dtype_for(q)
+            dq, u, w = _favor_bwd_a_plain(sp(q), sp(k), sp(v), sp(g), omega,
+                                          kmax, ctx.chunk, ctx.eps, dt)
+            dk, dv = _favor_bwd_b_plain(sp(q), sp(k), sp(v), u, w, omega, kmax,
+                                        ctx.chunk, dt)
+            dq, dk, dv = (_merge_heads(t, q.shape[0]) for t in (dq, dk, dv))
+        else:
+            dq, u, w = _favor_bwd_a_hl_cuda(q, k, v, g, omega, kmax, H, ctx.eps)
+            dk, dv = _favor_bwd_b_hl_cuda(q, k, v, u, w, omega, kmax, H)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def favor_causal_attention_heads_last(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, omega: torch.Tensor,
+                                      n_head: int, chunk: int = CHUNK,
+                                      eps: float = EPS) -> torch.Tensor:
+    """FAVOR+ causal linear attention on heads-last activations: q, k, v
+    [B, L, H * Dh] raw projections, omega [Dh, M].  Returns [B, L, H * Dh]
+    in q's dtype: :func:`favor_causal_attention` on the head-split tensors,
+    merged back, differentiable in q, k and v.
+
+    CUDA tensors launch ``favor_kmax_hl`` and ``favor_fwd_hl`` forward and
+    ``favor_bwd_a_hl`` and ``favor_bwd_b_hl`` backward, which read each
+    head's columns in place; they take M <= 128, as JAX's heads-last kernels
+    do, and raise NotImplementedError beyond.  CPU tensors run the
+    head-major plain versions on split copies."""
+    om = omega.to(_acc_dtype(q)).contiguous()
+    return _FavorAttentionHL.apply(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), om, n_head, chunk, eps)
 
 
 # ---------------------------------------------------------------------------

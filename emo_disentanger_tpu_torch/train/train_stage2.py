@@ -1,13 +1,21 @@
 """Stage-2 training driver (port of ``emo_disentanger_tpu/train/train_stage2.py``;
 reference ``stage2_accompaniment/train.py``).
 
-The Performer backbone on one device: YAML config (or a dict of the same
-shape) -> datasets -> ``MusicPerformer`` -> train/eval steps -> per-interval
-``ep{N}_loss{L}_params.pt`` / ``_optim.pt`` checkpoints -> ``log.txt`` and
-``valloss.txt`` in the reference formats.  The FAVOR+ feature matrices are
-redrawn before a step with the configured probability (reference
-``feat_redraw_prob``, ``train.py:57,239``), from a ``torch.Generator``.
-GPT-2 training is not ported yet and raises.
+Either stage-2 backbone on one device: YAML config (or a dict of the same
+shape) -> datasets -> ``MusicPerformer`` or ``MusicGPT2`` -> train/eval
+steps -> per-interval ``ep{N}_loss{L}_params.pt`` / ``_optim.pt``
+checkpoints (the model's state dict under the reference checkpoint's
+names) -> ``log.txt`` and ``valloss.txt`` in the reference formats.
+
+* Performer: the FAVOR+ feature matrices are redrawn before a step with the
+  configured probability (reference ``feat_redraw_prob``,
+  ``train.py:57,239``), from a ``torch.Generator``.  ``EMODIS_HL_ATTN=1``
+  selects the heads-last attention layout (``models/performer.py``).
+* GPT-2: no side inputs; the GPT-2 configs accumulate gradients over
+  ``accum_steps: 2`` micro-batches.  Training runs the einsum attention
+  (attention dropout); the validation forwards run in ``eval()`` mode and
+  so take the flash-attention kernel on CUDA where ``models/gpt2.py``'s
+  dispatch sends them (L >= 512, L % 128 == 0).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from ..core.vocab import Vocab
 from ..data.datasets import Stage2Dataset
+from ..models.gpt2 import MusicGPT2
 from ..models.performer import MusicPerformer
 from ..utils.device import resolve_device
 from ..utils.io import load_yaml, pickle_load
@@ -31,33 +40,33 @@ from .checkpoint import gc_checkpoints, load_optimizer, load_params, save_checkp
 from .trainer import (
     OptimizerConfig, batch_to_device, finalize_accuracy, make_eval_step,
     make_optimizer, make_train_step, neutralize_pad_rows,
-    stage2_performer_loss_fn,
+    stage2_gpt2_loss_fn, stage2_performer_loss_fn,
 )
 
 
 def build_model_and_params(config: dict, vocab: Vocab, model_type: str = 'performer',
                            seed: int = 0, *, device='cuda',
                            compute_dtype: Optional[torch.dtype] = None):
-    """(model, omegas): the Performer of ``config['model']`` with the
-    reference initialization drawn from ``seed`` and float32 parameters,
-    computing in ``compute_dtype`` (bf16 when the config says
-    ``compute_dtype: bfloat16``), and its first omegas."""
-    if model_type == 'gpt2':
-        raise NotImplementedError('GPT-2 training is not ported yet (ROADMAP.md, '
-                                  '"Still to port"); the port serves GPT-2 only')
-    if model_type != 'performer':
+    """(model, omegas): the ``model_type`` backbone of ``config['model']``
+    with the reference initialization drawn from ``seed`` and float32
+    parameters, computing in ``compute_dtype`` (bf16 when the config says
+    ``compute_dtype: bfloat16``), and, for the Performer, its first omegas
+    (None for GPT-2)."""
+    if model_type not in ('performer', 'gpt2'):
         raise ValueError(f'unsupported model type {model_type!r}')
     mconf = config['model']
     if compute_dtype is None and config.get('compute_dtype') == 'bfloat16':
         compute_dtype = torch.bfloat16
-    model = MusicPerformer(
+    common = dict(
         n_token=vocab.size, n_layer=mconf['n_layer'], n_head=mconf['n_head'],
         d_model=mconf['d_model'], d_ff=mconf['d_ff'], d_embed=mconf['d_embed'],
-        favor_dims=mconf['feature_map']['n_dims'],
         use_segment_emb=mconf['use_segemb'],
         n_segment_types=mconf.get('n_segment_types', 2),
         compute_dtype=compute_dtype, device=device,
         generator=torch.Generator().manual_seed(seed))
+    if model_type == 'gpt2':
+        return MusicGPT2(**common), None
+    model = MusicPerformer(favor_dims=mconf['feature_map']['n_dims'], **common)
     omegas = model.draw_omegas(torch.Generator().manual_seed(seed + 7))
     return model, omegas
 
@@ -103,7 +112,9 @@ def run(config: Union[str, dict], representation: str,
     if tconf.get('trained_optim'):
         load_optimizer(optimizer, tconf['trained_optim'])
 
-    loss_fn = stage2_performer_loss_fn(model, vocab.pad_id)
+    performer = model_type == 'performer'
+    loss_fn = (stage2_performer_loss_fn if performer
+               else stage2_gpt2_loss_fn)(model, vocab.pad_id)
     train_step = make_train_step(loss_fn, model, optimizer)
     eval_step = make_eval_step(loss_fn, model)
 
@@ -134,10 +145,10 @@ def run(config: Union[str, dict], representation: str,
             bsz = batch['dec_inp'].shape[0]
             batch = batch_to_device(
                 neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
-            if host_rng.random() <= redraw_prob:
+            if performer and host_rng.random() <= redraw_prob:
                 omegas = model.draw_omegas(omega_gen)
             t_step = time.time()
-            loss, _ = train_step(batch, {'omegas': omegas})
+            loss, _ = train_step(batch, {'omegas': omegas} if performer else {})
             loss = float(loss)
             step_seconds.append(time.time() - t_step)
             step_losses.append(loss)
@@ -160,7 +171,7 @@ def run(config: Union[str, dict], representation: str,
         for batch in val_dset.batches(batch_size, shuffle=False):
             batch = batch_to_device(
                 neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
-            loss, aux = eval_step(batch, {'omegas': omegas})
+            loss, aux = eval_step(batch, {'omegas': omegas} if performer else {})
             val_losses.append(float(loss))
             aux = {k: float(v) for k, v in aux.items()}
             acc_sums = aux if acc_sums is None else \

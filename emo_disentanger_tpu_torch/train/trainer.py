@@ -158,6 +158,19 @@ def stage2_performer_loss_fn(model: nn.Module, pad_id: int):
     return loss_fn
 
 
+def stage2_gpt2_loss_fn(model: nn.Module, pad_id: int):
+    """The GPT-2 loss (``trainer.py:230-240`` of the JAX package): no side
+    inputs, so ``extras`` is ignored."""
+    def loss_fn(batch, extras):
+        del extras
+        logits = model(batch['dec_inp'], batch['track_mask'])
+        loss = masked_cross_entropy(logits, batch['dec_tgt'], pad_id)
+        aux = accuracy_sums(logits, batch['dec_tgt'], batch['chord_idx'],
+                            batch['melody_idx'], pad_id)
+        return loss, aux
+    return loss_fn
+
+
 def neutralize_pad_rows(batch: dict, batch_size: int, pad_id: int) -> dict:
     """Pad a short batch to full size with rows whose targets are all PAD
     (zero loss/metric weight).  A copy of the JAX package's stage-1 helper

@@ -1,7 +1,7 @@
 """The port's stage-2 training driver on the CPU: ``run`` on a synthetic
 corpus writes ``log.txt`` / ``valloss.txt`` in the reference formats and an
 ``ep001_loss*_params.pt`` checkpoint, and a second run resumes from it; the
-CLI runs the same from a YAML file."""
+CLI runs the same from a YAML file, for either backbone."""
 
 import math
 import os
@@ -97,5 +97,8 @@ def test_cli_trains_from_yaml_on_cpu(config, tmp_path):
     assert out['steps'] == 2 and out['ckpt_dir'] == str(tmp_path / 'ck_remi')
     assert sorted(os.listdir(out['ckpt_dir'])) == [
         'config.yaml', 'log.txt', 'params', 'valloss.txt']
-    with pytest.raises(NotImplementedError, match='GPT-2 training'):
-        cli.main(['-m', 'gpt2', '-c', path, '-r', 'remi', '--device', 'cpu'])
+    out = cli.main(['-m', 'gpt2', '-c', path, '-r', 'functional', '--device',
+                    'cpu'])
+    assert out['steps'] == 2 and out['ckpt_dir'] == str(tmp_path / 'ck_functional')
+    assert sorted(os.listdir(out['ckpt_dir'])) == [
+        'config.yaml', 'log.txt', 'params', 'valloss.txt']
