@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives three main paths at full width with random weights from a seed.  Two
-run the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff
-2048, 128 FAVOR+ features):
+drives six paths at full width with random weights from a seed.  Three run
+the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
+128 FAVOR+ features):
 
 * serving: the forward at B=2, L=1024, an f32 decode that must reproduce
   the forward's logits, and ``Stage2BatchGenerator.serve`` over 24 jobs in
@@ -22,7 +22,7 @@ run the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff
   ``train_stage2.run`` at the same config, bf16 steps beside the head-major
   ones, and a fixed batch whose loss must fall.
 
-The third runs the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
+Two run the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
 (12 layers, 8 heads, d_model 512, d_ff 2048):
 
 * gpt2_training: ``train_stage2.run`` at the config's values (f32, B=4,
@@ -36,6 +36,13 @@ The third runs the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
   reference-exact replay past its 2048-token window.  Before it, the f32
   forward with the flash-attention kernel is held against the einsum path
   and the KV-cache decode against the forward.
+
+The sixth, composed_attention, runs the composed FAVOR+ attention of the
+port's public ops, ``causal_linear_attention(favor_features(q),
+favor_features(k), v)``, forward and backward at the training shape (B=16,
+H=8, L=3072, Dh=64, M=128, f32) through kernels #5-#7 of
+``csrc/linear_attn.cu``, and holds its output and gradients against the
+fused ``favor_causal_attention``.
 
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
@@ -116,6 +123,19 @@ HL_CASES = ((TRAIN_B, TRAIN_L, torch.float32), (BF16_B, TRAIN_L, torch.bfloat16)
             (ENTRY_B, 1000, torch.float32), (ENTRY_B, 1000, torch.bfloat16))
 HEAD_MAJOR = ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')
 HEADS_LAST = ('favor_kmax_hl', 'favor_fwd_hl', 'favor_bwd_a_hl', 'favor_bwd_b_hl')
+# causal_linear_attention's kernels #5-#7, held against their plain versions
+# at the composed path's shape (B=16, L=3072: BH=128), a ragged L, and the
+# forward on bf16 features and v and on f32 features (favor_features' type)
+# with bf16 v; each compares f32 results (bf16 inputs widen exactly), so
+# TOL_F32 holds for all.  A case is (B, L, features' dtype, v's dtype)
+COMPOSED = ('cla_fwd', 'cla_bwd_a', 'cla_bwd_b')
+CLA_CASES = ((BF16_B, TRAIN_L, torch.float32, torch.float32),
+             (ENTRY_B, 1000, torch.float32, torch.float32),
+             (ENTRY_B, 1000, torch.bfloat16, torch.bfloat16),
+             (ENTRY_B, 1000, torch.float32, torch.bfloat16))
+# the composed FAVOR+ path's gradients against the fused op's: the same
+# function up to summation order, through the feature map's chain rule
+TOL_COMPOSED_GRAD = 1e-3
 # f32 decode (key stabilizer 0) against the forward (row max stabilizer)
 # after 12 layers: the stabilizers cancel up to the 1e-6 eps and float order
 TOL_DECODE_VS_FORWARD = 1e-3
@@ -193,30 +213,59 @@ def kmax_bound(BH, L, Dh, M, in_bytes, chunk):
     return bound(nbytes, ops / F32_FLOP_PER_S)
 
 
+def fwd_products(BH, L, M, Dv):
+    """Flop of the causal products a forward needs, counted as the
+    per-position recurrence does them (a chunked kernel's triangles are its
+    own overhead): S += phi_k v^T and phi_q.S, 2 M Dv each; z += phi_k and
+    phi_q.z, 3 M; the division by the denominator, Dv."""
+    return BH * L * (4 * M * Dv + 3 * M + Dv)
+
+
+def bwd_products(BH, L, M, Dv, pass_a):
+    """Flop a backward pass needs, per position as the recurrence does it:
+    three [M, Dv] state products, 6 M Dv (pass A replays S += phi_k v^T and
+    num = phi_q.S and forms S u; pass B forms R += phi_q u^T, R^T phi_k and
+    R v), and the vectors: pass A's z update, phi_q.z and w z (5 M) and
+    u = g/den and g.num (3 Dv), pass B's r += w phi_q and its add (3 M)."""
+    vec = 5 * M + 3 * Dv if pass_a else 3 * M
+    return BH * L * (6 * M * Dv + vec)
+
+
 def fwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk):
     nbytes = (BH * L * (2 * Dh + 2 * Dv) * in_bytes + Dh * M * 4
               + BH * -(-L // chunk) * 4)
     feat = 2 * 2 * BH * L * Dh * (M + 1)                    # phi_q, phi_k: f32
-    # chunked causal products: the lower triangle of each chunk's scores and
-    # their product with v, then phi_q.S and the S update
-    prod = BH * (L * (chunk + 1) * (M + Dv) + 4 * L * M * Dv)
     rate = BF16_FLOP_PER_S if in_bytes == 2 else F32_FLOP_PER_S
-    return bound(nbytes, feat / F32_FLOP_PER_S + prod / rate)
+    return bound(nbytes, feat / F32_FLOP_PER_S + fwd_products(BH, L, M, Dv) / rate)
 
 
-def bwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk, n_partial):
-    """Either backward pass: A reads q, k, v, g and writes dq, u, w; B reads
+def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a):
+    """A backward pass: A reads q, k, v, g and writes dq, u, w; B reads
     q, k, v, u, w and writes dk, dv -- 3 Dh + 3 Dv + 1 values a position
     both ways.  Each recomputes both feature maps and the chain rule through
-    one of them (f32, omega exact), and runs twice the forward's chunk
-    products: the lower triangles of two chunk-square products into M and
-    two into Dv, and three [M, Dv] state products."""
+    one of them (f32, omega exact), and runs the causal products."""
     nbytes = (BH * L * (3 * Dh + 3 * Dv + 1) * in_bytes + Dh * M * 4
               + BH * n_partial * 4)
     feat = 2 * 2 * BH * L * Dh * (M + 1) + 2 * BH * L * M * Dh
-    prod = BH * (2 * L * (chunk + 1) * (M + Dv) + 6 * L * M * Dv)
     rate = BF16_FLOP_PER_S if in_bytes == 2 else F32_FLOP_PER_S
-    return bound(nbytes, feat / F32_FLOP_PER_S + prod / rate)
+    return bound(nbytes, feat / F32_FLOP_PER_S
+                 + bwd_products(BH, L, M, Dv, pass_a) / rate)
+
+
+def cla_fwd_bound(BH, L, M, Dv, in_bytes):
+    """Kernel #5: phi_q, phi_k and v read once in their type, the f32 output
+    written once; the forward's causal products at the f32 rate (the kernel
+    widens bf16 inputs)."""
+    nbytes = BH * L * (2 * M + Dv) * in_bytes + BH * L * Dv * 4
+    return bound(nbytes, fwd_products(BH, L, M, Dv) / F32_FLOP_PER_S)
+
+
+def cla_bwd_bound(BH, L, M, Dv, pass_a):
+    """Kernel #6 or #7, f32: pass A reads phi_q, phi_k, v, g and writes
+    dphi_q, u, w; pass B reads phi_q, phi_k, v, u, w and writes dphi_k, dv
+    -- 3 M + 3 Dv + 1 values a position both ways; no feature map."""
+    nbytes = BH * L * (3 * M + 3 * Dv + 1) * 4
+    return bound(nbytes, bwd_products(BH, L, M, Dv, pass_a) / F32_FLOP_PER_S)
 
 
 def decode_bound(B, D, H, M, F, w_bytes, x_bytes):
@@ -538,6 +587,59 @@ def phase_kernel_hl(dev, rec):
             rec['favor_bwd_b_hl']['max_abs_err'] = max(
                 max_abs(*pairs[n]) for n in ('dk', 'dv'))
 
+
+def cla_inputs(gen, B, L, dev):
+    """Kernels #5-#7's inputs as the composed path makes them: the FAVOR+
+    features of qkv()'s q and k (D_HEAD = 64, FAVOR = 128, f32) as
+    [B*H, L, FAVOR], v and a cotangent g as [B*H, L, D_HEAD]."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    q, k, v, g = (qkv(gen, B, N_HEAD, L, torch.float32, dev)
+                  + qkv(gen, B, N_HEAD, L, torch.float32, dev)[:1])
+    flat = lambda t: t.reshape(B * N_HEAD, L, t.shape[-1])
+    return (flat(la.favor_features(q, omega, is_query=True)),
+            flat(la.favor_features(k, omega, is_query=False)), flat(v), flat(g))
+
+
+def phase_kernel_cla(dev, rec):
+    """Kernels #5-#7 against their plain versions at the kernels' chunk:
+    the forward, pass A, and pass B fed the kernel's own (u, w), at the
+    composed path's shape and a ragged L in f32; the forward also on bf16
+    features and v, and on f32 features with bf16 v (f32 out).  The
+    composed path's shape gives the recorded errors."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(21)
+    C = la.KERNEL_CHUNK
+    for B, L, dtype, v_dtype in CLA_CASES:
+        q, k, v, g = cla_inputs(gen, B, L, dev)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(v_dtype)
+        pairs = {'out': (la._cla_fwd_cuda(q, k, v), la._cla_fwd_plain(q, k, v, C))}
+        if dtype == v_dtype == torch.float32:
+            dq, u, w = la._cla_bwd_a_cuda(q, k, v, g)
+            dk, dv = la._cla_bwd_b_cuda(q, k, v, u, w)
+            rdq, ru, rw = la._cla_bwd_a_plain(q, k, v, g, C)
+            rdk, rdv = la._cla_bwd_b_plain(q, k, v, u, w, C)
+            pairs.update(dphi_q=(dq, rdq), u=(u, ru), w=(w, rw),
+                         dphi_k=(dk, rdk), dv=(dv, rdv))
+        torch.cuda.synchronize()
+        for name, (a, b) in pairs.items():
+            expect(a.dtype == torch.float32 and a.shape == b.shape
+                   and bool(torch.isfinite(a).all()),
+                   f'causal_linear_attention {name} dtype/shape/finite')
+        errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
+        line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+        name = (f"{str(dtype).replace('torch.', '')} features, "
+                f"{str(v_dtype).replace('torch.', '')} v")
+        print(f'phase 2l kernels #5-#7 {name} B={B} H={N_HEAD} L={L} '
+              f'M={FAVOR} Dv={D_HEAD}: rel err {line} (tol {TOL_F32})')
+        expect(max(errs.values()) <= TOL_F32,
+               f'causal_linear_attention kernels {name} B={B} L={L}')
+        if (B, L, dtype, v_dtype) == CLA_CASES[0]:
+            rec['cla_fwd']['max_abs_err'] = max_abs(*pairs['out'])
+            rec['cla_bwd_a']['max_abs_err'] = max(
+                max_abs(*pairs[n]) for n in ('dphi_q', 'u', 'w'))
+            rec['cla_bwd_b']['max_abs_err'] = max(
+                max_abs(*pairs[n]) for n in ('dphi_k', 'dv'))
 
 
 def phase_kernel_b(dev, rec):
@@ -966,6 +1068,68 @@ def phase_train_gpt2(dev, smi):
     return n_val
 
 
+def composed_attention(omega):
+    """The composed FAVOR+ attention as a user writes it with the port's
+    public ops: feature maps, then causal_linear_attention."""
+    from emo_disentanger_tpu_torch.ops import causal_linear_attention, favor_features
+    return lambda q, k, v: causal_linear_attention(
+        favor_features(q, omega, is_query=True),
+        favor_features(k, omega, is_query=False), v)
+
+
+def phase_composed(dev):
+    """The composed_attention path: the composed FAVOR+ attention forward
+    and backward through autograd to dq, dk and dv at B=16, H=8, L=3072,
+    Dh=64, M=128, f32, against favor_causal_attention (#1-#4) on the same
+    q, k, v and omega: the output within TOL_F32, each gradient within
+    TOL_COMPOSED_GRAD.  The launch counts are set to 0 just before the
+    composed call and read just after it; returns them."""
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(22)
+    B, L = BF16_B, TRAIN_L
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    q, k, v, g = (qkv(gen, B, N_HEAD, L, torch.float32, dev)
+                  + qkv(gen, B, N_HEAD, L, torch.float32, dev)[:1])
+
+    def run(attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention(*leaves)
+        out.backward(g)
+        return out.detach(), [t.grad for t in leaves]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.LAUNCHES.clear()                  # the composed_attention path starts here
+    out, grads = run(composed_attention(omega))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ref, ref_grads = run(lambda q_, k_, v_: la.favor_causal_attention(q_, k_, v_, omega))
+    torch.cuda.synchronize()
+    e_out = rel_err(out, ref)
+    errs = {n: rel_err(a, b) for n, a, b in zip(('dq', 'dk', 'dv'), grads, ref_grads)}
+    print(f'phase 9 composed_attention f32 B={B} H={N_HEAD} L={L} Dh={D_HEAD} '
+          f'M={FAVOR}: causal_linear_attention(favor_features(q), '
+          f'favor_features(k), v) vs favor_causal_attention: out rel err '
+          f'{e_out:.2e} (tol {TOL_F32}), gradients rel err '
+          f'{", ".join(f"{n} {e:.2e}" for n, e in errs.items())} (tol '
+          f'{TOL_COMPOSED_GRAD}); peak {peak:.2f} GiB above the memory held '
+          f'before; launches {launches}')
+    expect(out.dtype == torch.float32 and out.shape == ref.shape
+           and bool(torch.isfinite(out).all())
+           and all(bool(torch.isfinite(t).all()) for t in grads),
+           'composed output f32, shape, finite')
+    expect(e_out <= TOL_F32, 'the composed output matches the fused op')
+    expect(max(errs.values()) <= TOL_COMPOSED_GRAD,
+           'the composed gradients match the fused op')
+    expect(launches == {name: 1 for name in COMPOSED},
+           'the composed call launched #5, #6 and #7 once each and no FAVOR '
+           'kernel')
+    return launches
+
+
 def phase_timing(dev, rec, smi):
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
@@ -1038,11 +1202,12 @@ def phase_timing(dev, rec, smi):
                                                   C, dot_dtype=bf),
                     iters=2, warmup=1)),
     }
-    b_w, by_w = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, C, part.shape[1])
-    for name, (t, p) in times.items():
+    b_a, b_b = (bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], pass_a)
+                for pass_a in (True, False))
+    for name, (t, p), (b, by) in zip(times, times.values(), (b_a, b_b)):
         print(f'phase 6 kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
-              f'(plain {p:.4f}, bound {b_w:.4f} {by_w})')
-        rec[name].update(ms=t, plain_ms=p, bound_ms=b_w, bound_by=by_w)
+              f'(plain {p:.4f}, bound {b:.4f} {by})')
+        rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
 
     # the heads-last kernels #8-#11 at the same shape, on [B, L, D] tensors
     # holding the same values, beside the head-major #1/#2 there; the plain
@@ -1071,14 +1236,14 @@ def phase_timing(dev, rec, smi):
             time_ms(lambda: la._favor_bwd_a_plain(sp(q), sp(k), sp(v), sp(g), omega,
                                                   kmax, C, dot_dtype=bf),
                     iters=2, warmup=1),
-            (b_w, by_w)),
+            b_a),
         'favor_bwd_b_hl': (
             time_ms(lambda: la._favor_bwd_b_hl_cuda(q, k, v, hu, hw, omega, hpart, H),
                     iters=5, warmup=1),
             time_ms(lambda: la._favor_bwd_b_plain(sp(q), sp(k), sp(v), sp(hu), hw,
                                                   omega, kmax, C, dot_dtype=bf),
                     iters=2, warmup=1),
-            (b_w, by_w)),
+            b_b),
     }
     for name, (t, p, (b, by)) in hl.items():
         print(f'phase 6h kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
@@ -1087,6 +1252,71 @@ def phase_timing(dev, rec, smi):
     print(f'phase 6h head-major at the same shape [{smi}]: favor_kmax '
           f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms, favor_bwd_a '
           f'{times["favor_bwd_a"][0]:.4f} ms, favor_bwd_b {times["favor_bwd_b"][0]:.4f} ms')
+
+
+def phase_timing_cla(dev, rec, smi):
+    """Kernels #5-#7 at the composed path's shape (f32, B=16, L=3072:
+    BH=128) beside their plain versions and bounds; no single PyTorch call
+    computes these functions.  Then the composed FAVOR+ attention beside
+    favor_causal_attention at the same shape, f32 forward (no autograd) and
+    forward+backward, in turns: composed, fused, fused, composed."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(23)
+    B, L = BF16_B, TRAIN_L
+    BH, C = B * N_HEAD, la.KERNEL_CHUNK
+    q, k, v, g = cla_inputs(gen, B, L, dev)
+    _, u, w = la._cla_bwd_a_cuda(q, k, v, g)
+    times = {
+        'cla_fwd': (time_ms(lambda: la._cla_fwd_cuda(q, k, v), iters=10),
+                    time_ms(lambda: la._cla_fwd_plain(q, k, v, C), iters=3, warmup=1),
+                    cla_fwd_bound(BH, L, FAVOR, D_HEAD, 4)),
+        'cla_bwd_a': (time_ms(lambda: la._cla_bwd_a_cuda(q, k, v, g), iters=5, warmup=1),
+                      time_ms(lambda: la._cla_bwd_a_plain(q, k, v, g, C),
+                              iters=2, warmup=1),
+                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, True)),
+        'cla_bwd_b': (time_ms(lambda: la._cla_bwd_b_cuda(q, k, v, u, w), iters=5,
+                              warmup=1),
+                      time_ms(lambda: la._cla_bwd_b_plain(q, k, v, u, w, C),
+                              iters=2, warmup=1),
+                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, False)),
+    }
+    for name, (t, p, (b, by)) in times.items():
+        print(f'phase 6l kernel {name} f32 B={B} H={N_HEAD} L={L} M={FAVOR} '
+              f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (plain {p:.4f}, bound {b:.4f} {by})')
+        rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
+    del q, k, v, g, u, w
+
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    x = qkv(gen, B, N_HEAD, L, torch.float32, dev)
+    g = qkv(gen, B, N_HEAD, L, torch.float32, dev)[0]
+    leaves = [t.clone().requires_grad_() for t in x]
+    fns = {'composed': composed_attention(omega),
+           'fused': lambda q_, k_, v_: la.favor_causal_attention(q_, k_, v_, omega)}
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                fn(*x)
+        return run
+
+    def forward_backward(fn):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves).backward(g)
+        return run
+    res = {(kind, name): [] for kind in ('fwd', 'fwd+bwd') for name in fns}
+    for name in ('composed', 'fused', 'fused', 'composed'):
+        res['fwd', name].append(time_ms(forward(fns[name]), iters=5, warmup=1))
+        res['fwd+bwd', name].append(time_ms(forward_backward(fns[name]), iters=3,
+                                            warmup=1))
+    fmt = lambda ts: ' / '.join(f'{t:.4f}' for t in ts)
+    print(f'phase 6l composed vs fused FAVOR+ attention f32 B={B} H={N_HEAD} '
+          f'L={L} Dh={D_HEAD} M={FAVOR} [{smi}], two readings each (CUDA events): '
+          f'forward {fmt(res["fwd", "composed"])} ms composed, '
+          f'{fmt(res["fwd", "fused"])} ms fused; forward+backward '
+          f'{fmt(res["fwd+bwd", "composed"])} ms composed, '
+          f'{fmt(res["fwd+bwd", "fused"])} ms fused')
 
 
 def phase_profile(model, omegas, vocab, dev, smi):
@@ -1417,21 +1647,30 @@ def main():
                                replaces='emo_disentanger_tpu/ops/linear_attention.py:1027'),
         'favor_bwd_b_hl': dict(route='cuda', source=src + 'favor_bwd.cu',
                                replaces='emo_disentanger_tpu/ops/linear_attention.py:1099'),
+        'cla_fwd': dict(route='cuda', source=src + 'linear_attn.cu',
+                        replaces='emo_disentanger_tpu/ops/linear_attention.py:152'),
+        'cla_bwd_a': dict(route='cuda', source=src + 'linear_attn.cu',
+                          replaces='emo_disentanger_tpu/ops/linear_attention.py:245'),
+        'cla_bwd_b': dict(route='cuda', source=src + 'linear_attn.cu',
+                          replaces='emo_disentanger_tpu/ops/linear_attention.py:295'),
     }
     # each kernel's launches are read on the path it was ported for
     paths = {'serving': ('favor_kmax', 'favor_fwd', 'performer_decode_layer'),
              'training': HEAD_MAJOR,
              'heads_last_training': HEADS_LAST,
              'gpt2_serving': ('flash_attention_fwd',),
-             'gpt2_training': ('flash_attention_fwd',)}
+             'gpt2_training': ('flash_attention_fwd',),
+             'composed_attention': COMPOSED}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
-             **{name: 'heads_last_training' for name in HEADS_LAST}}
+             **{name: 'heads_last_training' for name in HEADS_LAST},
+             **{name: 'composed_attention' for name in COMPOSED}}
     t_start = time.time()
     smi = phase_device()
     phase_kernel_a(dev, rec)
     phase_kernel_c(dev, rec)
     phase_kernel_hl(dev, rec)
+    phase_kernel_cla(dev, rec)
     phase_kernel_b(dev, rec)
     phase_kernel_flash(dev, rec, smi)
 
@@ -1484,6 +1723,7 @@ def main():
     launches['gpt2_training'] = dict(_build.LAUNCHES)
     expect(launches['gpt2_training'] == {'flash_attention_fwd': N_LAYER * n_val},
            'GPT-2 training launched flash_attention_fwd in validation only')
+    launches['composed_attention'] = phase_composed(dev)
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -1493,6 +1733,7 @@ def main():
         r['launches'] = launches[owner.get(name, 'serving')][name]
 
     phase_timing(dev, rec, smi)
+    phase_timing_cla(dev, rec, smi)
     phase_profile(model, omegas, vocab, dev, smi)
     phase_profile_train(step, batch, extras, step_s * 1e3, smi)
     phase_profile_train(hl_step, hl_batch, hl_extras, hl_step_s * 1e3, smi,

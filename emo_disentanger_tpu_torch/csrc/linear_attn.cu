@@ -1,0 +1,440 @@
+// Causal linear attention over precomputed features, for Hopper (sm_90a).
+//
+// Replaces the three Pallas TPU kernels of emo_disentanger_tpu/ops/linear_attention.py
+// behind its composed op causal_linear_attention (:413):
+//   _pallas_kernel (:152, via _pallas_impl :208)       -> cla_fwd_kernel
+//   _bwd_a_kernel  (:245, via _pallas_bwd :341, :353)  -> cla_bwd_a_kernel
+//   _bwd_b_kernel  (:295, via _pallas_bwd :341, :367)  -> cla_bwd_b_kernel
+// Unlike favor_fwd.cu / favor_bwd.cu they take the feature maps phi_q, phi_k
+// [BH, L, M] as inputs: no omega, no key stabilizer, no chain rule, and the
+// backward ends at dphi.
+//
+// Function (per batch*head row; phi_q, phi_k [L, M] non-negative, v [L, Dv]):
+//   out_i = phi_q_i . S_i / D_i,  D_i = phi_q_i . z_i + eps,
+//   S_i = sum_{j<=i} phi_k_j v_j^T,  z_i = sum_{j<=i} phi_k_j
+// and, with g = dL/dout:
+//   pass A, chunks in order, carrying the prefix (S, z):
+//     u_i = g_i / D_i,  w_i = -(g_i . out_i) / D_i
+//     dphi_q_i = sum_{j<=i} a_ij phi_k_j + S_prev u_i + w_i z_prev,
+//                a_ij = u_i . v_j + w_i   (j in the chunk)
+//   pass B, chunks in reverse, carrying the suffix states
+//     R = sum_{i>=j} phi_q_i u_i^T [M, Dv],  r = sum_{i>=j} w_i phi_q_i [M]:
+//     dv_j = sum_{i>=j} p_ij u_i + R_next^T phi_k_j,  p_ij = phi_q_i . phi_k_j
+//     dphi_k_j = sum_{i>=j} a_ij phi_q_i + R_next v_j + r_next
+// The forward reads phi_q, phi_k and v each in f32 or bf16, widened to f32 on
+// load as the TPU kernel widens each input, and writes f32.  The backward passes read f32 (the wrapper
+// casts first, as JAX does before _pallas_bwd) and write f32: dphi_q, u and
+// w [BH, L] (pass A), dphi_k and dv (pass B).  Rows past L, in the ragged
+// last chunk, load as zero: they add nothing to a state or a product, their
+// denominator is eps alone, and nothing is stored for them.
+//
+// Bound on the H100: at BH = 128, L = 3072, M = 128, Dv = 64 the forward moves
+// 604 MB and needs 13.1 GFLOP, each backward pass 907 MB and 19.5-19.7 GFLOP
+// (the per-position recurrence's products, counted by chip_smoke.py's
+// cla_fwd_bound / cla_bwd_bound; the chunk triangles below are this kernel's
+// overhead), f32 at 67 TFLOP/s: bounded by operations, at 0.195 and 0.29 ms.
+//
+// Design (simple first, as the FAVOR+ kernels): one thread block per row loops
+// over 64-row chunks, the TPU grid's sequential chunk axis.  The carried state
+// and the chunk's tiles live in shared memory, rows padded +1 against bank
+// conflicts: 130 KB forward, 163 KB pass A and 147 KB pass B at the shapes
+// above.  Products are 4x4 register micro-tiles over shared memory (mma4x4 of
+// favor_common.cuh), row reductions a warp per row.  No tensor cores, TMA or
+// pipelining yet, and one block per row leaves SMs idle below BH = 132.
+
+#include "favor_common.cuh"
+
+namespace {
+
+// dst[i][c] = src[i * W + c] widened to f32 for rows i < n and 0 beyond, dst
+// rows W + 1 apart
+template <class T>
+__device__ void load_rows(float* dst, const T* src, int n, int W) {
+  for (int idx = threadIdx.x; idx < C * W; idx += blockDim.x) {
+    const int i = idx / W, c = idx - i * W;
+    dst[i * (W + 1) + c] = i < n ? to_f<T>(src[(size_t)i * W + c]) : 0.f;
+  }
+}
+
+// the carried state [M][Dv+1] and its vector [M] to zero
+__device__ void zero_state(float* state, float* vec, int M, int Dv) {
+  for (int i = threadIdx.x; i < M * (Dv + 1); i += blockDim.x) state[i] = 0.f;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) vec[i] = 0.f;
+}
+
+// sc[i][j] = phi_q_i . phi_k_j for j <= i, else 0
+__device__ void causal_scores(float* sc, const float* pq, const float* pk, int M) {
+  const int MP = M + 1, CP = C + 1;
+  for (int t = threadIdx.x; t < (C / 4) * (C / 4); t += blockDim.x) {
+    const int it = t / (C / 4), jt = t - it * (C / 4);
+    float acc[4][4];
+    zero4x4(acc);
+    mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, pk, 1, MP, jt, C / 4, M);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = it + r * (C / 4), j = jt + c * (C / 4);
+        sc[i * CP + j] = j <= i ? acc[r][c] : 0.f;
+      }
+  }
+}
+
+// sc[i][j] = u_i . v_j + w_i for j <= i, else 0
+__device__ void a_matrix(float* sc, const float* uu, const float* vv, const float* wv,
+                         int Dv) {
+  const int DVP = Dv + 1, CP = C + 1;
+  for (int t = threadIdx.x; t < (C / 4) * (C / 4); t += blockDim.x) {
+    const int it = t / (C / 4), jt = t - it * (C / 4);
+    float acc[4][4];
+    zero4x4(acc);
+    mma4x4<float, false, false>(acc, uu, DVP, 1, it, C / 4, vv, 1, DVP, jt, C / 4, Dv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = it + r * (C / 4), j = jt + c * (C / 4);
+        sc[i * CP + j] = j <= i ? acc[r][c] + wv[i] : 0.f;
+      }
+  }
+}
+
+// den[i] = sum_{j<=i} sc[i][j] + phi_q_i . z + eps, a warp per row
+__device__ void denominators(float* den, const float* sc, const float* pq, const float* z,
+                             int M, float eps) {
+  const int MP = M + 1, CP = C + 1, lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
+    float s = 0.f;
+    for (int j = lane; j <= i; j += 32) s += sc[i * CP + j];
+    for (int m = lane; m < M; m += 32) s = fmaf(pq[i * MP + m], z[m], s);
+    s = warp_sum(s);
+    if (lane == 0) den[i] = s + eps;
+  }
+}
+
+// state[m][d] += sum_{j<n} x[j][m] y[j][d] and vec[m] += sum_{j<n} wts_j x[j][m]
+// (wts_j = 1 when wts is null); x [C][M+1], y [C][Dv+1], state [M][Dv+1]
+__device__ void add_state(float* state, float* vec, const float* x, const float* y,
+                          const float* wts, int n, int M, int Dv) {
+  const int MP = M + 1, DVP = Dv + 1;
+  for (int t = threadIdx.x; t < (M / 4) * (Dv / 4); t += blockDim.x) {
+    const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+    float acc[4][4];
+    zero4x4(acc);
+    mma4x4<float, false, false>(acc, x, 1, MP, it, M / 4, y, DVP, 1, jt, Dv / 4, n);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) state[(it + r * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[r][c];
+  }
+  for (int m = threadIdx.x; m < M; m += blockDim.x) {
+    float s = 0.f;
+    for (int j = 0; j < n; ++j) s = wts ? fmaf(wts[j], x[j * MP + m], s) : s + x[j * MP + m];
+    vec[m] += s;
+  }
+}
+
+template <class TQ, class TK, class TV>
+__global__ void cla_fwd_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                               const TV* __restrict__ v, float* __restrict__ out, int L, int M,
+                               int Dv, float eps) {
+  extern __shared__ float smem[];
+  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
+  float* S = smem;                     // [M][Dv+1]   running sum phi_k v^T
+  float* z = S + M * DVP;              // [M]         running sum phi_k
+  float* pq = z + M;                   // [C][M+1]
+  float* pk = pq + C * MP;             // [C][M+1]
+  float* vv = pk + C * MP;             // [C][Dv+1]
+  float* sc = vv + C * DVP;            // [C][C+1]    masked intra-chunk scores
+  float* den = sc + C * CP;            // [C]
+  const size_t row = blockIdx.x;
+  q += row * L * M;                    // this row's first position
+  k += row * L * M;
+  v += row * L * Dv;
+  out += row * L * Dv;
+  zero_state(S, z, M, Dv);
+
+  for (int r0 = 0; r0 < L; r0 += C) {
+    const int n = min(C, L - r0);
+    load_rows<TQ>(pq, q + (size_t)r0 * M, n, M);
+    load_rows<TK>(pk, k + (size_t)r0 * M, n, M);
+    load_rows<TV>(vv, v + (size_t)r0 * Dv, n, Dv);
+    __syncthreads();
+    causal_scores(sc, pq, pk, M);
+    __syncthreads();
+    denominators(den, sc, pq, z, M, eps);
+    __syncthreads();
+
+    // out_i = (sc_i . v + phi_q_i . S) / den_i
+    for (int t = threadIdx.x; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
+      mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = it + r * (C / 4);
+        if (i < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            out[(size_t)(r0 + i) * Dv + jt + c * (Dv / 4)] = acc[r][c] / den[i];
+      }
+    }
+    __syncthreads();
+    add_state(S, z, pk, vv, nullptr, n, M, Dv);
+    __syncthreads();
+  }
+}
+
+__global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ g,
+                                 float* __restrict__ dq, float* __restrict__ u_out,
+                                 float* __restrict__ w_out, int L, int M, int Dv, float eps) {
+  extern __shared__ float smem[];
+  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
+  float* S = smem;                     // [M][Dv+1]   running sum phi_k v^T
+  float* z = S + M * DVP;              // [M]         running sum phi_k
+  float* pq = z + M;                   // [C][M+1]
+  float* pk = pq + C * MP;             // [C][M+1]
+  float* vv = pk + C * MP;             // [C][Dv+1]
+  float* gu = vv + C * DVP;            // [C][Dv+1]   g, then u
+  float* go = gu + C * DVP;            // [C][Dv+1]   g * out
+  float* sc = go + C * DVP;            // [C][C+1]    masked scores, then a
+  float* den = sc + C * CP;            // [C]
+  float* wv = den + C;                 // [C]
+  const int tid = threadIdx.x, lane = tid & 31, nwarp = blockDim.x >> 5;
+  const size_t row = blockIdx.x;
+  q += row * L * M;                    // this row's first position
+  k += row * L * M;
+  dq += row * L * M;
+  v += row * L * Dv;
+  g += row * L * Dv;
+  u_out += row * L * Dv;
+  w_out += row * L;
+  zero_state(S, z, M, Dv);
+
+  for (int r0 = 0; r0 < L; r0 += C) {
+    const int n = min(C, L - r0);
+    load_rows<float>(pq, q + (size_t)r0 * M, n, M);
+    load_rows<float>(pk, k + (size_t)r0 * M, n, M);
+    load_rows<float>(vv, v + (size_t)r0 * Dv, n, Dv);
+    load_rows<float>(gu, g + (size_t)r0 * Dv, n, Dv);
+    __syncthreads();
+    causal_scores(sc, pq, pk, M);
+    __syncthreads();
+    denominators(den, sc, pq, z, M, eps);
+    __syncthreads();
+
+    // out_i = (sc_i . v + phi_q_i . S) / den_i; go = g * out; u = g / den
+    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
+      mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = it + r * (C / 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = jt + c * (Dv / 4);
+          const float gv = gu[i * DVP + d], u = gv / den[i];
+          go[i * DVP + d] = gv * (acc[r][c] / den[i]);
+          gu[i * DVP + d] = u;
+          if (i < n) u_out[(size_t)(r0 + i) * Dv + d] = u;
+        }
+      }
+    }
+    __syncthreads();
+
+    // w_i = -(g_i . out_i) / den_i, a warp per row
+    for (int i = tid >> 5; i < C; i += nwarp) {
+      float s = 0.f;
+      for (int d = lane; d < Dv; d += 32) s += go[i * DVP + d];
+      s = warp_sum(s);
+      if (lane == 0) {
+        const float w = -s / den[i];
+        wv[i] = w;
+        if (i < n) w_out[r0 + i] = w;
+      }
+    }
+    __syncthreads();
+    a_matrix(sc, gu, vv, wv, Dv);
+    __syncthreads();
+
+    // dphi_q = a . phi_k + u . S^T + w z
+    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+      const int it = t / (M / 4), jt = t - it * (M / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, pk, MP, 1, jt, M / 4, n);
+      mma4x4<float, false, false>(acc, gu, DVP, 1, it, C / 4, S, 1, DVP, jt, M / 4, Dv);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = it + r * (C / 4);
+        if (i < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = jt + c * (M / 4);
+            dq[(size_t)(r0 + i) * M + m] = acc[r][c] + wv[i] * z[m];
+          }
+      }
+    }
+    __syncthreads();                   // the products above read S and z
+    add_state(S, z, pk, vv, nullptr, n, M, Dv);
+    __syncthreads();
+  }
+}
+
+__global__ void cla_bwd_b_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ u,
+                                 const float* __restrict__ w, float* __restrict__ dk,
+                                 float* __restrict__ dv, int L, int M, int Dv) {
+  extern __shared__ float smem[];
+  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
+  float* R = smem;                     // [M][Dv+1]   suffix sum phi_q u^T
+  float* r = R + M * DVP;              // [M]         suffix sum w phi_q
+  float* pq = r + M;                   // [C][M+1]
+  float* pk = pq + C * MP;             // [C][M+1]
+  float* vv = pk + C * MP;             // [C][Dv+1]
+  float* uu = vv + C * DVP;            // [C][Dv+1]
+  float* sc = uu + C * DVP;            // [C][C+1]    p, then a
+  float* wv = sc + C * CP;             // [C]
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  q += row * L * M;                    // this row's first position
+  k += row * L * M;
+  dk += row * L * M;
+  v += row * L * Dv;
+  u += row * L * Dv;
+  dv += row * L * Dv;
+  w += row * L;
+  zero_state(R, r, M, Dv);
+
+  for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {
+    const int n = min(C, L - r0);
+    load_rows<float>(pq, q + (size_t)r0 * M, n, M);
+    load_rows<float>(pk, k + (size_t)r0 * M, n, M);
+    load_rows<float>(vv, v + (size_t)r0 * Dv, n, Dv);
+    load_rows<float>(uu, u + (size_t)r0 * Dv, n, Dv);
+    for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? w[r0 + i] : 0.f;
+    __syncthreads();
+    causal_scores(sc, pq, pk, M);
+    __syncthreads();
+
+    // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R
+    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, sc, 1, CP, it, C / 4, uu, DVP, 1, jt, Dv / 4, n);
+      mma4x4<float, false, false>(acc, pk, MP, 1, it, C / 4, R, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int j = it + rr * (C / 4);
+        if (j < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dv[(size_t)(r0 + j) * Dv + jt + c * (Dv / 4)] = acc[rr][c];
+      }
+    }
+    __syncthreads();
+    a_matrix(sc, uu, vv, wv, Dv);
+    __syncthreads();
+
+    // dphi_k_j = sum_{i>=j} a_ij phi_q_i + v_j . R^T + r
+    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+      const int it = t / (M / 4), jt = t - it * (M / 4);
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, sc, 1, CP, it, C / 4, pq, MP, 1, jt, M / 4, n);
+      mma4x4<float, false, false>(acc, vv, DVP, 1, it, C / 4, R, 1, DVP, jt, M / 4, Dv);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int j = it + rr * (C / 4);
+        if (j < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = jt + c * (M / 4);
+            dk[(size_t)(r0 + j) * M + m] = acc[rr][c] + r[m];
+          }
+      }
+    }
+    __syncthreads();                   // the products above read R and r
+    add_state(R, r, pq, uu, wv, n, M, Dv);
+    __syncthreads();
+  }
+}
+
+template <class TQ, class TK, class TV>
+int launch_fwd(const void* q, const void* k, const void* v, float* out, int BH, int L, int M,
+               int Dv, float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + C * (Dv + 1) +
+                                       C * (C + 1) + C);
+  cudaError_t err = allow_smem(cla_fwd_kernel<TQ, TK, TV>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cla_fwd_kernel<TQ, TK, TV><<<BH, THREADS, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TK*>(k), static_cast<const TV*>(v), out, L,
+      M, Dv, eps);
+  return (int)cudaGetLastError();
+}
+
+// launch_fwd with v's element type picked by its flag, then phi_k's
+template <class TQ, class TK>
+int launch_fwd_v(const void* q, const void* k, const void* v, float* out, int BH, int L, int M,
+                 int Dv, int v_bf16, float eps, cudaStream_t s) {
+  return v_bf16 ? launch_fwd<TQ, TK, __nv_bfloat16>(q, k, v, out, BH, L, M, Dv, eps, s)
+                : launch_fwd<TQ, TK, float>(q, k, v, out, BH, L, M, Dv, eps, s);
+}
+
+template <class TQ>
+int launch_fwd_kv(const void* q, const void* k, const void* v, float* out, int BH, int L, int M,
+                  int Dv, int k_bf16, int v_bf16, float eps, cudaStream_t s) {
+  return k_bf16
+             ? launch_fwd_v<TQ, __nv_bfloat16>(q, k, v, out, BH, L, M, Dv, v_bf16, eps, s)
+             : launch_fwd_v<TQ, float>(q, k, v, out, BH, L, M, Dv, v_bf16, eps, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// phi_q, phi_k [BH, L, M], v [BH, L, Dv], each f32, or bf16 when its flag
+// (q_bf16, k_bf16, v_bf16) is set -> out [BH, L, Dv] f32.
+int cla_fwd(const void* q, const void* k, const void* v, float* out, int BH, int L, int M,
+            int Dv, int q_bf16, int k_bf16, int v_bf16, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return q_bf16
+             ? launch_fwd_kv<__nv_bfloat16>(q, k, v, out, BH, L, M, Dv, k_bf16, v_bf16, eps, s)
+             : launch_fwd_kv<float>(q, k, v, out, BH, L, M, Dv, k_bf16, v_bf16, eps, s);
+}
+
+// phi_q, phi_k [BH, L, M], v, g [BH, L, Dv], all f32 ->
+// dphi_q [BH, L, M], u [BH, L, Dv], w [BH, L] f32.
+int cla_bwd_a(const float* q, const float* k, const float* v, const float* g, float* dq,
+              float* u, float* w, int BH, int L, int M, int Dv, float eps, void* stream) {
+  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + 3 * C * (Dv + 1) +
+                                       C * (C + 1) + 2 * C);
+  cudaError_t err = allow_smem(cla_bwd_a_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cla_bwd_a_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, g, dq, u, w, L, M, Dv, eps);
+  return (int)cudaGetLastError();
+}
+
+// phi_q, phi_k, v as for cla_bwd_a, u [BH, L, Dv] and w [BH, L] from it (f32)
+// -> dphi_k [BH, L, M], dv [BH, L, Dv] f32.
+int cla_bwd_b(const float* q, const float* k, const float* v, const float* u, const float* w,
+              float* dk, float* dv, int BH, int L, int M, int Dv, void* stream) {
+  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + 2 * C * (Dv + 1) +
+                                       C * (C + 1) + C);
+  cudaError_t err = allow_smem(cla_bwd_b_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cla_bwd_b_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, u, w, dk, dv, L, M, Dv);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
 from .attention import layout_equations, write_row_pe
 from .linear_attention import (
+    causal_linear_attention,
     causal_linear_attention_ref,
     draw_orthogonal_features,
     favor_causal_attention,

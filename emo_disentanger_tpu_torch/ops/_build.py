@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / 'kernels'
-SOURCES = ('favor_fwd', 'favor_bwd', 'performer_decode', 'flash_attn_fwd')
+SOURCES = ('favor_fwd', 'favor_bwd', 'performer_decode', 'flash_attn_fwd',
+           'linear_attn')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

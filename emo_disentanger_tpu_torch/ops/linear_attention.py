@@ -20,6 +20,15 @@ Port of ``emo_disentanger_tpu/ops/linear_attention.py``:
   configuration): on CUDA the ``*_hl`` entry points of the same kernels
   read each head's columns in place, so no head-split copy is made; on the
   CPU the head-major plain versions run on split copies;
+* :func:`causal_linear_attention` — the causal prefix sum over precomputed
+  features, so that ``causal_linear_attention(favor_features(q),
+  favor_features(k), v)`` composes FAVOR+ attention (the reference's own
+  decomposition).  On CUDA tensors it runs ``csrc/linear_attn.cu``
+  (``cla_fwd``; backward ``cla_bwd_a``, the forward replay, dphi_q and
+  (u, w), then ``cla_bwd_b``, the reverse suffix scan, dphi_k and dv); on
+  CPU tensors the chunked scan and the plain passes, which share their
+  chunk recurrences (:func:`_bwd_a_scan`, :func:`_bwd_b_scan`) with the
+  fused op's plain backward;
 * :func:`linear_attention_decode_step` — the O(1)-per-token decode step.
 
 Numerics: all accumulation in float32 (float64 for float64 inputs, which
@@ -216,6 +225,20 @@ def _dphi_to_dx(dphi, phi, xs, omega, scale):
     return (t @ omega.t() - t.sum(-1, keepdim=True) * xs) * scale
 
 
+def _exact(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _pad_chunks(chunk, *ts):
+    """[BH, L, .] tensors in the accumulation type of the first, L
+    zero-padded to a chunk multiple, and the [chunk, chunk] lower-triangle
+    mask."""
+    acc = _acc_dtype(ts[0])
+    pad = (-ts[0].shape[1]) % chunk
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=ts[0].device).tril()
+    return [torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad)) for t in ts], tri
+
+
 def _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, extra=()):
     acc = _acc_dtype(q)
     L = q.shape[1]
@@ -223,12 +246,58 @@ def _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, extra=()):
     om = omega.to(acc)
     phi_q, qs = _features_padded(q, om, None, Lp)
     phi_k, ks = _features_padded(k, om, kmax, Lp)
-    pad = lambda t: torch.nn.functional.pad(t.to(acc), (0, 0, 0, Lp - L))
     c = ((lambda t: t.to(dot_dtype).to(acc)) if dot_dtype is not None
-         else (lambda t: t))
-    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=q.device).tril()
-    return (acc, L, Lp, om, phi_q, qs, phi_k, ks, pad(v),
-            [pad(t) for t in extra], c, tri, q.shape[-1] ** -0.25)
+         else _exact)
+    (v, *extra), tri = _pad_chunks(chunk, v, *extra)
+    return (acc, L, Lp, om, phi_q, qs, phi_k, ks, v, extra, c, tri,
+            q.shape[-1] ** -0.25)
+
+
+def _bwd_a_scan(phi_q, phi_k, v, g, chunk, eps, c, tri):
+    """The chunk recurrence of pass A, shared by the fused op's and the
+    composed op's plain versions: replay the forward scan over the chunks of
+    [BH, Lp, .] tensors (Lp a chunk multiple, the accumulation type)
+    carrying the prefix (S, z), and yield, chunk by chunk in order,
+    (c0, dphi_q, u = g/den, w = -(g . out)/den).  ``c`` rounds the dot
+    operands; ``tri`` is the [chunk, chunk] lower-triangle mask."""
+    bh, Lp, M = phi_q.shape
+    S = torch.zeros(bh, M, v.shape[-1], dtype=phi_q.dtype, device=phi_q.device)
+    z = torch.zeros(bh, M, dtype=phi_q.dtype, device=phi_q.device)
+    for c0 in range(0, Lp, chunk):
+        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
+        vv, gg = v[:, c0:c0 + chunk], g[:, c0:c0 + chunk]
+        intra = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
+        num = c(intra) @ c(vv) + c(pq) @ c(S)
+        den = intra.sum(-1) + (c(pq) @ c(z)[:, :, None])[..., 0] + eps
+        out = num / den[..., None]
+        u = gg / den[..., None]
+        w = -(gg * out).sum(-1) / den
+        a = (c(u) @ c(vv).transpose(1, 2) + w[..., None]).masked_fill(~tri, 0.0)
+        dphi = (c(a) @ c(pk) + c(u) @ c(S).transpose(1, 2)
+                + w[..., None] * z[:, None, :])
+        yield c0, dphi, u, w
+        S = S + c(pk).transpose(1, 2) @ c(vv)
+        z = z + pk.sum(1)
+
+
+def _bwd_b_scan(phi_q, phi_k, v, u, w, chunk, c, tri):
+    """The chunk recurrence of pass B: scan the chunks of [BH, Lp, .]
+    tensors in reverse carrying the suffix states R = sum phi_q u^T
+    [M, Dv] and r = sum w phi_q [M], and yield (c0, dphi_k, dv) chunk by
+    chunk from the last.  u [BH, Lp, Dv] and w [BH, Lp] come from pass A."""
+    bh, Lp, M = phi_q.shape
+    R = torch.zeros(bh, M, v.shape[-1], dtype=phi_q.dtype, device=phi_q.device)
+    r = torch.zeros(bh, M, dtype=phi_q.dtype, device=phi_q.device)
+    for c0 in reversed(range(0, Lp, chunk)):
+        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
+        vv, uu, ww = v[:, c0:c0 + chunk], u[:, c0:c0 + chunk], w[:, c0:c0 + chunk]
+        a = (c(uu) @ c(vv).transpose(1, 2) + ww[..., None]).masked_fill(~tri, 0.0)
+        p = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
+        dphi = (c(a).transpose(1, 2) @ c(pq) + c(vv) @ c(R).transpose(1, 2)
+                + r[:, None, :])
+        yield c0, dphi, c(p).transpose(1, 2) @ c(uu) + c(pk) @ c(R)
+        R = R + c(pq).transpose(1, 2) @ c(uu)
+        r = r + (ww[..., None] * pq).sum(1)
 
 
 def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
@@ -243,28 +312,13 @@ def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
     kernel rounds (``_fused_bwd_a_kernel``); omega's product stays exact."""
     (acc, L, Lp, om, phi_q, qs, phi_k, _, v, (g,), c, tri,
      scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, (g,))
-    bh, M, Dv = q.shape[0], om.shape[1], v.shape[-1]
-    S = torch.zeros(bh, M, Dv, dtype=acc, device=q.device)
-    z = torch.zeros(bh, M, dtype=acc, device=q.device)
     res = dot_dtype or acc
     dqs, us, ws = [], [], []
-    for c0 in range(0, Lp, chunk):
-        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
-        vv, gg = v[:, c0:c0 + chunk], g[:, c0:c0 + chunk]
-        intra = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
-        num = c(intra) @ c(vv) + c(pq) @ c(S)
-        den = intra.sum(-1) + (c(pq) @ c(z)[:, :, None])[..., 0] + eps
-        out = num / den[..., None]
-        u = gg / den[..., None]
-        w = -(gg * out).sum(-1) / den
-        a = (c(u) @ c(vv).transpose(1, 2) + w[..., None]).masked_fill(~tri, 0.0)
-        dphi = (c(a) @ c(pk) + c(u) @ c(S).transpose(1, 2)
-                + w[..., None] * z[:, None, :])
-        dqs.append(_dphi_to_dx(dphi, pq, qs[:, c0:c0 + chunk], om, scale))
+    for c0, dphi, u, w in _bwd_a_scan(phi_q, phi_k, v, g, chunk, eps, c, tri):
+        dqs.append(_dphi_to_dx(dphi, phi_q[:, c0:c0 + chunk],
+                               qs[:, c0:c0 + chunk], om, scale))
         us.append(u.to(res))
         ws.append(w.to(res))
-        S = S + c(pk).transpose(1, 2) @ c(vv)
-        z = z + pk.sum(1)
     cat = lambda ts: torch.cat(ts, dim=1)[:, :L]
     return cat(dqs), cat(us), cat(ws)
 
@@ -279,22 +333,11 @@ def _favor_bwd_b_plain(q, k, v, u, w, omega, kmax, chunk: int = CHUNK,
     (acc, L, Lp, om, phi_q, _, phi_k, ks, v, (u, w), c, tri,
      scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype,
                          (u, w[..., None]))
-    w = w[..., 0]
-    bh, M, Dv = q.shape[0], om.shape[1], v.shape[-1]
-    R = torch.zeros(bh, M, Dv, dtype=acc, device=q.device)
-    r = torch.zeros(bh, M, dtype=acc, device=q.device)
     dks, dvs = [], []
-    for c0 in reversed(range(0, Lp, chunk)):
-        pq, pk = phi_q[:, c0:c0 + chunk], phi_k[:, c0:c0 + chunk]
-        vv, uu, ww = v[:, c0:c0 + chunk], u[:, c0:c0 + chunk], w[:, c0:c0 + chunk]
-        a = (c(uu) @ c(vv).transpose(1, 2) + ww[..., None]).masked_fill(~tri, 0.0)
-        p = (c(pq) @ c(pk).transpose(1, 2)).masked_fill(~tri, 0.0)
-        dphi = (c(a).transpose(1, 2) @ c(pq) + c(vv) @ c(R).transpose(1, 2)
-                + r[:, None, :])
-        dvs.append(c(p).transpose(1, 2) @ c(uu) + c(pk) @ c(R))
-        dks.append(_dphi_to_dx(dphi, pk, ks[:, c0:c0 + chunk], om, scale))
-        R = R + c(pq).transpose(1, 2) @ c(uu)
-        r = r + (ww[..., None] * pq).sum(1)
+    for c0, dphi, dv in _bwd_b_scan(phi_q, phi_k, v, u, w[..., 0], chunk, c, tri):
+        dvs.append(dv)
+        dks.append(_dphi_to_dx(dphi, phi_k[:, c0:c0 + chunk],
+                               ks[:, c0:c0 + chunk], om, scale))
     cat = lambda ts: torch.cat(ts[::-1], dim=1)[:, :L]
     return cat(dks), cat(dvs)
 
@@ -750,6 +793,185 @@ def favor_causal_attention_heads_last(q: torch.Tensor, k: torch.Tensor,
     om = omega.to(_acc_dtype(q)).contiguous()
     return _FavorAttentionHL.apply(q.contiguous(), k.contiguous(),
                                    v.contiguous(), om, n_head, chunk, eps)
+
+
+# ---------------------------------------------------------------------------
+# causal linear attention over precomputed features (csrc/linear_attn.cu)
+# ---------------------------------------------------------------------------
+
+def _cla_fwd_plain(phi_q, phi_k, v, chunk: int = CHUNK, eps: float = EPS):
+    """Plain version of ``cla_fwd``: [BH, L, M] features and [BH, L, Dv] v of
+    any float type, widened to the accumulation type (float32; float64 for
+    float64 features) as the kernel widens them on load, through the
+    chunked scan.  Returns [BH, L, Dv] in the accumulation type."""
+    acc = _acc_dtype(phi_q)
+    return _padded_call(_scan_impl, phi_q.to(acc), phi_k.to(acc), v.to(acc),
+                        chunk, eps)
+
+
+def _cla_bwd_a_plain(phi_q, phi_k, v, g, chunk: int = CHUNK, eps: float = EPS):
+    """Plain version of ``cla_bwd_a`` (pass A) on [BH, L, M] features and
+    [BH, L, Dv] v and g: dphi_q [BH, L, M], u = g/den [BH, L, Dv] and
+    w = -(g . out)/den [BH, L], all in the accumulation type."""
+    L = phi_q.shape[1]
+    (q, k, v, g), tri = _pad_chunks(chunk, phi_q, phi_k, v, g)
+    outs = list(zip(*((dphi, u, w) for _, dphi, u, w in
+                      _bwd_a_scan(q, k, v, g, chunk, eps, _exact, tri))))
+    return tuple(torch.cat(ts, dim=1)[:, :L] for ts in outs)
+
+
+def _cla_bwd_b_plain(phi_q, phi_k, v, u, w, chunk: int = CHUNK):
+    """Plain version of ``cla_bwd_b`` (pass B) on the inputs of pass A and
+    its u [BH, L, Dv] and w [BH, L]: dphi_k [BH, L, M] and dv [BH, L, Dv]
+    in the accumulation type."""
+    L = phi_q.shape[1]
+    (q, k, v, u, w), tri = _pad_chunks(chunk, phi_q, phi_k, v, u, w[..., None])
+    outs = list(zip(*((dphi, dv) for _, dphi, dv in
+                      _bwd_b_scan(q, k, v, u, w[..., 0], chunk, _exact, tri))))
+    return tuple(torch.cat(ts[::-1], dim=1)[:, :L] for ts in outs)
+
+
+_CLA_SIGNATURES = {
+    # (phi_q, phi_k, v, out, BH, L, M, Dv, q_bf16, k_bf16, v_bf16, eps, stream)
+    'cla_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # (phi_q, phi_k, v, g, dphi_q, u, w, BH, L, M, Dv, eps, stream)
+    'cla_bwd_a': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    # (phi_q, phi_k, v, u, w, dphi_k, dv, BH, L, M, Dv, stream)
+    'cla_bwd_b': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def _cla_lib():
+    return _build.library('linear_attn', _CLA_SIGNATURES)
+
+
+def _check_cla_inputs(name, q2, k2, v2, dtypes):
+    """(BH, L, M, Dv) of [BH, L, M] features and [BH, L, Dv] v, contiguous
+    CUDA tensors, each of a dtype from ``dtypes``; raises otherwise."""
+    dev = q2.device
+    _check_cuda('phi_q', q2, dtypes, 3, dev)
+    _check_cuda('phi_k', k2, dtypes, 3, dev)
+    _check_cuda('v', v2, dtypes, 3, dev)
+    BH, L, M = q2.shape
+    Dv = v2.shape[2]
+    if k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]:
+        raise ValueError(f'{name}: mismatched shapes phi_q {tuple(q2.shape)} '
+                         f'phi_k {tuple(k2.shape)} v {tuple(v2.shape)}')
+    if M % 4 or Dv % 4:
+        raise ValueError(f'{name}: M={M} and Dv={Dv} must be multiples of 4')
+    return BH, L, M, Dv
+
+
+def _cla_fwd_cuda(q2, k2, v2, eps=EPS) -> torch.Tensor:
+    """Launch ``cla_fwd`` on [BH, L, M] features and [BH, L, Dv] v, each
+    float32 or bfloat16 (widened on load); returns [BH, L, Dv] float32."""
+    BH, L, M, Dv = _check_cla_inputs('cla_fwd', q2, k2, v2,
+                                     (torch.float32, torch.bfloat16))
+    out = torch.empty(BH, L, Dv, dtype=torch.float32, device=q2.device)
+    lib = _cla_lib()
+    bf16 = [int(t.dtype == torch.bfloat16) for t in (q2, k2, v2)]
+    err = lib.cla_fwd(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+                      BH, L, M, Dv, *bf16, eps,
+                      torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(lib, err, 'cla_fwd')
+    _build.LAUNCHES['cla_fwd'] += 1
+    return out
+
+
+def _cla_bwd_a_cuda(q2, k2, v2, g2, eps=EPS):
+    """Launch ``cla_bwd_a`` (pass A) on float32 [BH, L, M] features and
+    [BH, L, Dv] v and g; returns dphi_q [BH, L, M], u [BH, L, Dv] and
+    w [BH, L], float32."""
+    BH, L, M, Dv = _check_cla_inputs('cla_bwd_a', q2, k2, v2, (torch.float32,))
+    _check_cuda('g', g2, (torch.float32,), 3, q2.device)
+    if g2.shape != v2.shape:
+        raise ValueError(f'cla_bwd_a: g {tuple(g2.shape)} vs v {tuple(v2.shape)}')
+    dq = torch.empty_like(q2)
+    u = torch.empty_like(v2)
+    w = torch.empty(BH, L, dtype=torch.float32, device=q2.device)
+    lib = _cla_lib()
+    err = lib.cla_bwd_a(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), g2.data_ptr(),
+                        dq.data_ptr(), u.data_ptr(), w.data_ptr(), BH, L, M, Dv,
+                        eps, torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(lib, err, 'cla_bwd_a')
+    _build.LAUNCHES['cla_bwd_a'] += 1
+    return dq, u, w
+
+
+def _cla_bwd_b_cuda(q2, k2, v2, u, w):
+    """Launch ``cla_bwd_b`` (pass B) on the inputs of pass A and its (u, w);
+    returns dphi_k [BH, L, M] and dv [BH, L, Dv], float32."""
+    BH, L, M, Dv = _check_cla_inputs('cla_bwd_b', q2, k2, v2, (torch.float32,))
+    _check_cuda('u', u, (torch.float32,), 3, q2.device)
+    _check_cuda('w', w, (torch.float32,), 2, q2.device)
+    if u.shape != v2.shape or tuple(w.shape) != (BH, L):
+        raise ValueError(f'cla_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} vs '
+                         f'v {tuple(v2.shape)}')
+    dk = torch.empty_like(k2)
+    dv = torch.empty_like(v2)
+    lib = _cla_lib()
+    err = lib.cla_bwd_b(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), u.data_ptr(),
+                        w.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, L, M, Dv,
+                        torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(lib, err, 'cla_bwd_b')
+    _build.LAUNCHES['cla_bwd_b'] += 1
+    return dk, dv
+
+
+class _CausalLinearAttention(torch.autograd.Function):
+    """[BH, L, M] features phi_q, phi_k and [BH, L, Dv] v -> [BH, L, Dv] in
+    the accumulation type.  Saves the three inputs; the gradients come back
+    in each input's own type."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, chunk, eps):
+        if q2.device.type == 'cpu':
+            out = _cla_fwd_plain(q2, k2, v2, chunk, eps)
+        else:
+            out = _cla_fwd_cuda(q2, k2, v2, eps)
+        ctx.save_for_backward(q2, k2, v2)
+        ctx.chunk, ctx.eps = chunk, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q2, k2, v2 = ctx.saved_tensors
+        if q2.device.type == 'cpu':
+            dq, u, w = _cla_bwd_a_plain(q2, k2, v2, g, ctx.chunk, ctx.eps)
+            dk, dv = _cla_bwd_b_plain(q2, k2, v2, u, w, ctx.chunk)
+        else:
+            # float32 throughout, as JAX casts before its backward kernels
+            q, k, v, g = (t.to(torch.float32).contiguous() for t in (q2, k2, v2, g))
+            dq, u, w = _cla_bwd_a_cuda(q, k, v, g, ctx.eps)
+            dk, dv = _cla_bwd_b_cuda(q, k, v, u, w)
+        return dq.to(q2.dtype), dk.to(k2.dtype), dv.to(v2.dtype), None, None
+
+
+def causal_linear_attention(phi_q: torch.Tensor, phi_k: torch.Tensor,
+                            v: torch.Tensor, chunk: int = CHUNK,
+                            eps: float = EPS) -> torch.Tensor:
+    """Normalized causal linear attention over precomputed features:
+    phi_q, phi_k [..., L, M] non-negative, v [..., L, Dv].  Returns
+    [..., L, Dv] float32 (float64 for float64 features), differentiable in
+    all three inputs, each gradient in its input's type.  With
+    :func:`favor_features` it composes FAVOR+ attention, the same function
+    as :func:`favor_causal_attention`.
+
+    CPU tensors run the plain versions: the chunked scan (L zero-padded to
+    a ``chunk`` multiple) forward, :func:`_cla_bwd_a_plain` and
+    :func:`_cla_bwd_b_plain` backward.  CUDA tensors launch ``cla_fwd``
+    forward (each input float32 or bfloat16, widened on load) and,
+    on float32 casts of the inputs and the gradient, ``cla_bwd_a`` then
+    ``cla_bwd_b`` backward; the kernels take 64-row chunks whatever
+    ``chunk`` is, mask the ragged last chunk themselves, and raise on what
+    they cannot take."""
+    *lead, L, M = phi_q.shape
+    Dv = v.shape[-1]
+    bh = math.prod(lead)
+    out = _CausalLinearAttention.apply(
+        phi_q.reshape(bh, L, M).contiguous(), phi_k.reshape(bh, L, M).contiguous(),
+        v.reshape(bh, L, Dv).contiguous(), chunk, eps)
+    return out.reshape(*lead, L, Dv)
 
 
 # ---------------------------------------------------------------------------
