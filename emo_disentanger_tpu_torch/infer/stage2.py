@@ -22,6 +22,7 @@ from __future__ import annotations
 import time
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..core.vocab import Vocab
@@ -45,7 +46,10 @@ class Stage2Generator:
                  max_events: int = 10000, gpt2_cache_len: int = 4096,
                  gpt2_window: int = 2048, reanchor_margin: int = 256,
                  omegas: Optional[torch.Tensor] = None,
+                 forbid: Union[np.ndarray, torch.Tensor, None] = None,
                  device: Union[str, torch.device] = 'cuda'):
+        """``forbid``: optional bool mask [V] of tokens never sampled (e.g.
+        JAX's ``construct_inadmissible_set``)."""
         self.device = resolve_device(device)
         self.is_performer = isinstance(model, MusicPerformer)
         if not self.is_performer and not isinstance(model, MusicGPT2):
@@ -67,6 +71,12 @@ class Stage2Generator:
         self.window = gpt2_window
         self.reanchor_margin = reanchor_margin
         self.omegas = None if omegas is None else omegas.to(self.device).float()
+        self.forbid = None
+        if forbid is not None:
+            self.forbid = torch.as_tensor(forbid).to(self.device, torch.bool)
+            if self.forbid.shape != (vocab.size,):
+                raise ValueError(f'forbid must be [{vocab.size}] (got '
+                                 f'{tuple(self.forbid.shape)})')
         self.tables = build_rule_tables(vocab)
 
     # ----------------------------------------------------------- plumbing
@@ -121,7 +131,8 @@ class Stage2Generator:
         for _ in range(max_iters):
             if status != STATUS_RUNNING or (guard is not None and t >= guard):
                 break
-            word = int(nucleus_sample(logits[None], self.temp, self.top_p, gen)[0])
+            word = int(nucleus_sample(logits[None], self.temp, self.top_p, gen,
+                                      self.forbid)[0])
             beat_bad = bool(tb.is_beat[word]) and tb.beat_pos[word] < cur_pos
             eos_early = bool(tb.is_eos[word]) and bars < target_bars - 1
             failed = (failed + 1 if beat_bad else

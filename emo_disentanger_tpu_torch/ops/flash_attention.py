@@ -8,7 +8,9 @@ sm_scale=1/sqrt(Dh))`` on f32 q, k, v.  Its signature is kept, restricted
 to what ``gpt2.py`` calls: no ``ab``, no ``segment_ids``, causal only.
 
 On CUDA tensors :func:`flash_attention` launches the hand-written kernel of
-``csrc/flash_attn_fwd.cu`` (f32, Dh = 64, L a multiple of 64); on CPU
+``csrc/flash_attn_fwd.cu`` (f32 on the tensor cores in 3xTF32, Dh = 64, L a
+multiple of 128, the tile the kernel takes and the only lengths
+``gpt2.py`` dispatches); on CPU
 tensors it runs the plain version, :func:`_flash_attention_plain`, which is
 the library's ``mha_reference_no_custom_vjp``.  Only the forward exists: the
 JAX package reaches no backward of this kernel (training takes the einsum
@@ -25,7 +27,7 @@ from . import _build
 
 # the library's DEFAULT_MASK_VALUE: -0.7 * float32 max
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-TILE = 64
+TILE = 128
 HEAD_DIM = 64
 
 
@@ -54,13 +56,10 @@ def _lib():
     return _build.library('flash_attn_fwd', _SIGNATURES)
 
 
-def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          sm_scale: float) -> torch.Tensor:
-    """Launch ``flash_attention_fwd`` on contiguous f32 [B, H, L, 64] q, k, v
-    (L a multiple of 64); returns o [B, H, L, 64] f32."""
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Raise unless q, k, v are contiguous f32 [B, H, L, 64] of one shape on
+    one device, L a positive multiple of 128; returns (B, H, L, Dh)."""
     dev = q.device
-    if dev.type != 'cuda':
-        raise ValueError(f'the CUDA kernel takes CUDA tensors (got {dev})')
     for name, t in (('q', q), ('k', k), ('v', v)):
         if (t.device != dev or t.dtype != torch.float32 or t.dim() != 4
                 or not t.is_contiguous() or t.shape != q.shape):
@@ -72,6 +71,17 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Dh != HEAD_DIM or L % TILE or L == 0:
         raise ValueError(f'flash_attention_fwd takes Dh={HEAD_DIM} and L a '
                          f'positive multiple of {TILE} (got Dh={Dh}, L={L})')
+    return B, H, L, Dh
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          sm_scale: float) -> torch.Tensor:
+    """Launch ``flash_attention_fwd`` on contiguous f32 [B, H, L, 64] q, k, v
+    (L a multiple of 128); returns o [B, H, L, 64] f32."""
+    dev = q.device
+    if dev.type != 'cuda':
+        raise ValueError(f'the CUDA kernel takes CUDA tensors (got {dev})')
+    B, H, L, Dh = _check_inputs(q, k, v)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -54,10 +54,13 @@ def _decode_layer_plain(x, S, z, p, omega, update_mask, n_head):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # (x, x_bf16, params, w_bf16, omega, mask, S, z, out, scratch,
+    # (x, x_bf16, params, w_bf16, omega, mask, S, z, out, scratch, counters,
     #  B, D, H, M, F, eps, ln_eps, stream)
-    'performer_decode_layer': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+    'performer_decode_layer': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _F, _P],
+    # (D, F) -> floats of scratch; () -> ints of zeroed counters
+    'performer_decode_scratch_floats': [_I, _I],
+    'performer_decode_counter_ints': [],
 }
 
 
@@ -65,11 +68,62 @@ def _lib():
     return _build.library('performer_decode', _SIGNATURES)
 
 
-def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
-    """Launch ``performer_decode_layer`` (checks, allocation, launch)."""
+# Host work a call repeats is done once: a layer's parameters are checked
+# once per (address, dtype, shape, strides) of all 16 and their pointer
+# array is kept; scratch and the kernel's zeroed counters are kept per
+# (device, stream, D, F).  Both are bounded caches.
+_CACHE_LIMIT = 256
+_checked: Dict[tuple, object] = {}
+_buffers: Dict[tuple, tuple] = {}
+
+
+def _param_pointers(p, dev, D, Fd, wdt):
+    key = tuple((p[k].data_ptr(), p[k].dtype, p[k].shape, p[k].stride())
+                for k in PARAM_KEYS)
+    ptrs = _checked.get(key)
+    if ptrs is not None:
+        return ptrs
+    shapes = {'wq': (D, D), 'wk': (D, D), 'wv': (D, D), 'wo': (D, D),
+              'w1': (Fd, D), 'w2': (D, Fd), 'b1': (Fd,)}
+    for k in PARAM_KEYS:
+        t = p[k]
+        want = shapes.get(k, (D,))
+        if (t.device != dev or t.dtype != wdt or tuple(t.shape) != want
+                or not t.is_contiguous()):
+            raise ValueError(f'param {k}: {t.dtype} {tuple(t.shape)} on '
+                             f'{t.device}; expected contiguous {wdt} {want} '
+                             f'on {dev}')
+    if len(_checked) >= _CACHE_LIMIT:
+        _checked.clear()
+    ptrs = (ctypes.c_void_p * len(PARAM_KEYS))(*(k[0] for k in key))
+    _checked[key] = ptrs
+    return ptrs
+
+
+def _scratch(lib, dev, D, Fd):
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream, D, Fd)
+    bufs = _buffers.get(key)
+    if bufs is None:
+        if len(_buffers) >= _CACHE_LIMIT:
+            _buffers.clear()
+        n = lib.performer_decode_scratch_floats(D, Fd)
+        c = lib.performer_decode_counter_ints()
+        bufs = (torch.empty(n, dtype=torch.float32, device=dev),
+                torch.zeros(c, dtype=torch.int32, device=dev))
+        _buffers[key] = bufs
+    return bufs, stream.cuda_stream
+
+
+def _check_inputs(x, S, z, p, omega, update_mask, n_head):
+    """Raise unless the inputs are what ``performer_decode_layer`` takes
+    (module docstring; D and F multiples of 256 for bf16 weights, 128 for
+    f32, D <= 1024, M a multiple of 16 in [32, 512]), all on x's device.
+    Returns ((B, D, H, M, F), the weights' dtype, the parameters' pointer
+    array, the f32 mask or None)."""
     dev = x.device
-    if dev.type != 'cuda':
-        raise ValueError(f'the CUDA kernel takes CUDA tensors (got {dev})')
+    if x.dim() != 2:
+        raise ValueError(f'x must be [B, D] (got {tuple(x.shape)})')
     B, D = x.shape
     H = n_head
     Dh = D // H
@@ -80,41 +134,44 @@ def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
         raise ValueError(f'x must be contiguous f32 or bf16 (got {x.dtype})')
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f'weights must be f32 or bf16 (got {wdt})')
-    shapes = {'wq': (D, D), 'wk': (D, D), 'wv': (D, D), 'wo': (D, D),
-              'w1': (Fd, D), 'w2': (D, Fd), 'b1': (Fd,)}
-    for key in PARAM_KEYS:
-        t = p[key]
-        want = shapes.get(key, (D,))
-        if (t.device != dev or t.dtype != wdt or tuple(t.shape) != want
-                or not t.is_contiguous()):
-            raise ValueError(f'param {key}: {t.dtype} {tuple(t.shape)} on '
-                             f'{t.device}; expected contiguous {wdt} {want} '
-                             f'on {dev}')
+    # the kernel's K split: whole 16-byte steps for 8 warps
+    kmin = 256 if wdt == torch.bfloat16 else 128
+    if (D % H or D % kmin or Fd % kmin or D > 1024 or M % 16
+            or not 32 <= M <= 512):
+        raise ValueError(f'unsupported D={D}, H={H}, M={M}, F={Fd} (D and F '
+                         f'multiples of {kmin} for {wdt} weights, D <= 1024, '
+                         'M a multiple of 16 in [32, 512])')
+    ptrs = _param_pointers(p, dev, D, Fd, wdt)
     for name, t, want in (('S', S, (B, H, Dh, M)), ('z', z, (B, H, M)),
                           ('omega', omega, (Dh, M))):
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != want or not t.is_contiguous()):
             raise ValueError(f'{name}: {t.dtype} {tuple(t.shape)} on '
                              f'{t.device}; expected contiguous float32 {want}')
-    if D % H or M % 32 or not 32 <= M <= 1024:
-        raise ValueError(f'unsupported D={D}, H={H}, M={M} (M a multiple of '
-                         '32 in [32, 1024])')
     mask = None
     if update_mask is not None:
         if update_mask.shape != (B,) or update_mask.device != dev:
             raise ValueError('update_mask must be [B] on the same device')
         mask = update_mask.to(torch.float32).contiguous()
-    out = torch.empty_like(x)
-    scratch = torch.empty(B * (7 * D + Fd), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(PARAM_KEYS))(*(p[k].data_ptr()
-                                                 for k in PARAM_KEYS))
+    return (B, D, H, M, Fd), wdt, ptrs, mask
+
+
+def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
+    """Launch ``performer_decode_layer`` (checks, allocation, launch)."""
+    dev = x.device
+    if dev.type != 'cuda':
+        raise ValueError(f'the CUDA kernel takes CUDA tensors (got {dev})')
+    (B, D, H, M, Fd), wdt, ptrs, mask = _check_inputs(
+        x, S, z, p, omega, update_mask, n_head)
+    w_bf16 = int(wdt == torch.bfloat16)
     lib = _lib()
+    (scratch, counters), stream = _scratch(lib, dev, D, Fd)
+    out = torch.empty_like(x)
     err = lib.performer_decode_layer(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), ptrs,
-        int(wdt == torch.bfloat16), omega.data_ptr(),
-        None if mask is None else mask.data_ptr(), S.data_ptr(), z.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), B, D, H, M, Fd, EPS, LN_EPS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ptrs, w_bf16,
+        omega.data_ptr(), None if mask is None else mask.data_ptr(),
+        S.data_ptr(), z.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), B, D, H, M, Fd, EPS, LN_EPS, stream)
     _build.check(lib, err, 'performer_decode_layer')
     _build.LAUNCHES['performer_decode_layer'] += 1
     return out

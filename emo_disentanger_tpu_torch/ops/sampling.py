@@ -20,11 +20,21 @@ import numpy as np
 import torch
 
 
+NEG_INF = -1e30
+
+
 def nucleus_sample(logits: torch.Tensor, temperature: float, top_p: float,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: torch.Generator,
+                   forbid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample one token id per row of ``logits`` [B, V] -> [B] int64.
-    ``generator`` must live on the logits' device."""
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    ``generator`` must live on the logits' device.  ``forbid``: optional
+    bool mask [V] on that device; its True entries get ``NEG_INF`` before
+    the softmax, as the JAX sampler does (the reference subtracts inf from
+    inadmissible tempo logits, ``stage2_accompaniment/inference.py:71-73``)."""
+    logits = logits.float()
+    if forbid is not None:
+        logits = torch.where(forbid, NEG_INF, logits)
+    probs = torch.softmax(logits / temperature, dim=-1)
     sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     after = sorted_probs.cumsum(-1) > top_p
     n_after = after.sum(-1)
