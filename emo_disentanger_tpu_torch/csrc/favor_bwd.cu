@@ -48,8 +48,32 @@
 // a block may use; that fits by reusing tiles in place: the scores become
 // the a matrix once they are consumed, g becomes u, and phi becomes
 // dphi * phi (which is all that dx needs), so dphi itself is never stored.
-// Products are 4x4 register micro-tiles (mma4x4); no tensor cores, TMA or
+// Products are 4x4 register micro-tiles (mma4x4) in f32; under bf16, pass A
+// runs its bf16-operand products on the tensor cores (below).  No TMA or
 // pipelining yet, and one block per row leaves SMs idle below B*H = 132.
+//
+// Pass A under bf16 (tc_mma): the five products whose operands the TPU
+// rounds to bf16 -- the scores phi_q phi_k^T, the numerator sc v + phi_q S,
+// the a matrix u v^T, dphi_q = a phi_k + u S^T and the state update
+// S += phi_k^T v -- run as mma.sync.m16n8k16 bf16 with f32 accumulation,
+// which is exactly what the TPU's bf16 dot with f32 accumulation computes.
+// Pass A's 217 KB of shared memory allow one block an SM, and B*H = 128
+// rows already take 128 of the 132 SMs, so more blocks per row cannot help:
+// the lever is the work inside the SM.  Each warp builds its fragments from
+// the f32 tiles with scalar shared loads, rounding two values into one
+// register (__floats2bfloat162_rn, round to nearest even, as rnd<T>).  The
+// K slots of a 16-wide step are permuted (the product does not depend on
+// the order of K, only on A and B agreeing): lane t takes the four
+// consecutive k = k0 + 8t + 4s + {0..3} in step s of each 32-wide pair (of a
+// 16-wide tail, k0 + 4t + {0..3}).  Every tile has a row stride of 1 mod 32
+// (the +1 padding), so the 32 lanes (g = lane/4, t) of a load hit the
+// banks g + 8t + const: conflict-free, where the usual (2t, 2t+1) slots
+// would meet 4-way.  The 8 warps share each product's 16 x 16 output
+// groups (two 16x8 tiles, one A fragment); the causal products skip the
+// groups above the diagonal and run K only to the group's last row.  The
+// epilogues are elementwise on the accumulators.  The denominator is a
+// warp a row, the z update four lanes a feature.  The f32 instantiation
+// keeps the mma4x4 path, bit for bit, and pass B keeps it in both types.
 //
 // bf16: under bf16 inputs the operands the TPU kernels round are rounded
 // (_dot_dtype_for): phi_q, phi_k, the scores, a, u, S and R, with f32
@@ -57,6 +81,10 @@
 // (phi_q . z), as the TPU kernel does, and kept f32 in the w z term;
 // omega's product, w and r stay f32.  u and w are stored
 // in bf16 (the TPU's bf16 uw residual), and pass B reads them back rounded.
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "favor_common.cuh"
 
@@ -182,6 +210,125 @@ __device__ float setup(float* om, const float* omega, float* state, float* vec,
   return kmax;
 }
 
+// two f32 values -> one register of two bf16 (lo in the low half), rounded
+// to nearest even as rnd<__nv_bfloat16> rounds
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// d (16x8 f32) += a (16x16 bf16) b (16x8 bf16)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: acc[nt] (the 16x8 tile at rows i0.., columns j0 + 8 nt..) +=
+// sum_{k<K} A(i, k) B(k, j), operands rounded to bf16, with A(i, k) =
+// A[i*ai + k*ak] and B(k, j) = B[k*bk + j*bj] f32 in shared memory; K a
+// multiple of 16.  Fragments as the PTX ISA's m16n8k16 figures (g = lane/4,
+// t = lane%4): A regs (g, s0 s1), (g+8, s0 s1), (g, s2 s3), (g+8, s2 s3),
+// B regs (s0 s1, n = g), (s2 s3, n = g), C (g, 2t 2t+1), (g+8, 2t 2t+1),
+// with the K slots s0..s3 of lane t at k = kk..kk+3 (see the note above).
+template <int NT>
+__device__ __forceinline__ void tc_mma(float (*acc)[4], const float* A, int ai, int ak, int i0,
+                                       const float* B, int bk, int bj, int j0, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a0 = A + (i0 + g) * ai;
+  const float* a1 = a0 + 8 * ai;
+  const float* b0 = B + (j0 + g) * bj;
+  auto step = [&](int kk) {
+    const float* x0 = a0 + kk * ak;
+    const float* x1 = a1 + kk * ak;
+    const uint32_t a[4] = {pack_bf16(x0[0], x0[ak]), pack_bf16(x1[0], x1[ak]),
+                           pack_bf16(x0[2 * ak], x0[3 * ak]),
+                           pack_bf16(x1[2 * ak], x1[3 * ak])};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* y = b0 + nt * 8 * bj + kk * bk;
+      const uint32_t b[2] = {pack_bf16(y[0], y[bk]), pack_bf16(y[2 * bk], y[3 * bk])};
+      mma_bf16(acc[nt], a, b);
+    }
+  };
+  int k0 = 0;
+  for (; k0 + 32 <= K; k0 += 32) {
+    step(k0 + 8 * t);
+    step(k0 + 8 * t + 4);
+  }
+  if (k0 < K) step(k0 + 4 * t);
+}
+
+// f(i, j, value) for each accumulator of tc_mma<NT>'s tiles at (i0, j0)
+template <int NT, class F>
+__device__ __forceinline__ void tc_each(float (*acc)[4], int i0, int j0, F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f(i0 + g + 8 * (r >> 1), j0 + 8 * nt + 2 * t + (r & 1), acc[nt][r]);
+}
+
+// The block's warps share the R x N output of a product as (R/16) x (N/16)
+// groups of two 16x8 tiles; body(acc, i0, j0) for each group of this warp,
+// acc zeroed.  R and N multiples of 16.
+template <class F>
+__device__ __forceinline__ void tc_groups(int R, int N, F body) {
+  const int ng = N / 16, nwarp = blockDim.x >> 5;
+  for (int grp = threadIdx.x >> 5; grp < (R / 16) * ng; grp += nwarp) {
+    float acc[2][4] = {};
+    body(acc, (grp / ng) * 16, (grp % ng) * 16);
+  }
+}
+
+// dst[i][d] = src[i * ld + d] * mul for rows i < n, 0 for the ragged tail:
+// C rows of D bf16 values (D a multiple of 8, src 16-byte aligned, as the
+// wrappers check) into f32 rows D + 1 apart.  16-byte loads, four of them
+// in flight a thread before any is stored.
+__device__ __forceinline__ void load_rows_tc(float* dst, const __nv_bfloat16* src, int n, int D,
+                                             int ld, float mul) {
+  constexpr int U = 4;
+  const int V = D / 8;
+  for (int base = threadIdx.x; base < C * V; base += U * blockDim.x) {
+    uint4 raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, i = idx / V;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < C * V && i < n)
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)i * ld + (idx - i * V) * 8));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, i = idx / V;
+      if (idx < C * V) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+        float* p = dst + i * (D + 1) + (idx - i * V) * 8;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          p[2 * e] = f.x * mul;
+          p[2 * e + 1] = f.y * mul;
+        }
+      }
+    }
+  }
+}
+
+// sq[i] = ||xs_i||^2 / 2, a warp a row (xs [C][D+1]); ends with __syncthreads()
+__device__ __forceinline__ void row_sq_tc(float* sq, const float* xs, int D) {
+  const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s = fmaf(xs[i * (D + 1) + d], xs[i * (D + 1) + d], s);
+    s = warp_sum(s);
+    if (lane == 0) sq[i] = 0.5f * s;
+  }
+  __syncthreads();
+}
+
 template <class T, bool HL>
 __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const T* __restrict__ g,
@@ -190,6 +337,9 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
                                    T* __restrict__ u_out, T* __restrict__ w_out, int L,
                                    int Dh, int Dv, int M, int n_head, int np, float scale,
                                    float rsqm, float eps) {
+  // bf16: the bf16-operand products on the tensor cores (Dh, Dv, M
+  // multiples of 16, which the wrappers check)
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ float smem[];
   const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
@@ -223,50 +373,96 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
     const int n = min(C, L - r0);
 
     // phi_k, the v and g rows, then phi_q (xs keeps the scaled q for dq)
-    load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
-    features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
-    for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
-      const int i = idx / Dv, d = idx - i * Dv;
-      const size_t at = (size_t)(r0 + i) * ldv + d;
-      vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
-      gu[i * DVP + d] = i < n ? to_f<T>(g[at]) : 0.f;
+    if constexpr (TC) {
+      load_rows_tc(xs, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      load_rows_tc(vv, v + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
+      load_rows_tc(gu, g + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
+      __syncthreads();
+      row_sq_tc(sq, xs, Dh);
+      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      load_rows_tc(xs, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      __syncthreads();
+      row_sq_tc(sq, xs, Dh);
+    } else {
+      load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
+        const int i = idx / Dv, d = idx - i * Dv;
+        const size_t at = (size_t)(r0 + i) * ldv + d;
+        vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
+        gu[i * DVP + d] = i < n ? to_f<T>(g[at]) : 0.f;
+      }
+      load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
     }
-    load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
     features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
 
-    causal_scores<T>(sc, pq, pk, M);
-    __syncthreads();
+    if constexpr (TC) {
+      // sc = phi_q phi_k^T, masked to j <= i
+      tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+        if (j0 <= i0) tc_mma<2>(acc, pq, MP, 1, i0, pk, 1, MP, j0, M);
+        tc_each<2>(acc, i0, j0,
+                   [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x : 0.f; });
+      });
+      __syncthreads();
 
-    // den_i = sum_{j<=i} sc_ij + phi_q_i . z + eps
-    for (int i = tid; i < C; i += blockDim.x) {
-      float s = 0.f, t = 0.f;
-      for (int j = 0; j <= i; ++j) s += sc[i * CP + j];
-      for (int m = 0; m < M; ++m) t = fmaf(rnd<T>(pq[i * MP + m]), rnd<T>(z[m]), t);
-      den[i] = s + t + eps;
-    }
-    __syncthreads();
+      // den_i = sum_{j<=i} sc_ij + phi_q_i . z + eps, a warp per row
+      for (int i = tid >> 5; i < C; i += nwarp) {
+        float s = 0.f, t = 0.f;
+        for (int j = lane; j < C; j += 32) s += sc[i * CP + j];
+        for (int m = lane; m < M; m += 32) t = fmaf(rnd<T>(pq[i * MP + m]), rnd<T>(z[m]), t);
+        s = warp_sum(s);
+        t = warp_sum(t);
+        if (lane == 0) den[i] = s + t + eps;
+      }
+      __syncthreads();
 
-    // out_i = (sc_i . v + phi_q_i . S) / den_i; go = g * out; u = g / den
-    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
-      mma4x4<T, true, true>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * (C / 4);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int d = jt + c * (Dv / 4);
+      // out_i = (sc_i . v + phi_q_i . S) / den_i; go = g * out; u = g / den
+      tc_groups(C, Dv, [&](float (*acc)[4], int i0, int j0) {
+        tc_mma<2>(acc, sc, CP, 1, i0, vv, DVP, 1, j0, i0 + 16);
+        tc_mma<2>(acc, pq, MP, 1, i0, S, DVP, 1, j0, M);
+        tc_each<2>(acc, i0, j0, [&](int i, int d, float x) {
           const float gv = gu[i * DVP + d], u = gv / den[i];
-          go[i * DVP + d] = gv * (acc[r][c] / den[i]);
+          go[i * DVP + d] = gv * (x / den[i]);
           gu[i * DVP + d] = rnd<T>(u);
           if (i < n) u_out[(size_t)(r0 + i) * ldv + d] = from_f<T>(u);
+        });
+      });
+      __syncthreads();
+    } else {
+      causal_scores<T>(sc, pq, pk, M);
+      __syncthreads();
+
+      // den_i = sum_{j<=i} sc_ij + phi_q_i . z + eps
+      for (int i = tid; i < C; i += blockDim.x) {
+        float s = 0.f, t = 0.f;
+        for (int j = 0; j <= i; ++j) s += sc[i * CP + j];
+        for (int m = 0; m < M; ++m) t = fmaf(rnd<T>(pq[i * MP + m]), rnd<T>(z[m]), t);
+        den[i] = s + t + eps;
+      }
+      __syncthreads();
+
+      // out_i = (sc_i . v + phi_q_i . S) / den_i; go = g * out; u = g / den
+      for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+        const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
+        mma4x4<T, true, true>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = it + r * (C / 4);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int d = jt + c * (Dv / 4);
+            const float gv = gu[i * DVP + d], u = gv / den[i];
+            go[i * DVP + d] = gv * (acc[r][c] / den[i]);
+            gu[i * DVP + d] = rnd<T>(u);
+            if (i < n) u_out[(size_t)(r0 + i) * ldv + d] = from_f<T>(u);
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
 
     // w_i = -(g_i . out_i) / den_i, a warp per row
     for (int i = tid >> 5; i < C; i += nwarp) {
@@ -281,44 +477,78 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
     }
     __syncthreads();
 
-    a_matrix(sc, gu, vv, wv, Dv);
-    __syncthreads();
-
     // dphi_q = a . phi_k + u . S^T + w z, kept as dphi_q * phi_q in pq
-    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
-      const int it = t / (M / 4), jt = t - it * (M / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, true>(acc, sc, CP, 1, it, C / 4, pk, MP, 1, jt, M / 4, n);
-      mma4x4<T, false, true>(acc, gu, DVP, 1, it, C / 4, S, 1, DVP, jt, M / 4, Dv);
+    if constexpr (TC) {
+      // a_ij = u_i . v_j + w_i for j <= i, into sc
+      tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+        if (j0 <= i0) tc_mma<2>(acc, gu, DVP, 1, i0, vv, 1, DVP, j0, Dv);
+        tc_each<2>(acc, i0, j0,
+                   [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x + wv[i] : 0.f; });
+      });
+      __syncthreads();
+      tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
+        tc_mma<2>(acc, sc, CP, 1, i0, pk, MP, 1, j0, i0 + 16);
+        tc_mma<2>(acc, gu, DVP, 1, i0, S, 1, DVP, j0, Dv);
+        tc_each<2>(acc, i0, j0,
+                   [&](int i, int m, float x) { pq[i * MP + m] *= x + wv[i] * z[m]; });
+      });
+    } else {
+      a_matrix(sc, gu, vv, wv, Dv);
+      __syncthreads();
+      for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+        const int it = t / (M / 4), jt = t - it * (M / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, true>(acc, sc, CP, 1, it, C / 4, pk, MP, 1, jt, M / 4, n);
+        mma4x4<T, false, true>(acc, gu, DVP, 1, it, C / 4, S, 1, DVP, jt, M / 4, Dv);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = it + r * (C / 4), m = jt + c * (M / 4);
-          pq[i * MP + m] *= acc[r][c] + wv[i] * z[m];
-        }
+          for (int c = 0; c < 4; ++c) {
+            const int i = it + r * (C / 4), m = jt + c * (M / 4);
+            pq[i * MP + m] *= acc[r][c] + wv[i] * z[m];
+          }
+      }
     }
     __syncthreads();
 
     chain_rule<T>(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
 
     // S += phi_k^T v, z += sum_j phi_k_j (chain_rule reads neither)
-    for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, false>(acc, pk, 1, MP, it, M / 4, vv, DVP, 1, jt, Dv / 4, n);
+    if constexpr (TC) {
+      tc_groups(M, Dv, [&](float (*acc)[4], int i0, int j0) {
+        tc_mma<2>(acc, pk, 1, MP, i0, vv, DVP, 1, j0, C);
+        tc_each<2>(acc, i0, j0, [&](int m, int d, float x) { S[m * DVP + d] += x; });
+      });
+      // four lanes a feature, lane p of them summing the rows j with
+      // (j / 8) % 4 == p: the warp's loads hit 32 distinct banks
+      for (int idx = tid; idx < 4 * M; idx += blockDim.x) {
+        const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
+        float s = 0.f;
+        for (int r = 0; r < C; r += 32)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+          for (int e = 0; e < 8; ++e) s += pk[(r + 8 * p + e) * MP + m];
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (p == 0) z[m] += s;
+      }
+    } else {
+      for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
+        const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, false>(acc, pk, 1, MP, it, M / 4, vv, DVP, 1, jt, Dv / 4, n);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          S[(it + r * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[r][c];
-    }
-    for (int m = tid; m < M; m += blockDim.x) {
-      float s = 0.f;
-      for (int j = 0; j < n; ++j) s += pk[j * MP + m];
-      z[m] += s;
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            S[(it + r * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[r][c];
+      }
+      for (int m = tid; m < M; m += blockDim.x) {
+        float s = 0.f;
+        for (int j = 0; j < n; ++j) s += pk[j * MP + m];
+        z[m] += s;
+      }
     }
     __syncthreads();
   }

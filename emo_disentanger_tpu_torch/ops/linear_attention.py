@@ -366,9 +366,17 @@ def _lib():
     return _build.library('favor_fwd', _SIGNATURES)
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
+def _require_cuda(device) -> None:
     if device.type != 'cuda':
         raise ValueError(f'the CUDA kernels take CUDA tensors (got {device})')
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
+    _require_cuda(device)
+    _check_tensor(name, t, dtypes, ndim, device)
+
+
+def _check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
     if t.dtype not in dtypes:
@@ -456,7 +464,26 @@ def _bwd_lib():
     return _build.library('favor_bwd', _BWD_SIGNATURES)
 
 
-def _check_bwd_shapes(name, q2, k2, v2, omega, partial):
+def _pass_a_tile(dtype) -> int:
+    """The multiple pass A takes for Dh, Dv and M: 16 under bf16, whose
+    products run on the tensor cores in 16-wide steps (mma m16n8k16), 4 in
+    f32 (4 x 4 register tiles)."""
+    return 16 if dtype == torch.bfloat16 else 4
+
+
+def _width_rule(tile) -> str:
+    return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
+
+
+def _check_aligned(name, tensors) -> None:
+    """Under bf16 pass A loads its rows 16 bytes at a time."""
+    for n, t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
+                             f'boundary (got an offset of {t.data_ptr() % 16})')
+
+
+def _check_bwd_shapes(name, q2, k2, v2, omega, partial, tile=4):
     BH, L, Dh = q2.shape
     Dv, M = v2.shape[2], omega.shape[1]
     if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
@@ -464,10 +491,27 @@ def _check_bwd_shapes(name, q2, k2, v2, omega, partial):
         raise ValueError(f'{name}: mismatched shapes q {tuple(q2.shape)} k '
                          f'{tuple(k2.shape)} v {tuple(v2.shape)} omega '
                          f'{tuple(omega.shape)} partial {tuple(partial.shape)}')
-    if M % 4 or Dv % 4 or Dh % 4:
+    if M % tile or Dv % tile or Dh % tile:
         raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must be '
-                         f'multiples of 4')
+                         f'{_width_rule(tile)}')
     return BH, L, Dh, Dv, M
+
+
+def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
+    """Raise unless pass A takes these, on q's device; (BH, L, Dh, Dv, M)."""
+    dev = q2.device
+    _check_tensor('q', q2, (torch.float32, torch.bfloat16), 3, dev)
+    for name, t in (('k', k2), ('v', v2), ('g', g2)):
+        _check_tensor(name, t, (q2.dtype,), 3, dev)
+    _check_tensor('omega', omega, (torch.float32,), 2, dev)
+    _check_tensor('partial', partial, (torch.float32,), 2, dev)
+    dims = _check_bwd_shapes('favor_bwd_a', q2, k2, v2, omega, partial,
+                             _pass_a_tile(q2.dtype))
+    if g2.shape != v2.shape:
+        raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
+                         f'{tuple(v2.shape)}')
+    _check_aligned('favor_bwd_a', (('q', q2), ('k', k2), ('v', v2), ('g', g2)))
+    return dims
 
 
 def _favor_bwd_a_cuda(q2, k2, v2, g2, omega, partial, eps=EPS):
@@ -476,16 +520,8 @@ def _favor_bwd_a_cuda(q2, k2, v2, g2, omega, partial, eps=EPS):
     :func:`_favor_kmax_cuda` [BH, n] f32.  Returns dq [BH, L, Dh] in q's
     dtype, u [BH, L, Dv] and w [BH, L] in q's dtype (bf16 under bf16)."""
     dev = q2.device
-    _check_cuda('q', q2, (torch.float32, torch.bfloat16), 3, dev)
-    for name, t in (('k', k2), ('v', v2), ('g', g2)):
-        _check_cuda(name, t, (q2.dtype,), 3, dev)
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
-    _check_cuda('partial', partial, (torch.float32,), 2, dev)
-    BH, L, Dh, Dv, M = _check_bwd_shapes('favor_bwd_a', q2, k2, v2, omega,
-                                         partial)
-    if g2.shape != v2.shape:
-        raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
-                         f'{tuple(v2.shape)}')
+    _require_cuda(dev)
+    BH, L, Dh, Dv, M = _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial)
     dq = torch.empty_like(q2)
     u = torch.empty_like(v2)
     w = torch.empty(BH, L, dtype=q2.dtype, device=dev)
@@ -624,8 +660,9 @@ def _hl_compose(q, k, v, omega, n_head, chunk=CHUNK, eps=EPS, kmax=None):
     return _merge_heads(out, q.shape[0]).to(q.dtype)
 
 
-def _hl_shapes(name, q, omega, n_head):
-    """(B, L, Dh, M) of heads-last q [B, L, H * Dh] and omega [Dh, M]."""
+def _hl_shapes(name, q, omega, n_head, tile=4):
+    """(B, L, Dh, M) of heads-last q [B, L, H * Dh] and omega [Dh, M]; Dh
+    and M multiples of ``tile``."""
     B, L, D = q.shape
     Dh, M = D // n_head, omega.shape[1]
     if M > HL_MAX_FEATURES:
@@ -635,8 +672,9 @@ def _hl_shapes(name, q, omega, n_head):
     if D % n_head or omega.shape[0] != Dh:
         raise ValueError(f'{name}: width {D} with {n_head} heads vs omega '
                          f'{tuple(omega.shape)}')
-    if M % 4 or Dh % 4:
-        raise ValueError(f'{name}: Dh={Dh} and M={M} must be multiples of 4')
+    if M % tile or Dh % tile:
+        raise ValueError(f'{name}: Dh={Dh} and M={M} must be '
+                         f'{_width_rule(tile)}')
     return B, L, Dh, M
 
 
@@ -659,16 +697,18 @@ def _favor_kmax_hl_cuda(k, omega, n_head):
     return partial
 
 
-def _check_hl_inputs(name, q, others, omega, partial, n_head):
+def _check_hl_inputs(name, q, others, omega, partial, n_head, tile=4):
+    """Raise unless a heads-last kernel takes q, the (name, tensor) pairs
+    ``others`` of q's shape, omega and partial, on q's device; (B, L, Dh, M)."""
     dev = q.device
-    _check_cuda('q', q, (torch.float32, torch.bfloat16), 3, dev)
+    _check_tensor('q', q, (torch.float32, torch.bfloat16), 3, dev)
     for n, t in others:
-        _check_cuda(n, t, (q.dtype,), 3, dev)
+        _check_tensor(n, t, (q.dtype,), 3, dev)
         if t.shape != q.shape:
             raise ValueError(f'{name}: {n} {tuple(t.shape)} vs q {tuple(q.shape)}')
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
-    _check_cuda('partial', partial, (torch.float32,), 2, dev)
-    B, L, Dh, M = _hl_shapes(name, q, omega, n_head)
+    _check_tensor('omega', omega, (torch.float32,), 2, dev)
+    _check_tensor('partial', partial, (torch.float32,), 2, dev)
+    B, L, Dh, M = _hl_shapes(name, q, omega, n_head, tile)
     if tuple(partial.shape) != (B * n_head, -(-L // KERNEL_CHUNK)):
         raise ValueError(f'{name}: partial {tuple(partial.shape)} for B={B}, '
                          f'H={n_head}, L={L}')
@@ -679,6 +719,7 @@ def _favor_fwd_hl_cuda(q, k, v, omega, partial, n_head, eps=EPS):
     """Launch ``favor_fwd_hl`` on heads-last q, k, v [B, L, H * Dh] and the
     key maxima of :func:`_favor_kmax_hl_cuda`; returns [B, L, H * Dh] in
     q's dtype."""
+    _require_cuda(q.device)
     B, L, Dh, M = _check_hl_inputs('favor_fwd_hl', q, (('k', k), ('v', v)),
                                    omega, partial, n_head)
     out = torch.empty_like(q)
@@ -692,13 +733,22 @@ def _favor_fwd_hl_cuda(q, k, v, omega, partial, n_head, eps=EPS):
     return out
 
 
+def _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head):
+    """Raise unless heads-last pass A takes these, on q's device;
+    (B, L, Dh, M)."""
+    others = (('k', k), ('v', v), ('g', g))
+    dims = _check_hl_inputs('favor_bwd_a_hl', q, others, omega, partial, n_head,
+                            _pass_a_tile(q.dtype))
+    _check_aligned('favor_bwd_a_hl', (('q', q),) + others)
+    return dims
+
+
 def _favor_bwd_a_hl_cuda(q, k, v, g, omega, partial, n_head, eps=EPS):
     """Launch ``favor_bwd_a_hl`` (pass A) on heads-last q, k, v, g
     [B, L, H * Dh].  Returns dq and u [B, L, H * Dh] and w [B * H, L], all
     in q's dtype (bf16 under bf16)."""
-    B, L, Dh, M = _check_hl_inputs('favor_bwd_a_hl', q,
-                                   (('k', k), ('v', v), ('g', g)), omega,
-                                   partial, n_head)
+    _require_cuda(q.device)
+    B, L, Dh, M = _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head)
     dq = torch.empty_like(q)
     u = torch.empty_like(v)
     w = torch.empty(B * n_head, L, dtype=q.dtype, device=q.device)
@@ -717,6 +767,7 @@ def _favor_bwd_a_hl_cuda(q, k, v, g, omega, partial, n_head, eps=EPS):
 def _favor_bwd_b_hl_cuda(q, k, v, u, w, omega, partial, n_head):
     """Launch ``favor_bwd_b_hl`` (pass B) on the inputs of pass A and its
     (u, w); returns dk and dv [B, L, H * Dh] in q's dtype."""
+    _require_cuda(q.device)
     B, L, Dh, M = _check_hl_inputs('favor_bwd_b_hl', q,
                                    (('k', k), ('v', v), ('u', u)), omega,
                                    partial, n_head)

@@ -11,8 +11,12 @@ the same seeded inputs, the outputs compared, and each kernel's time.
 * ``favor``: the head-major FAVOR+ kernels #1-#4 (``favor_kmax``,
   ``favor_fwd``, ``favor_bwd_a``, ``favor_bwd_b``) at the shapes of the
   kernel table in PERF.md (bf16: kmax and fwd at B=2 L=1024 and B=16 L=2048,
-  the backward passes at B=16 L=3072; f32 at a ragged L=1000); outputs
-  compared bit for bit;
+  the backward passes at B=16 L=3072; f32 at a ragged L=1000), and the
+  heads-last pass A #10 ``favor_bwd_a_hl`` at B=16 L=3072 bf16.  Pass B is
+  fed a (u, w) drawn from the seed, not pass A's, so its outputs do not
+  depend on pass A.  Outputs are compared bit for bit, except pass A's
+  bf16 outputs (#3 and #10), whose tensor-core products may sum in another
+  order: by the largest relative difference;
 * ``decode``: #12 ``performer_decode_layer``, one serving step of 12 layers
   at B=16 with bf16 weights from zero state; its output and the layers'
   (S, z) are compared by the largest relative difference, and its time is
@@ -79,8 +83,10 @@ def device_ms(fn, calls, reps=20):
 
 
 def save_favor(dev, gen, outs, times):
+    """Returns the names of the outputs compared by relative difference."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    relative = []
     for dt, B, L, what in CASES:
         dtype = torch.bfloat16 if dt == 'bf16' else torch.float32
         q, k, v, g = [(0.5 * torch.randn(B * N_HEAD, L, D_HEAD, generator=gen)
@@ -95,17 +101,33 @@ def save_favor(dev, gen, outs, times):
                 lambda: la._favor_fwd_cuda(q, k, v, omega, part))
         if 'bwd' in what:
             dq, u, w = la._favor_bwd_a_cuda(q, k, v, g, omega, part)
-            dk, dv = la._favor_bwd_b_cuda(q, k, v, u, w, omega, part)
+            u_in = (0.5 * torch.randn(B * N_HEAD, L, D_HEAD, generator=gen)).to(dev, dtype)
+            w_in = (0.5 * torch.randn(B * N_HEAD, L, generator=gen)).to(dev, dtype)
+            dk, dv = la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part)
             for name, t in (('dq', dq), ('u', u), ('w', w), ('dk', dk), ('dv', dv)):
                 outs[f'favor_bwd {name} {tag}'] = t
+                if dt == 'bf16' and name in ('dq', 'u', 'w'):
+                    relative.append(f'favor_bwd {name} {tag}')
             times[f'favor_bwd_a {tag}'] = time_ms(
                 lambda: la._favor_bwd_a_cuda(q, k, v, g, omega, part))
             times[f'favor_bwd_b {tag}'] = time_ms(
-                lambda: la._favor_bwd_b_cuda(q, k, v, u, w, omega, part))
+                lambda: la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part))
+            if dt == 'bf16':
+                # #10 on the same values, heads-last [B, L, H * Dh]
+                hq, hk, hv, hg = (la._merge_heads(t, B) for t in (q, k, v, g))
+                hpart = la._favor_kmax_hl_cuda(hk, omega, N_HEAD)
+                for name, t in zip(('dq', 'u', 'w'), la._favor_bwd_a_hl_cuda(
+                        hq, hk, hv, hg, omega, hpart, N_HEAD)):
+                    outs[f'favor_bwd_hl {name} {tag}'] = t
+                    relative.append(f'favor_bwd_hl {name} {tag}')
+                times[f'favor_bwd_a_hl {tag}'] = time_ms(
+                    lambda: la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD))
+    return relative
 
 
 def save_decode(dev, gen, outs, times):
-    """One 12-layer serving step at B=16, bf16 weights, from zero state."""
+    """One 12-layer serving step at B=16, bf16 weights, from zero state;
+    every output is compared by relative difference."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
     omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
@@ -139,6 +161,7 @@ def save_decode(dev, gen, outs, times):
     if dev_ms is not None:
         times[f'decode device/layer {tag}'] = dev_ms
         times[f'decode kernels/layer {tag}'] = n
+    return [n for n in outs if n.startswith('decode ')]
 
 
 def save_flash(dev, gen, outs, times):
@@ -149,6 +172,7 @@ def save_flash(dev, gen, outs, times):
     scale = D_HEAD ** -0.5
     outs[f'flash out {tag}'] = fa._flash_attention_cuda(q, k, v, scale)
     times[f'flash {tag}'] = time_ms(lambda: fa._flash_attention_cuda(q, k, v, scale))
+    return [f'flash out {tag}']
 
 
 SAVERS = {'favor': (('favor_fwd', 'favor_bwd'), save_favor),
@@ -164,10 +188,7 @@ def save(root, path, kernels):
     outs, times, relative = {}, {}, []
     for k in kernels:
         gen = torch.Generator().manual_seed(21)
-        before = set(outs)
-        SAVERS[k][1](dev, gen, outs, times)
-        if k != 'favor':
-            relative += sorted(set(outs) - before)
+        relative += SAVERS[k][1](dev, gen, outs, times)
     torch.cuda.synchronize()
     torch.save({'root': os.path.abspath(root), 'device': torch.cuda.get_device_name(0),
                 'outs': {n: t.cpu() for n, t in outs.items()}, 'times': times,

@@ -1,10 +1,12 @@
-"""The wrappers of kernels #12 and #13 refuse what their kernels do not
-take, before anything is built or launched.
+"""The wrappers of kernels #12, #13 and pass A (#3, #10) refuse what
+their kernels do not take, before anything is built or launched.
 
-``_flash_attention_cuda`` and ``_decode_layer_cuda`` refuse CPU tensors
-(the public entry points would run the plain versions there); then each
-checks its inputs with ``_check_inputs``, which is called here on CPU
-tensors so that each bad dtype, shape or layout raises its own error.
+``_flash_attention_cuda``, ``_decode_layer_cuda``, ``_favor_bwd_a_cuda``
+and ``_favor_bwd_a_hl_cuda`` refuse CPU tensors (the public entry points
+would run the plain versions there); then each checks its inputs with a
+function (``_check_inputs``, ``_check_bwd_a_inputs``,
+``_check_bwd_a_hl_inputs``) that is called here on CPU tensors so that
+each bad dtype, shape or layout raises its own error.
 ``_build.library`` is replaced by a stub that fails the test, so none of
 these reaches nvcc or a launch."""
 
@@ -13,6 +15,7 @@ import torch
 
 from emo_disentanger_tpu_torch.ops import _build
 from emo_disentanger_tpu_torch.ops import flash_attention as fa
+from emo_disentanger_tpu_torch.ops import linear_attention as la
 from emo_disentanger_tpu_torch.ops import performer_decode as pd
 
 
@@ -112,3 +115,83 @@ def test_good_inputs_pass_the_checks():
     dims, wdt, ptrs, mask = pd._check_inputs(*_layer(), H)
     assert dims == (3, D, H, M, F) and wdt == torch.float32
     assert len(ptrs) == len(pd.PARAM_KEYS) and mask.dtype == torch.float32
+
+
+def _pass_a(layout, Dh=64, Dv=64, M=32, dtype=torch.float32, B=2, n_head=2, L=80):
+    """Pass A's inputs: q, k, v, g, omega, partial; head-major [B*H, L, D]
+    or heads-last [B, L, H*D] (Dv = Dh)."""
+    g = torch.Generator().manual_seed(2)
+    if layout == 'heads-last':
+        shape_x = shape_v = (B, L, n_head * Dh)
+    else:
+        shape_x, shape_v = (B * n_head, L, Dh), (B * n_head, L, Dv)
+    q, k = [torch.randn(shape_x, generator=g).to(dtype) for _ in range(2)]
+    v, dout = [torch.randn(shape_v, generator=g).to(dtype) for _ in range(2)]
+    omega = torch.randn(Dh, M, generator=g)
+    return q, k, v, dout, omega, torch.zeros(B * n_head, -(-L // la.KERNEL_CHUNK))
+
+
+def _bwd_a_cases(layout):
+    q, k, v, g, omega, part = args = _pass_a(layout)
+    return {
+        'cpu': (args, 'CUDA tensors'),
+        'mixed dtypes': ((q, k.to(torch.bfloat16), v, g, omega, part), 'k has dtype'),
+        'dtype of g': ((q, k, v, g.double(), omega, part), 'g has dtype'),
+        'g of another shape': ((q, k, v, g[..., :-4].contiguous(), omega, part),
+                               r': g \('),
+        'head width under bf16': (_pass_a(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
+                                  'multiples of 16 under bf16'),
+        'features under bf16': (_pass_a(layout, M=40, dtype=torch.bfloat16),
+                                'multiples of 16 under bf16'),
+        'misaligned under bf16': (_misaligned_v(layout), '16-byte boundary'),
+    }
+
+
+def _misaligned_v(layout):
+    """bf16 inputs whose v starts one element past a 16-byte boundary."""
+    q, k, v, g, omega, part = _pass_a(layout, dtype=torch.bfloat16)
+    shifted = torch.empty(v.numel() + 1, dtype=v.dtype)[1:].view(v.shape)
+    shifted.copy_(v)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return q, k, shifted, g, omega, part
+
+
+def _check_bwd_a(layout, *args):
+    if layout == 'heads-last':
+        return la._check_bwd_a_hl_inputs(*args, 2)
+    return la._check_bwd_a_inputs(*args)
+
+
+@pytest.mark.parametrize('case', sorted(_bwd_a_cases('head-major')))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_a_refuses(layout, case):
+    args, match = _bwd_a_cases(layout)[case]
+    with pytest.raises(ValueError, match=match):
+        if case != 'cpu':
+            _check_bwd_a(layout, *args)
+        elif layout == 'heads-last':
+            la._favor_bwd_a_hl_cuda(*args, 2)
+        else:
+            la._favor_bwd_a_cuda(*args)
+
+
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_a_widths_in_f32(layout):
+    """f32 keeps the multiple of 4 that bf16 refuses."""
+    dims = _check_bwd_a(layout, *_pass_a(layout, Dh=40, Dv=40, M=36))
+    assert dims == ((4, 80, 40, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
+    assert _check_bwd_a(layout, *_pass_a(layout, dtype=torch.bfloat16))[-1] == 32
+
+
+@pytest.mark.parametrize('tile, ok', [(4, True), (16, False)])
+def test_check_bwd_shapes_width_rule(tile, ok):
+    """``_check_bwd_shapes`` takes Dh = Dv = 40 at pass B's multiple of 4
+    and refuses it at pass A's bf16 multiple of 16, naming the rule."""
+    q, k, v, _, omega, part = _pass_a('head-major', Dh=40, Dv=40)
+    if ok:
+        assert la._check_bwd_shapes('favor_bwd_b', q, k, v, omega, part, tile) == (
+            4, 80, 40, 40, 32)
+    else:
+        with pytest.raises(ValueError, match='favor_bwd_a: Dh=40, Dv=40 and M=32 '
+                                             'must be multiples of 16 under bf16'):
+            la._check_bwd_shapes('favor_bwd_a', q, k, v, omega, part, tile)
