@@ -252,16 +252,21 @@ def fwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk):
     return bound(nbytes, feat / F32_FLOP_PER_S + fwd_products(BH, L, M, Dv) / rate)
 
 
-def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a):
+def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a,
+              feat_rate=F32_FLOP_PER_S, feat_passes=1):
     """A backward pass: A reads q, k, v, g and writes dq, u, w; B reads
     q, k, v, u, w and writes dk, dv -- 3 Dh + 3 Dv + 1 values a position
     both ways.  Each recomputes both feature maps and the chain rule through
-    one of them (f32, omega exact), and runs the causal products."""
+    one of them (f32, omega exact), and runs the causal products.  The
+    feature maps' and chain rule's f32 products count at ``feat_rate``,
+    ``feat_passes`` times over: ``TF32_FLOP_PER_S, 3`` as pass A's bf16
+    instantiation runs them (3xTF32 on the tensor cores), the default as
+    f32 on the CUDA cores."""
     nbytes = (BH * L * (3 * Dh + 3 * Dv + 1) * in_bytes + Dh * M * 4
               + BH * n_partial * 4)
     feat = 2 * 2 * BH * L * Dh * (M + 1) + 2 * BH * L * M * Dh
     rate = BF16_FLOP_PER_S if in_bytes == 2 else F32_FLOP_PER_S
-    return bound(nbytes, feat / F32_FLOP_PER_S
+    return bound(nbytes, feat_passes * feat / feat_rate
                  + bwd_products(BH, L, M, Dv, pass_a) / rate)
 
 
@@ -1235,13 +1240,22 @@ def phase_timing(dev, rec, smi):
                                                   C, dot_dtype=bf),
                     iters=2, warmup=1)),
     }
-    b_a, b_b = (bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], pass_a)
-                for pass_a in (True, False))
+    # pass A's bound counts its omega products in 3xTF32, as it runs them;
+    # the f32 figure (CUDA cores) is printed beside it
+    b_a = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], True,
+                    TF32_FLOP_PER_S, 3)
+    b_b = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], False)
+    b_a_f32 = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], True)[0]
+
+    def beside(name, t, b):
+        if name not in SCALAR_PASS_A:
+            return ''
+        return (f' in 3xTF32 ({b / t:.3f} of it), {b_a_f32:.4f} with the omega '
+                f'products in f32 on the CUDA cores; on 4x4 f32 tiles '
+                f'{SCALAR_PASS_A[name]:.4f}')
     for name, (t, p), (b, by) in zip(times, times.values(), (b_a, b_b)):
-        was = (f'; on 4x4 f32 tiles {SCALAR_PASS_A[name]:.4f}'
-               if name in SCALAR_PASS_A else '')
         print(f'phase 6 kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
-              f'(plain {p:.4f}, bound {b:.4f} {by}{was})')
+              f'(plain {p:.4f}, bound {b:.4f} {by}{beside(name, t, b)})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
 
     # the heads-last kernels #8-#11 at the same shape, on [B, L, D] tensors
@@ -1281,10 +1295,8 @@ def phase_timing(dev, rec, smi):
             b_b),
     }
     for name, (t, p, (b, by)) in hl.items():
-        was = (f'; on 4x4 f32 tiles {SCALAR_PASS_A[name]:.4f}'
-               if name in SCALAR_PASS_A else '')
         print(f'phase 6h kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
-              f'(plain {p:.4f}, bound {b:.4f} {by}{was})')
+              f'(plain {p:.4f}, bound {b:.4f} {by}{beside(name, t, b)})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
     print(f'phase 6h head-major at the same shape [{smi}]: favor_kmax '
           f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms, favor_bwd_a '

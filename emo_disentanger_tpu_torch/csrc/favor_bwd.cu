@@ -71,9 +71,14 @@
 // would meet 4-way.  The 8 warps share each product's 16 x 16 output
 // groups (two 16x8 tiles, one A fragment); the causal products skip the
 // groups above the diagonal and run K only to the group's last row.  The
-// epilogues are elementwise on the accumulators.  The denominator is a
-// warp a row, the z update four lanes a feature.  The f32 instantiation
-// keeps the mma4x4 path, bit for bit, and pass B keeps it in both types.
+// epilogues are elementwise on the accumulators.  The omega products (the
+// two feature maps and the chain rule), which the TPU keeps in f32, run in
+// 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32: each f32 operand split into two
+// TF32 parts, three products), f32-accurate to ~1e-6.  The q, k, v and g
+// rows come in by 16-byte loads, four in flight a thread.  The denominator
+// and ||x||^2 are a warp a row, the z update four lanes a feature.  The f32
+// instantiation keeps the mma4x4 path, bit for bit, and pass B keeps it in
+// both types.
 //
 // bf16: under bf16 inputs the operands the TPU kernels round are rounded
 // (_dot_dtype_for): phi_q, phi_k, the scores, a, u, S and R, with f32
@@ -283,6 +288,111 @@ __device__ __forceinline__ void tc_groups(int R, int N, F body) {
   }
 }
 
+// x -> TF32 hi (round to nearest, ties away) and the TF32 rest lo = x - hi
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d (16x8 f32) += a (16x8 tf32) b (8x8 tf32)
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// tc_mma's product in f32 accuracy, for the omega products: 3xTF32 on
+// mma.sync.m16n8k8, each operand split into TF32 hi and lo, and lo hi +
+// hi lo + hi hi accumulated in f32 (lo lo, ~2^-22 relative, dropped), as
+// flash_attn_fwd.cu does.  Fragments as the PTX ISA's m16n8k8 .tf32
+// figures: A regs (g, s0), (g+8, s0), (g, s1), (g+8, s1), B regs (s0, n = g),
+// (s1, n = g); lane t's K slots s0, s1 at k = kk, kk+1, with kk = k0 + 8t + 2s
+// in step s of each 32-wide run (conflict-free, as in tc_mma), k0 + 4t and
+// k0 + 4t + 2 in a 16-wide tail.  K a multiple of 16.
+template <int NT>
+__device__ __forceinline__ void tc_mma_f32(float (*acc)[4], const float* A, int ai, int ak,
+                                           int i0, const float* B, int bk, int bj, int j0,
+                                           int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a0 = A + (i0 + g) * ai;
+  const float* a1 = a0 + 8 * ai;
+  const float* b0 = B + (j0 + g) * bj;
+  auto step = [&](int kk) {
+    uint32_t ah[4], al[4];
+    split_tf32(a0[kk * ak], ah[0], al[0]);
+    split_tf32(a1[kk * ak], ah[1], al[1]);
+    split_tf32(a0[(kk + 1) * ak], ah[2], al[2]);
+    split_tf32(a1[(kk + 1) * ak], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* y = b0 + nt * 8 * bj + kk * bk;
+      uint32_t bh[2], bl[2];
+      split_tf32(y[0], bh[0], bl[0]);
+      split_tf32(y[bk], bh[1], bl[1]);
+      mma_tf32(acc[nt], al, bh);
+      mma_tf32(acc[nt], ah, bl);
+      mma_tf32(acc[nt], ah, bh);
+    }
+  };
+  int k0 = 0;
+  for (; k0 + 32 <= K; k0 += 32)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) step(k0 + 8 * t + 2 * s);
+  for (; k0 < K; k0 += 16) {
+    step(k0 + 4 * t);
+    step(k0 + 4 * t + 2);
+  }
+}
+
+// features' function for pass A's bf16 instantiation, its h = xs . omega in
+// 3xTF32 (tc_mma_f32).  Ends with __syncthreads().
+template <bool QUERY>
+__device__ void features_tc(float* phi, const float* xs, const float* sq, const float* om, int n,
+                            int Dh, int M, float kmax, float rsqm) {
+  const int MP = M + 1;
+  tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
+    tc_mma_f32<2>(acc, xs, Dh + 1, 1, i0, om, MP, 1, j0, Dh);
+    tc_each<2>(acc, i0, j0, [&](int i, int m, float x) {
+      const float h = x - sq[i];
+      phi[i * MP + m] = QUERY ? h : (i < n ? expf(h - kmax) * rsqm : 0.f);
+    });
+  });
+  __syncthreads();
+  if (QUERY) {
+    const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
+    for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
+      float mx = -INFINITY;
+      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, phi[i * MP + m]);
+      mx = warp_max(mx);
+      for (int m = lane; m < M; m += 32)
+        phi[i * MP + m] = i < n ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
+    }
+    __syncthreads();
+  }
+}
+
+// chain_rule's function for pass A's bf16 instantiation, t . omega^T in
+// 3xTF32 (tc_mma_f32)
+__device__ void chain_rule_tc(__nv_bfloat16* dx, const float* t, const float* xs,
+                              const float* om, float* rs, int n, int Dh, int ld, int M,
+                              float scale) {
+  const int MP = M + 1, XP = Dh + 1, lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
+    float s = 0.f;
+    for (int m = lane; m < M; m += 32) s += t[i * MP + m];
+    s = warp_sum(s);
+    if (lane == 0) rs[i] = s;
+  }
+  __syncthreads();
+  tc_groups(C, Dh, [&](float (*acc)[4], int i0, int j0) {
+    tc_mma_f32<2>(acc, t, MP, 1, i0, om, 1, MP, j0, M);
+    tc_each<2>(acc, i0, j0, [&](int i, int d, float x) {
+      if (i < n) dx[(size_t)i * ld + d] = __float2bfloat16(scale * (x - rs[i] * xs[i * XP + d]));
+    });
+  });
+}
+
 // dst[i][d] = src[i * ld + d] * mul for rows i < n, 0 for the ragged tail:
 // C rows of D bf16 values (D a multiple of 8, src 16-byte aligned, as the
 // wrappers check) into f32 rows D + 1 apart.  16-byte loads, four of them
@@ -379,10 +489,11 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
       load_rows_tc(gu, g + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
       load_rows_tc(xs, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
+      features_tc<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
     } else {
       load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
       features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
@@ -393,8 +504,8 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
         gu[i * DVP + d] = i < n ? to_f<T>(g[at]) : 0.f;
       }
       load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
     }
-    features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
 
     if constexpr (TC) {
       // sc = phi_q phi_k^T, masked to j <= i
@@ -512,10 +623,10 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
     }
     __syncthreads();
 
-    chain_rule<T>(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
-
-    // S += phi_k^T v, z += sum_j phi_k_j (chain_rule reads neither)
+    // dq through the feature map, then S += phi_k^T v, z += sum_j phi_k_j
+    // (chain_rule reads neither)
     if constexpr (TC) {
+      chain_rule_tc(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
       tc_groups(M, Dv, [&](float (*acc)[4], int i0, int j0) {
         tc_mma<2>(acc, pk, 1, MP, i0, vv, DVP, 1, j0, C);
         tc_each<2>(acc, i0, j0, [&](int m, int d, float x) { S[m * DVP + d] += x; });
@@ -533,6 +644,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
         if (p == 0) z[m] += s;
       }
     } else {
+      chain_rule<T>(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
       for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
         const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
         float acc[4][4];

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``emo_disentanger_tpu_torch`` nor
-``chip_smoke.py`` imports JAX, flax or the JAX package, and its entry
+``chip_smoke.py`` (nor the chip tools ``kernel_ab.py`` and
+``kernel_sections.py``) imports JAX, flax or the JAX package, and its entry
 points refuse to fall back to the CPU silently."""
 
 import ast
@@ -11,7 +12,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'emo_disentanger_tpu')
 SOURCES = sorted((ROOT / 'emo_disentanger_tpu_torch').rglob('*.py')) + [
-    ROOT / 'chip_smoke.py']
+    ROOT / 'chip_smoke.py', ROOT / 'kernel_ab.py', ROOT / 'kernel_sections.py']
 
 
 def _imported(path):
