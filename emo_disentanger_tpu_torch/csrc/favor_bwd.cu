@@ -288,9 +288,12 @@ __device__ __forceinline__ void tc_groups(int R, int N, F body) {
   }
 }
 
-// x -> TF32 hi (round to nearest, ties away) and the TF32 rest lo = x - hi
+// x -> TF32 hi, x truncated to TF32's 10 mantissa bits (one logic op), and
+// the rest x - hi (exact in f32) rounded to TF32 as lo: hi + lo is x to
+// ~2^-21 relative.  One conversion a value, where rounding hi too took two
+// and cost pass A 6% (kernel_sections.py).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  hi = __float_as_uint(x) & 0xffffe000u;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
@@ -304,7 +307,7 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
 
 // tc_mma's product in f32 accuracy, for the omega products: 3xTF32 on
 // mma.sync.m16n8k8, each operand split into TF32 hi and lo, and lo hi +
-// hi lo + hi hi accumulated in f32 (lo lo, ~2^-22 relative, dropped), as
+// hi lo + hi hi accumulated in f32 (lo lo, ~2^-20 relative, dropped), as
 // flash_attn_fwd.cu does.  Fragments as the PTX ISA's m16n8k8 .tf32
 // figures: A regs (g, s0), (g+8, s0), (g, s1), (g+8, s1), B regs (s0, n = g),
 // (s1, n = g); lane t's K slots s0, s1 at k = kk, kk+1, with kk = k0 + 8t + 2s

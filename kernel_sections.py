@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where FAVOR+ backward pass A's time goes inside a chunk, on the GPU.
 
-    python3 kernel_sections.py [--L 3072] [--B 16]
+    python3 kernel_sections.py
 
 Writes an instrumented copy of ``emo_disentanger_tpu_torch/csrc/favor_bwd.cu``
 to ``build/sections/``: in pass A's bf16 instantiation, thread 0 of each
@@ -9,19 +9,23 @@ block reads ``clock64()`` after every ``__syncthreads()`` of the chunk loop
 and after each call that ends with one (``row_sq_tc``, ``features*``,
 ``chain_rule*``), and adds the cycles since its last reading to that
 section's count.  It builds the copy (with ``favor_fwd.cu`` for the key
-maxima), runs pass A at B x 8 heads, L, Dh = 64, M = 128 in both layouts
+maxima), runs pass A at the bf16 train step's shape (B=16, 8 heads,
+L=3072, Dh = 64, M = 128) in both layouts
 (#3 ``favor_bwd_a``, #10 ``favor_bwd_a_hl``), and prints, for each, one
 launch's time (CUDA events) and each section's mean cycles a chunk with the
 source line that ends it.  A section that waits at a barrier counts the
-wait for the slowest warp.  The repository's own sources are not touched.
+wait for the slowest warp.  Last, it counts the opcodes of the head-major
+bf16 pass-A kernel in the built library (``cuobjdump -sass``: instructions
+in the code, not executed).  The repository's own sources are not touched.
 """
 
-import argparse
 import ctypes
 import os
 import re
 import shutil
+import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -67,10 +71,6 @@ def instrument():
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--B', type=int, default=16)
-    ap.add_argument('--L', type=int, default=3072)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('kernel_sections: CUDA is not available', file=sys.stderr)
         return 1
@@ -84,7 +84,7 @@ def main():
         shutil.copy(CSRC / name, OUT / name)
     _build.CSRC, _build.BUILD_DIR = OUT, OUT / 'kernels'
     _build.build(['favor_fwd', 'favor_bwd'])
-    dev, H, B, L = torch.device('cuda'), 8, args.B, args.L
+    dev, H, B, L = torch.device('cuda'), 8, 16, 3072
     gen = torch.Generator().manual_seed(0)
     omega = la.draw_orthogonal_features(64, 128, gen).to(dev)
     chunks = -(-L // la.KERNEL_CHUNK)
@@ -122,7 +122,25 @@ def main():
         for i, end in enumerate(ends):
             if per[i]:
                 print(f'  {per[i]:9.0f} cycles ({per[i] / total:6.1%}) to {end[:60]}')
+    print_sass(_build._target('favor_bwd'))
     return 0
+
+
+def print_sass(lib):
+    """The opcodes of the head-major bf16 pass-A kernel, most frequent first."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    text = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, inside = Counter(), False
+    for line in text.splitlines():
+        if 'Function :' in line:
+            inside = 'favor_bwd_a_kernelI13__nv_bfloat16Lb0' in line
+        elif inside:
+            op = re.search(r'\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)', line)
+            if op:
+                counts[op.group(1)] += 1
+    print('kernel_sections SASS of favor_bwd_a_kernel<bf16, head-major>: '
+          + ', '.join(f'{op} {n}' for op, n in counts.most_common(16)))
 
 
 if __name__ == '__main__':
