@@ -118,6 +118,13 @@ SCALAR_PASS_A = {'favor_bwd_a': 6.0553, 'favor_bwd_a_hl': 6.2727,
                  'step head-major': 72.48, 'step heads-last': 74.90,
                  'wall head-major': 257.0, 'wall heads-last': 254.5,
                  'bf16 err': 8.3e-3}
+# pass B (#4, #11) while all its products ran as 4x4 f32 register tiles,
+# read by this script on the same card and limit (after pass A's redesign):
+# the same readings, printed beside today's
+SCALAR_PASS_B = {'favor_bwd_b': 5.7647, 'favor_bwd_b_hl': 5.5428,
+                 'step head-major': 68.81, 'step heads-last': 66.03,
+                 'wall head-major': 212.4, 'wall heads-last': 208.4,
+                 'bf16 err': 8.3e-3}
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -259,8 +266,8 @@ def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a,
     both ways.  Each recomputes both feature maps and the chain rule through
     one of them (f32, omega exact), and runs the causal products.  The
     feature maps' and chain rule's f32 products count at ``feat_rate``,
-    ``feat_passes`` times over: ``TF32_FLOP_PER_S, 3`` as pass A's bf16
-    instantiation runs them (3xTF32 on the tensor cores), the default as
+    ``feat_passes`` times over: ``TF32_FLOP_PER_S, 3`` as both passes' bf16
+    instantiations run them (3xTF32 on the tensor cores), the default as
     f32 on the CUDA cores."""
     nbytes = (BH * L * (3 * Dh + 3 * Dv + 1) * in_bytes + Dh * M * 4
               + BH * n_partial * 4)
@@ -544,7 +551,8 @@ def phase_kernel_c(dev, rec):
         line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
         name = str(dtype).replace('torch.', '')
         was = ('' if dtype == torch.float32 else
-               f'; pass A on 4x4 f32 tiles: <= {SCALAR_PASS_A["bf16 err"]:.1e}')
+               f'; on 4x4 f32 tiles: pass A <= {SCALAR_PASS_A["bf16 err"]:.1e}, '
+               f'pass B <= {SCALAR_PASS_B["bf16 err"]:.1e}')
         print(f'phase 2c kernels #3/#4 {name} B={B} H={N_HEAD} L={L}: '
               f'rel err {line} (tol {tol}{was})')
         expect(max(errs.values()) <= tol, f'favor_bwd {name} B={B} L={L}')
@@ -1006,7 +1014,8 @@ def phase_train(dev, smi, heads_last=False):
           f'({secs * 1e3 / BF16_STEPS:.1f} ms a step, host clock, synchronized), '
           f'peak {gib():.2f} GiB, losses {[round(x, 5) for x in losses]}, '
           f'launches per step {per_step}; with pass A on 4x4 f32 tiles '
-          f'{SCALAR_PASS_A["wall " + layout]:.1f} ms a step')
+          f'{SCALAR_PASS_A["wall " + layout]:.1f} ms a step, with pass B on them '
+          f'{SCALAR_PASS_B["wall " + layout]:.1f}')
     expect(all(np.isfinite(losses)), 'bf16 losses finite')
     expect(all(p.dtype == torch.float32 for p in model.parameters()),
            'master weights stay f32')
@@ -1240,19 +1249,21 @@ def phase_timing(dev, rec, smi):
                                                   C, dot_dtype=bf),
                     iters=2, warmup=1)),
     }
-    # pass A's bound counts its omega products in 3xTF32, as it runs them;
-    # the f32 figure (CUDA cores) is printed beside it
-    b_a = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], True,
-                    TF32_FLOP_PER_S, 3)
-    b_b = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], False)
-    b_a_f32 = bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], True)[0]
+    # the passes' bounds count their omega products in 3xTF32, as they run
+    # them; the f32 figures (CUDA cores) are printed beside them
+    b_a, b_b = (bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], pass_a,
+                          TF32_FLOP_PER_S, 3) for pass_a in (True, False))
+    b_f32 = {p: bwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, part.shape[1], p == 'a')[0]
+             for p in 'ab'}
 
     def beside(name, t, b):
-        if name not in SCALAR_PASS_A:
+        p = name[len('favor_bwd_')]
+        scalar = SCALAR_PASS_A if p == 'a' else SCALAR_PASS_B
+        if name not in scalar:
             return ''
-        return (f' in 3xTF32 ({b / t:.3f} of it), {b_a_f32:.4f} with the omega '
+        return (f' in 3xTF32 ({b / t:.3f} of it), {b_f32[p]:.4f} with the omega '
                 f'products in f32 on the CUDA cores; on 4x4 f32 tiles '
-                f'{SCALAR_PASS_A[name]:.4f}')
+                f'{scalar[name]:.4f}')
     for name, (t, p), (b, by) in zip(times, times.values(), (b_a, b_b)):
         print(f'phase 6 kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
               f'(plain {p:.4f}, bound {b:.4f} {by}{beside(name, t, b)})')
@@ -1448,10 +1459,11 @@ def phase_profile_train(step, batch, extras, wall_ms, smi, label='phase 7b',
           f'wall {wall_ms:.1f} ms/step, device busy {busy:.1f} ms/step (idle '
           f'share {1 - busy / wall_ms:.3f}); copy kernels {copy_ms(prof, 2):.2f} '
           f'ms/step; device ms/step by kernel: {top}')
-    name = 'favor_bwd_a' if layout == 'head-major' else 'favor_bwd_a_hl'
-    print(f'{label} {name} {kernel_ms(prof, 2, "favor_bwd_a_kernel"):.2f} ms/step, '
-          f'wall {wall_ms:.1f} ms/step; with pass A on 4x4 f32 tiles '
-          f'{SCALAR_PASS_A["step " + layout]:.2f} and {SCALAR_PASS_A["wall " + layout]:.1f}')
+    for p, scalar in (('a', SCALAR_PASS_A), ('b', SCALAR_PASS_B)):
+        name = f'favor_bwd_{p}' + ('' if layout == 'head-major' else '_hl')
+        print(f'{label} {name} {kernel_ms(prof, 2, f"favor_bwd_{p}_kernel"):.2f} '
+              f'ms/step, wall {wall_ms:.1f} ms/step; with pass {p.upper()} on 4x4 f32 '
+              f'tiles {scalar["step " + layout]:.2f} and {scalar["wall " + layout]:.1f}')
 
 
 def phase_kernel_flash(dev, rec, smi):

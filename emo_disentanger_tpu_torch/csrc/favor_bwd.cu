@@ -37,8 +37,9 @@
 // Bound on the H100: each row reads q, k, v, g (pass A) or q, k, v, u, w
 // (pass B) once and writes dq, u, w or dk, dv: a few MB at the training
 // shapes.  Each pass recomputes both feature maps and the chain rule in f32
-// (67 TFLOP/s) and runs about twice the forward's chunk products, so both
-// passes are bounded by operations, like favor_fwd.
+// (67 TFLOP/s on the CUDA cores; under bf16 3xTF32 on the tensor cores,
+// 495 TFLOP/s a pass) and runs about twice the forward's chunk products,
+// so both passes are bounded by operations, like favor_fwd.
 //
 // Design (simple first, as favor_fwd): one thread block per row loops over
 // 64-row chunks, the TPU grid's sequential chunk axis.  The carried state,
@@ -48,37 +49,44 @@
 // a block may use; that fits by reusing tiles in place: the scores become
 // the a matrix once they are consumed, g becomes u, and phi becomes
 // dphi * phi (which is all that dx needs), so dphi itself is never stored.
-// Products are 4x4 register micro-tiles (mma4x4) in f32; under bf16, pass A
-// runs its bf16-operand products on the tensor cores (below).  No TMA or
-// pipelining yet, and one block per row leaves SMs idle below B*H = 132.
+// Products are 4x4 register micro-tiles (mma4x4) in f32; under bf16, both
+// passes run on the tensor cores (below).  No TMA or pipelining yet, and
+// one block per row leaves SMs idle below B*H = 132.
 //
-// Pass A under bf16 (tc_mma): the five products whose operands the TPU
-// rounds to bf16 -- the scores phi_q phi_k^T, the numerator sc v + phi_q S,
-// the a matrix u v^T, dphi_q = a phi_k + u S^T and the state update
-// S += phi_k^T v -- run as mma.sync.m16n8k16 bf16 with f32 accumulation,
-// which is exactly what the TPU's bf16 dot with f32 accumulation computes.
-// Pass A's 217 KB of shared memory allow one block an SM, and B*H = 128
-// rows already take 128 of the 132 SMs, so more blocks per row cannot help:
-// the lever is the work inside the SM.  Each warp builds its fragments from
-// the f32 tiles with scalar shared loads, rounding two values into one
-// register (__floats2bfloat162_rn, round to nearest even, as rnd<T>).  The
-// K slots of a 16-wide step are permuted (the product does not depend on
-// the order of K, only on A and B agreeing): lane t takes the four
-// consecutive k = k0 + 8t + 4s + {0..3} in step s of each 32-wide pair (of a
-// 16-wide tail, k0 + 4t + {0..3}).  Every tile has a row stride of 1 mod 32
-// (the +1 padding), so the 32 lanes (g = lane/4, t) of a load hit the
-// banks g + 8t + const: conflict-free, where the usual (2t, 2t+1) slots
-// would meet 4-way.  The 8 warps share each product's 16 x 16 output
-// groups (two 16x8 tiles, one A fragment); the causal products skip the
-// groups above the diagonal and run K only to the group's last row.  The
-// epilogues are elementwise on the accumulators.  The omega products (the
-// two feature maps and the chain rule), which the TPU keeps in f32, run in
-// 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32: each f32 operand split into two
-// TF32 parts, three products), f32-accurate to ~1e-6.  The q, k, v and g
-// rows come in by 16-byte loads, four in flight a thread.  The denominator
-// and ||x||^2 are a warp a row, the z update four lanes a feature.  The f32
-// instantiation keeps the mma4x4 path, bit for bit, and pass B keeps it in
-// both types.
+// Both passes under bf16 (tc_mma): the five products of each pass whose
+// operands the TPU rounds to bf16 run as mma.sync.m16n8k16 bf16 with f32
+// accumulation, which is exactly what the TPU's bf16 dot with f32
+// accumulation computes.  Pass A's are the scores phi_q phi_k^T, the
+// numerator sc v + phi_q S, the a matrix u v^T, dphi_q = a phi_k + u S^T
+// and the state update S += phi_k^T v; pass B's the scores, dv = p^T u +
+// phi_k R, the a matrix, dphi_k = a^T phi_q + v R^T and the state update
+// R += phi_q^T u.  A pass's 200-217 KB of shared memory allow one block an
+// SM, and B*H = 128 rows already take 128 of the 132 SMs, so more blocks
+// per row cannot help: the lever is the work inside the SM.  Each warp
+// builds its fragments from the f32 tiles with scalar shared loads,
+// rounding two values into one register (__floats2bfloat162_rn, round to
+// nearest even, as rnd<T>).  The K slots of a 16-wide step are permuted
+// (the product does not depend on the order of K, only on A and B
+// agreeing): lane t takes the four consecutive k = k0 + 8t + 4s + {0..3}
+// in step s of each 32-wide pair (of a 16-wide tail, k0 + 4t + {0..3}).
+// Every tile has a row stride of 1 mod 32 (the +1 padding), so the 32
+// lanes (g = lane/4, t) of a load hit the banks g + 8t + const:
+// conflict-free, where the usual (2t, 2t+1) slots would meet 4-way.  The
+// same holds for an operand read transposed, as pass B's p^T and a^T read
+// sc[i][j] with k = i: each step of k moves CP = 65 = 1 mod 32 banks.  The
+// 8 warps share each product's 16 x 16 output groups (two 16x8 tiles, one
+// A fragment); the causal products skip the groups above the diagonal and
+// run K only to the group's last row, and pass B's suffix products start K
+// at the group's first row j0 (tc_mma on pointers offset by j0 rows, K = C
+// - j0), the masked zeros of sc covering i < j inside the diagonal group.
+// The epilogues are elementwise on the accumulators.  The omega products
+// (the two feature maps and the chain rule), which the TPU keeps in f32,
+// run in 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32: each f32 operand split
+// into two TF32 parts, three products), f32-accurate to ~1e-6.  The q, k,
+// v and g (pass B: u) rows come in by 16-byte loads, four in flight a
+// thread.  The denominator and ||x||^2 are a warp a row, the z and r
+// updates four lanes a feature.  The f32 instantiations keep the mma4x4
+// path, bit for bit.
 //
 // bf16: under bf16 inputs the operands the TPU kernels round are rounded
 // (_dot_dtype_for): phi_q, phi_k, the scores, a, u, S and R, with f32
@@ -348,7 +356,7 @@ __device__ __forceinline__ void tc_mma_f32(float (*acc)[4], const float* A, int 
   }
 }
 
-// features' function for pass A's bf16 instantiation, its h = xs . omega in
+// features' function for the bf16 instantiations, its h = xs . omega in
 // 3xTF32 (tc_mma_f32).  Ends with __syncthreads().
 template <bool QUERY>
 __device__ void features_tc(float* phi, const float* xs, const float* sq, const float* om, int n,
@@ -375,7 +383,7 @@ __device__ void features_tc(float* phi, const float* xs, const float* sq, const 
   }
 }
 
-// chain_rule's function for pass A's bf16 instantiation, t . omega^T in
+// chain_rule's function for the bf16 instantiations, t . omega^T in
 // 3xTF32 (tc_mma_f32)
 __device__ void chain_rule_tc(__nv_bfloat16* dx, const float* t, const float* xs,
                               const float* om, float* rs, int n, int Dh, int ld, int M,
@@ -676,6 +684,9 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
                                    const float* __restrict__ partial, T* __restrict__ dk,
                                    T* __restrict__ dv, int L, int Dh, int Dv, int M,
                                    int n_head, int np, float scale, float rsqm) {
+  // bf16: pass A's tensor-core design (Dh, Dv, M multiples of 16, which
+  // the wrappers check)
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ float smem[];
   const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
@@ -691,7 +702,7 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
   float* sq = sc + C * CP;             // [C]
   float* wv = sq + C;                  // [C]
   float* rs = wv + C;                  // [C]
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const float kmax = setup(om, omega, R, r, partial, Dh, Dv, M, np);
   const int ldx = H * Dh, ldv = H * Dv;
   const size_t xb = row_base(blockIdx.x, H, L, Dh), vb = row_base(blockIdx.x, H, L, Dv);
@@ -707,79 +718,159 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
     const int n = min(C, L - r0);
 
     // phi_q, then phi_k (xs keeps the scaled k for dk), the v, u and w rows
-    load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
-    features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
-    load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
-    features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
-    for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
-      const int i = idx / Dv, d = idx - i * Dv;
-      const size_t at = (size_t)(r0 + i) * ldv + d;
-      vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
-      uu[i * DVP + d] = i < n ? to_f<T>(u[at]) : 0.f;
-    }
-    for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[r0 + i]) : 0.f;
-    causal_scores<T>(sc, pq, pk, M);
-    __syncthreads();
+    if constexpr (TC) {
+      load_rows_tc(xs, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      load_rows_tc(vv, v + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
+      load_rows_tc(uu, u + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
+      for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[r0 + i]) : 0.f;
+      __syncthreads();
+      row_sq_tc(sq, xs, Dh);
+      features_tc<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      load_rows_tc(xs, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      __syncthreads();
+      row_sq_tc(sq, xs, Dh);
+      features_tc<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
 
-    // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R
-    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, false>(acc, sc, 1, CP, it, C / 4, uu, DVP, 1, jt, Dv / 4, n);
-      mma4x4<T, true, true>(acc, pk, MP, 1, it, C / 4, R, DVP, 1, jt, Dv / 4, M);
+      // sc = phi_q phi_k^T, masked to j <= i
+      tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+        if (j0 <= i0) tc_mma<2>(acc, pq, MP, 1, i0, pk, 1, MP, j0, M);
+        tc_each<2>(acc, i0, j0,
+                   [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x : 0.f; });
+      });
+      __syncthreads();
+
+      // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R: the suffix product reads
+      // sc transposed from the group's first row j0 on (the masked zeros of
+      // sc cover i < j), each lane storing two adjacent bf16 values at once
+      tc_groups(C, Dv, [&](float (*acc)[4], int j0, int d0) {
+        tc_mma<2>(acc, sc + j0 * CP, 1, CP, j0, uu + j0 * DVP, DVP, 1, d0, C - j0);
+        tc_mma<2>(acc, pk, MP, 1, j0, R, DVP, 1, d0, M);
+        const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const int j = it + rr * (C / 4);
-        if (j < n)
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = j0 + g + 8 * h, d = d0 + 8 * nt + 2 * t;
+            if (j < n)
+              *reinterpret_cast<__nv_bfloat162*>(dv + (size_t)(r0 + j) * ldv + d) =
+                  __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
+          }
+      });
+      __syncthreads();
+
+      // a_ij = u_i . v_j + w_i for j <= i, into sc
+      tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+        if (j0 <= i0) tc_mma<2>(acc, uu, DVP, 1, i0, vv, 1, DVP, j0, Dv);
+        tc_each<2>(acc, i0, j0,
+                   [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x + wv[i] : 0.f; });
+      });
+      __syncthreads();
+
+      // dphi_k_j = sum_{i>=j} a_ij phi_q_i + v_j . R^T + r, kept as
+      // dphi_k * phi_k in pk
+      tc_groups(C, M, [&](float (*acc)[4], int j0, int m0) {
+        tc_mma<2>(acc, sc + j0 * CP, 1, CP, j0, pq + j0 * MP, MP, 1, m0, C - j0);
+        tc_mma<2>(acc, vv, DVP, 1, j0, R, 1, DVP, m0, Dv);
+        tc_each<2>(acc, j0, m0, [&](int j, int m, float x) { pk[j * MP + m] *= x + r[m]; });
+      });
+      __syncthreads();
+
+      // dk through the key feature map, then R += phi_q^T u, r += sum_i
+      // w_i phi_q_i (chain_rule_tc reads neither)
+      chain_rule_tc(dk + (size_t)r0 * ldx, pk, xs, om, rs, n, Dh, ldx, M, scale);
+      tc_groups(M, Dv, [&](float (*acc)[4], int m0, int d0) {
+        tc_mma<2>(acc, pq, 1, MP, m0, uu, DVP, 1, d0, C);
+        tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { R[m * DVP + d] += x; });
+      });
+      // four lanes a feature, as pass A's z update
+      for (int idx = tid; idx < 4 * M; idx += blockDim.x) {
+        const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
+        float s = 0.f;
+        for (int i0 = 0; i0 < C; i0 += 32)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int i = i0 + 8 * p + e;
+            s = fmaf(wv[i], pq[i * MP + m], s);
+          }
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (p == 0) r[m] += s;
+      }
+    } else {
+      load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
+      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
+        const int i = idx / Dv, d = idx - i * Dv;
+        const size_t at = (size_t)(r0 + i) * ldv + d;
+        vv[i * DVP + d] = i < n ? to_f<T>(v[at]) : 0.f;
+        uu[i * DVP + d] = i < n ? to_f<T>(u[at]) : 0.f;
+      }
+      for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[r0 + i]) : 0.f;
+      causal_scores<T>(sc, pq, pk, M);
+      __syncthreads();
+
+      // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R
+      for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
+        const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, false>(acc, sc, 1, CP, it, C / 4, uu, DVP, 1, jt, Dv / 4, n);
+        mma4x4<T, true, true>(acc, pk, MP, 1, it, C / 4, R, DVP, 1, jt, Dv / 4, M);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int j = it + rr * (C / 4);
+          if (j < n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int d = jt + c * (Dv / 4);
+              dv[(size_t)(r0 + j) * ldv + d] = from_f<T>(acc[rr][c]);
+            }
+        }
+      }
+      __syncthreads();
+
+      a_matrix(sc, uu, vv, wv, Dv);
+      __syncthreads();
+
+      // dphi_k_j = sum_{i>=j} a_ij phi_q_i + v_j . R^T + r, kept as
+      // dphi_k * phi_k in pk
+      for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
+        const int it = t / (M / 4), jt = t - it * (M / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, true>(acc, sc, 1, CP, it, C / 4, pq, MP, 1, jt, M / 4, n);
+        mma4x4<T, false, true>(acc, vv, DVP, 1, it, C / 4, R, 1, DVP, jt, M / 4, Dv);
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const int d = jt + c * (Dv / 4);
-            dv[(size_t)(r0 + j) * ldv + d] = from_f<T>(acc[rr][c]);
+            const int j = it + rr * (C / 4), m = jt + c * (M / 4);
+            pk[j * MP + m] *= acc[rr][c] + r[m];
           }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    a_matrix(sc, uu, vv, wv, Dv);
-    __syncthreads();
+      chain_rule<T>(dk + (size_t)r0 * ldx, pk, xs, om, rs, n, Dh, ldx, M, scale);
 
-    // dphi_k_j = sum_{i>=j} a_ij phi_q_i + v_j . R^T + r, kept as
-    // dphi_k * phi_k in pk
-    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
-      const int it = t / (M / 4), jt = t - it * (M / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, true>(acc, sc, 1, CP, it, C / 4, pq, MP, 1, jt, M / 4, n);
-      mma4x4<T, false, true>(acc, vv, DVP, 1, it, C / 4, R, 1, DVP, jt, M / 4, Dv);
+      // R += phi_q^T u, r += sum_i w_i phi_q_i (chain_rule reads neither)
+      for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
+        const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<T, true, false>(acc, pq, 1, MP, it, M / 4, uu, DVP, 1, jt, Dv / 4, n);
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
+        for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = it + rr * (C / 4), m = jt + c * (M / 4);
-          pk[j * MP + m] *= acc[rr][c] + r[m];
-        }
-    }
-    __syncthreads();
-
-    chain_rule<T>(dk + (size_t)r0 * ldx, pk, xs, om, rs, n, Dh, ldx, M, scale);
-
-    // R += phi_q^T u, r += sum_i w_i phi_q_i (chain_rule reads neither)
-    for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<T, true, false>(acc, pq, 1, MP, it, M / 4, uu, DVP, 1, jt, Dv / 4, n);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          R[(it + rr * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[rr][c];
-    }
-    for (int m = tid; m < M; m += blockDim.x) {
-      float s = 0.f;
-      for (int i = 0; i < n; ++i) s = fmaf(wv[i], pq[i * MP + m], s);
-      r[m] += s;
+          for (int c = 0; c < 4; ++c)
+            R[(it + rr * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[rr][c];
+      }
+      for (int m = tid; m < M; m += blockDim.x) {
+        float s = 0.f;
+        for (int i = 0; i < n; ++i) s = fmaf(wv[i], pq[i * MP + m], s);
+        r[m] += s;
+      }
     }
     __syncthreads();
   }

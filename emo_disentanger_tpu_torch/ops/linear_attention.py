@@ -464,10 +464,10 @@ def _bwd_lib():
     return _build.library('favor_bwd', _BWD_SIGNATURES)
 
 
-def _pass_a_tile(dtype) -> int:
-    """The multiple pass A takes for Dh, Dv and M: 16 under bf16, whose
-    products run on the tensor cores in 16-wide steps (mma m16n8k16), 4 in
-    f32 (4 x 4 register tiles)."""
+def _bwd_tile(dtype) -> int:
+    """The multiple both backward passes take for Dh, Dv and M: 16 under
+    bf16, whose products run on the tensor cores in 16-wide steps (mma
+    m16n8k16), 4 in f32 (4 x 4 register tiles)."""
     return 16 if dtype == torch.bfloat16 else 4
 
 
@@ -476,7 +476,7 @@ def _width_rule(tile) -> str:
 
 
 def _check_aligned(name, tensors) -> None:
-    """Under bf16 pass A loads its rows 16 bytes at a time."""
+    """Under bf16 both backward passes load their rows 16 bytes at a time."""
     for n, t in tensors:
         if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
@@ -506,7 +506,7 @@ def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
     dims = _check_bwd_shapes('favor_bwd_a', q2, k2, v2, omega, partial,
-                             _pass_a_tile(q2.dtype))
+                             _bwd_tile(q2.dtype))
     if g2.shape != v2.shape:
         raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
                          f'{tuple(v2.shape)}')
@@ -537,21 +537,30 @@ def _favor_bwd_a_cuda(q2, k2, v2, g2, omega, partial, eps=EPS):
     return dq, u, w
 
 
+def _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial):
+    """Raise unless pass B takes these, on q's device; (BH, L, Dh, Dv, M)."""
+    dev = q2.device
+    _check_tensor('q', q2, (torch.float32, torch.bfloat16), 3, dev)
+    for name, t in (('k', k2), ('v', v2), ('u', u)):
+        _check_tensor(name, t, (q2.dtype,), 3, dev)
+    _check_tensor('w', w, (q2.dtype,), 2, dev)
+    _check_tensor('omega', omega, (torch.float32,), 2, dev)
+    _check_tensor('partial', partial, (torch.float32,), 2, dev)
+    BH, L, Dh, Dv, M = dims = _check_bwd_shapes('favor_bwd_b', q2, k2, v2, omega,
+                                                partial, _bwd_tile(q2.dtype))
+    if u.shape != v2.shape or tuple(w.shape) != (BH, L):
+        raise ValueError(f'favor_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} '
+                         f'vs v {tuple(v2.shape)}')
+    _check_aligned('favor_bwd_b', (('q', q2), ('k', k2), ('v', v2), ('u', u)))
+    return dims
+
+
 def _favor_bwd_b_cuda(q2, k2, v2, u, w, omega, partial):
     """Launch ``favor_bwd_b`` (pass B) on the inputs of pass A and its
     (u, w); returns dk [BH, L, Dh] and dv [BH, L, Dv] in q's dtype."""
     dev = q2.device
-    _check_cuda('q', q2, (torch.float32, torch.bfloat16), 3, dev)
-    for name, t in (('k', k2), ('v', v2), ('u', u)):
-        _check_cuda(name, t, (q2.dtype,), 3, dev)
-    _check_cuda('w', w, (q2.dtype,), 2, dev)
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
-    _check_cuda('partial', partial, (torch.float32,), 2, dev)
-    BH, L, Dh, Dv, M = _check_bwd_shapes('favor_bwd_b', q2, k2, v2, omega,
-                                         partial)
-    if u.shape != v2.shape or tuple(w.shape) != (BH, L):
-        raise ValueError(f'favor_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} '
-                         f'vs v {tuple(v2.shape)}')
+    _require_cuda(dev)
+    BH, L, Dh, Dv, M = _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial)
     dk = torch.empty_like(k2)
     dv = torch.empty_like(v2)
     lib = _bwd_lib()
@@ -738,7 +747,7 @@ def _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head):
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v), ('g', g))
     dims = _check_hl_inputs('favor_bwd_a_hl', q, others, omega, partial, n_head,
-                            _pass_a_tile(q.dtype))
+                            _bwd_tile(q.dtype))
     _check_aligned('favor_bwd_a_hl', (('q', q),) + others)
     return dims
 
@@ -764,17 +773,25 @@ def _favor_bwd_a_hl_cuda(q, k, v, g, omega, partial, n_head, eps=EPS):
     return dq, u, w
 
 
+def _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head):
+    """Raise unless heads-last pass B takes these, on q's device;
+    (B, L, Dh, M)."""
+    others = (('k', k), ('v', v), ('u', u))
+    B, L, Dh, M = dims = _check_hl_inputs('favor_bwd_b_hl', q, others, omega,
+                                          partial, n_head, _bwd_tile(q.dtype))
+    _check_tensor('w', w, (q.dtype,), 2, q.device)
+    if tuple(w.shape) != (B * n_head, L):
+        raise ValueError(f'favor_bwd_b_hl: w {tuple(w.shape)} for B={B}, '
+                         f'H={n_head}, L={L}')
+    _check_aligned('favor_bwd_b_hl', (('q', q),) + others)
+    return dims
+
+
 def _favor_bwd_b_hl_cuda(q, k, v, u, w, omega, partial, n_head):
     """Launch ``favor_bwd_b_hl`` (pass B) on the inputs of pass A and its
     (u, w); returns dk and dv [B, L, H * Dh] in q's dtype."""
     _require_cuda(q.device)
-    B, L, Dh, M = _check_hl_inputs('favor_bwd_b_hl', q,
-                                   (('k', k), ('v', v), ('u', u)), omega,
-                                   partial, n_head)
-    _check_cuda('w', w, (q.dtype,), 2, q.device)
-    if tuple(w.shape) != (B * n_head, L):
-        raise ValueError(f'favor_bwd_b_hl: w {tuple(w.shape)} for B={B}, '
-                         f'H={n_head}, L={L}')
+    B, L, Dh, M = _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _bwd_lib()

@@ -12,11 +12,12 @@ the same seeded inputs, the outputs compared, and each kernel's time.
   ``favor_fwd``, ``favor_bwd_a``, ``favor_bwd_b``) at the shapes of the
   kernel table in PERF.md (bf16: kmax and fwd at B=2 L=1024 and B=16 L=2048,
   the backward passes at B=16 L=3072; f32 at a ragged L=1000), and the
-  heads-last pass A #10 ``favor_bwd_a_hl`` at B=16 L=3072 bf16.  Pass B is
+  heads-last backward passes #10 ``favor_bwd_a_hl`` and #11
+  ``favor_bwd_b_hl`` at B=16 L=3072 bf16 on the same values.  Pass B is
   fed a (u, w) drawn from the seed, not pass A's, so its outputs do not
-  depend on pass A.  Outputs are compared bit for bit, except pass A's
-  bf16 outputs (#3 and #10), whose tensor-core products may sum in another
-  order: by the largest relative difference;
+  depend on pass A.  Outputs are compared bit for bit, except the backward
+  passes' bf16 outputs (#3, #4, #10, #11), whose tensor-core products may
+  sum in another order: by the largest relative difference;
 * ``decode``: #12 ``performer_decode_layer``, one serving step of 12 layers
   at B=16 with bf16 weights from zero state; its output and the layers'
   (S, z) are compared by the largest relative difference, and its time is
@@ -106,22 +107,26 @@ def save_favor(dev, gen, outs, times):
             dk, dv = la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part)
             for name, t in (('dq', dq), ('u', u), ('w', w), ('dk', dk), ('dv', dv)):
                 outs[f'favor_bwd {name} {tag}'] = t
-                if dt == 'bf16' and name in ('dq', 'u', 'w'):
+                if dt == 'bf16':
                     relative.append(f'favor_bwd {name} {tag}')
             times[f'favor_bwd_a {tag}'] = time_ms(
                 lambda: la._favor_bwd_a_cuda(q, k, v, g, omega, part))
             times[f'favor_bwd_b {tag}'] = time_ms(
                 lambda: la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part))
             if dt == 'bf16':
-                # #10 on the same values, heads-last [B, L, H * Dh]
-                hq, hk, hv, hg = (la._merge_heads(t, B) for t in (q, k, v, g))
+                # #10 and #11 on the same values, heads-last [B, L, H * Dh]
+                hq, hk, hv, hg, hu = (la._merge_heads(t, B) for t in (q, k, v, g, u_in))
                 hpart = la._favor_kmax_hl_cuda(hk, omega, N_HEAD)
-                for name, t in zip(('dq', 'u', 'w'), la._favor_bwd_a_hl_cuda(
-                        hq, hk, hv, hg, omega, hpart, N_HEAD)):
+                hl_a = la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD)
+                hl_b = la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, hpart, N_HEAD)
+                for name, t in zip(('dq', 'u', 'w', 'dk', 'dv'), hl_a + hl_b):
                     outs[f'favor_bwd_hl {name} {tag}'] = t
                     relative.append(f'favor_bwd_hl {name} {tag}')
                 times[f'favor_bwd_a_hl {tag}'] = time_ms(
                     lambda: la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD))
+                times[f'favor_bwd_b_hl {tag}'] = time_ms(
+                    lambda: la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, hpart,
+                                                    N_HEAD))
     return relative
 
 

@@ -1,12 +1,14 @@
-"""The wrappers of kernels #12, #13 and pass A (#3, #10) refuse what
-their kernels do not take, before anything is built or launched.
+"""The wrappers of kernels #12, #13 and the FAVOR+ backward passes A (#3,
+#10) and B (#4, #11) refuse what their kernels do not take, before
+anything is built or launched.
 
-``_flash_attention_cuda``, ``_decode_layer_cuda``, ``_favor_bwd_a_cuda``
-and ``_favor_bwd_a_hl_cuda`` refuse CPU tensors (the public entry points
-would run the plain versions there); then each checks its inputs with a
-function (``_check_inputs``, ``_check_bwd_a_inputs``,
-``_check_bwd_a_hl_inputs``) that is called here on CPU tensors so that
-each bad dtype, shape or layout raises its own error.
+``_flash_attention_cuda``, ``_decode_layer_cuda`` and the backward passes'
+``_favor_bwd_{a,b}_cuda`` and ``_favor_bwd_{a,b}_hl_cuda`` refuse CPU
+tensors (the public entry points would run the plain versions there); then
+each checks its inputs with a function (``_check_inputs``,
+``_check_bwd_{a,b}_inputs``, ``_check_bwd_{a,b}_hl_inputs``) that is
+called here on CPU tensors so that each bad dtype, shape or layout raises
+its own error.
 ``_build.library`` is replaced by a stub that fails the test, so none of
 these reaches nvcc or a launch."""
 
@@ -185,13 +187,78 @@ def test_favor_bwd_a_widths_in_f32(layout):
 
 @pytest.mark.parametrize('tile, ok', [(4, True), (16, False)])
 def test_check_bwd_shapes_width_rule(tile, ok):
-    """``_check_bwd_shapes`` takes Dh = Dv = 40 at pass B's multiple of 4
-    and refuses it at pass A's bf16 multiple of 16, naming the rule."""
+    """``_check_bwd_shapes`` takes Dh = Dv = 40 at the f32 multiple of 4
+    and refuses it at the bf16 multiple of 16 of both passes, naming the
+    rule."""
     q, k, v, _, omega, part = _pass_a('head-major', Dh=40, Dv=40)
-    if ok:
-        assert la._check_bwd_shapes('favor_bwd_b', q, k, v, omega, part, tile) == (
-            4, 80, 40, 40, 32)
-    else:
-        with pytest.raises(ValueError, match='favor_bwd_a: Dh=40, Dv=40 and M=32 '
-                                             'must be multiples of 16 under bf16'):
-            la._check_bwd_shapes('favor_bwd_a', q, k, v, omega, part, tile)
+    for name in ('favor_bwd_a', 'favor_bwd_b'):
+        if ok:
+            assert la._check_bwd_shapes(name, q, k, v, omega, part, tile) == (
+                4, 80, 40, 40, 32)
+        else:
+            with pytest.raises(ValueError, match=f'{name}: Dh=40, Dv=40 and M=32 '
+                                                 'must be multiples of 16 under bf16'):
+                la._check_bwd_shapes(name, q, k, v, omega, part, tile)
+
+
+def _pass_b(layout, **kw):
+    """Pass B's inputs: q, k, v, u, w, omega, partial, with u of v's shape
+    and w [B*H, L] in q's dtype."""
+    q, k, v, u, omega, part = _pass_a(layout, **kw)
+    w = torch.randn(part.shape[0], q.shape[1],
+                    generator=torch.Generator().manual_seed(3)).to(q.dtype)
+    return q, k, v, u, w, omega, part
+
+
+def _misaligned_u(layout):
+    """bf16 inputs whose u starts one element past a 16-byte boundary."""
+    q, k, v, u, w, omega, part = _pass_b(layout, dtype=torch.bfloat16)
+    shifted = torch.empty(u.numel() + 1, dtype=u.dtype)[1:].view(u.shape)
+    shifted.copy_(u)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return q, k, v, shifted, w, omega, part
+
+
+def _bwd_b_cases(layout):
+    q, k, v, u, w, omega, part = args = _pass_b(layout)
+    return {
+        'cpu': (args, 'CUDA tensors'),
+        'dtype of u': ((q, k, v, u.to(torch.bfloat16), w, omega, part), 'u has dtype'),
+        'dtype of w': ((q, k, v, u, w.double(), omega, part), 'w has dtype'),
+        'w of another shape': ((q, k, v, u, w[:, :-1].contiguous(), omega, part),
+                               r'w \('),
+        'head width under bf16': (_pass_b(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
+                                  'multiples of 16 under bf16'),
+        'features under bf16': (_pass_b(layout, M=40, dtype=torch.bfloat16),
+                                'multiples of 16 under bf16'),
+        'misaligned u under bf16': (_misaligned_u(layout), 'bf16 u must start on a '
+                                                           '16-byte boundary'),
+    }
+
+
+def _check_bwd_b(layout, *args):
+    if layout == 'heads-last':
+        return la._check_bwd_b_hl_inputs(*args, 2)
+    return la._check_bwd_b_inputs(*args)
+
+
+@pytest.mark.parametrize('case', sorted(_bwd_b_cases('head-major')))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_b_refuses(layout, case):
+    args, match = _bwd_b_cases(layout)[case]
+    with pytest.raises(ValueError, match=match):
+        if case != 'cpu':
+            _check_bwd_b(layout, *args)
+        elif layout == 'heads-last':
+            la._favor_bwd_b_hl_cuda(*args, 2)
+        else:
+            la._favor_bwd_b_cuda(*args)
+
+
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_b_widths_in_f32(layout):
+    """f32 keeps the multiple of 4 that bf16 refuses; bf16 takes the
+    multiple of 16 on aligned inputs."""
+    dims = _check_bwd_b(layout, *_pass_b(layout, Dh=40, Dv=40, M=36))
+    assert dims == ((4, 80, 40, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
+    assert _check_bwd_b(layout, *_pass_b(layout, dtype=torch.bfloat16))[-1] == 32

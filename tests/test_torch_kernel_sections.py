@@ -1,17 +1,30 @@
-"""``kernel_sections.py`` instruments pass A's bf16 chunk loop and nothing
-else: the copy it builds on the card stamps each section of the loop, and
-pass B and the entry points are left as they are.  On the CPU only the
-source is made; nothing is built."""
+"""``kernel_sections.py`` instruments the bf16 chunk loops of both backward
+passes and nothing else: the copy it builds on the card stamps each
+section of pass A's and pass B's loop, every added statement runs only
+under bf16 (``TC``), and the f32 path and the entry points are left as they
+are.  On the CPU only the source is made; nothing is built."""
 
 import re
 
 import kernel_sections as ks
 
+START = 'template <class T, bool HL>\n__global__ void '
+
+
+def _kernel(text, name):
+    """The source of kernel ``name``, up to the next template."""
+    k0 = text.index(START + name)
+    return text[k0:text.index('\ntemplate <', k0 + len(START))]
+
+
+def _stamps(text):
+    return [int(i) for i in re.findall(r'sec_\[(\d+)\] \+=', text)]
+
 
 def test_instrument_stamps_each_section_of_pass_a():
     src, ends = ks.instrument()
-    stamps = re.findall(r'sec_\[(\d+)\] \+=', src)
-    assert [int(i) for i in stamps] == list(range(len(ends)))
+    ends = ends['favor_bwd_a']
+    assert _stamps(_kernel(src, 'favor_bwd_a_kernel')) == list(range(len(ends)))
     assert 10 <= len(ends) <= ks.SLOTS
     for call in ('features_tc<false>', 'features_tc<true>', 'chain_rule_tc('):
         assert sum(call in end for end in ends) == 1, call
@@ -19,10 +32,35 @@ def test_instrument_stamps_each_section_of_pass_a():
     assert 'int read_sections(void* dst)' in src
 
 
-def test_instrument_leaves_pass_b_alone():
+def test_instrument_stamps_each_section_of_pass_b():
+    src, ends = ks.instrument()
+    ends = ends['favor_bwd_b']
+    body = _kernel(src, 'favor_bwd_b_kernel')
+    assert _stamps(body) == list(range(len(ends)))
+    assert 10 <= len(ends) <= ks.SLOTS
+    for call in ('features_tc<true>', 'features_tc<false>', 'chain_rule_tc('):
+        assert sum(call in end for end in ends) == 1, call
+    assert 'g_sections[1][blockIdx.x][i] = sec_[i]' in body
+    assert 'g_sections[0]' in _kernel(src, 'favor_bwd_a_kernel')
+    # each section's line number names the line of the repository's source
+    lines = (ks.CSRC / 'favor_bwd.cu').read_text().split('\n')
+    for end in ends:
+        no, text = re.match(r'favor_bwd\.cu:(\d+) (.{1,24}) \(', end).groups()
+        assert lines[int(no) - 1].strip().startswith(text), end
+
+
+def test_instrument_leaves_f32_path_and_entry_points_alone():
+    """Without the lines it adds, the copy is the original: the f32 path
+    and the extern "C" entry points are as they were, and every added
+    statement in a kernel runs only under ``TC``, the bf16 instantiation."""
     original = (ks.CSRC / 'favor_bwd.cu').read_text()
     src, _ = ks.instrument()
-    start = 'template <class T, bool HL>\n__global__ void favor_bwd_b_kernel'
-    body = lambda text: text[text.index(start):text.index('extern "C" {')]
-    assert body(src) == body(original)
-    assert 'sec_' not in body(src)
+    added = [l for l in src.split('\n') if 'sec_' in l or 'g_sections' in l]
+    assert added and all('TC' in l for l in added if 'sec_' in l)
+    read = ('int read_sections(void* dst) {\n  return (int)cudaMemcpyFromSymbol(dst, '
+            'g_sections, sizeof(g_sections));\n}\n')
+    assert src.count(read) == 1
+    kept = '\n'.join(l for l in src.replace(read, '').split('\n') if l not in added)
+    assert kept == original
+    entry = lambda text: text[text.index('extern "C" {'):]
+    assert entry(src).replace(read, '') == entry(original)
