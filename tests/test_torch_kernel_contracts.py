@@ -145,17 +145,19 @@ def _bwd_a_cases(layout):
                                   'multiples of 16 under bf16'),
         'features under bf16': (_pass_a(layout, M=40, dtype=torch.bfloat16),
                                 'multiples of 16 under bf16'),
-        'misaligned under bf16': (_misaligned_v(layout), '16-byte boundary'),
+        'misaligned under bf16': (_misaligned(_pass_a(layout, dtype=torch.bfloat16), 2),
+                                  '16-byte boundary'),
     }
 
 
-def _misaligned_v(layout):
-    """bf16 inputs whose v starts one element past a 16-byte boundary."""
-    q, k, v, g, omega, part = _pass_a(layout, dtype=torch.bfloat16)
-    shifted = torch.empty(v.numel() + 1, dtype=v.dtype)[1:].view(v.shape)
-    shifted.copy_(v)
+def _misaligned(args, i):
+    """``args`` with its bf16 tensor ``i`` starting one element past a
+    16-byte boundary."""
+    t = args[i]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    shifted.copy_(t)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
-    return q, k, shifted, g, omega, part
+    return args[:i] + (shifted,) + args[i + 1:]
 
 
 def _check_bwd_a(layout, *args):
@@ -210,15 +212,6 @@ def _pass_b(layout, **kw):
     return q, k, v, u, w, omega, part
 
 
-def _misaligned_u(layout):
-    """bf16 inputs whose u starts one element past a 16-byte boundary."""
-    q, k, v, u, w, omega, part = _pass_b(layout, dtype=torch.bfloat16)
-    shifted = torch.empty(u.numel() + 1, dtype=u.dtype)[1:].view(u.shape)
-    shifted.copy_(u)
-    assert shifted.is_contiguous() and shifted.data_ptr() % 16
-    return q, k, v, shifted, w, omega, part
-
-
 def _bwd_b_cases(layout):
     q, k, v, u, w, omega, part = args = _pass_b(layout)
     return {
@@ -231,8 +224,8 @@ def _bwd_b_cases(layout):
                                   'multiples of 16 under bf16'),
         'features under bf16': (_pass_b(layout, M=40, dtype=torch.bfloat16),
                                 'multiples of 16 under bf16'),
-        'misaligned u under bf16': (_misaligned_u(layout), 'bf16 u must start on a '
-                                                           '16-byte boundary'),
+        'misaligned u under bf16': (_misaligned(_pass_b(layout, dtype=torch.bfloat16), 3),
+                                    'bf16 u must start on a 16-byte boundary'),
     }
 
 
