@@ -125,6 +125,17 @@ SCALAR_PASS_B = {'favor_bwd_b': 5.7647, 'favor_bwd_b_hl': 5.5428,
                  'step head-major': 68.81, 'step heads-last': 66.03,
                  'wall head-major': 212.4, 'wall heads-last': 208.4,
                  'bf16 err': 8.3e-3}
+# the forward (#2, #9) while all its products ran as 4x4 f32 register
+# tiles, read by this script on the same card and limit (after pass B's
+# redesign): ms at B=2 L=1024 and B=16 L=2048 (phase 6), at B=16 L=3072
+# bf16 (6h), ms a bf16 train step (7b, 7h), the step's wall (8b, 8h-b) and
+# the largest bf16 error against the plain forward (2); printed beside
+# today's readings
+SCALAR_FWD = {'favor_fwd B=2 L=1024': 1.0261, 'favor_fwd B=16 L=2048': 2.3874,
+              'favor_fwd B=16 L=3072': 3.6011, 'favor_fwd_hl B=16 L=3072': 3.9511,
+              'step head-major': 42.20, 'step heads-last': 46.81,
+              'wall head-major': 172.4, 'wall heads-last': 168.4,
+              'bf16 err': 5.04e-3}
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -251,12 +262,19 @@ def bwd_products(BH, L, M, Dv, pass_a):
     return BH * L * (6 * M * Dv + vec)
 
 
-def fwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk):
+def fwd_bound(BH, L, Dh, Dv, M, in_bytes, chunk, feat_rate=F32_FLOP_PER_S,
+              feat_passes=1):
+    """The forward: q, k, v and the key maxima read, out written.  Both
+    feature maps' f32 products count at ``feat_rate``, ``feat_passes`` times
+    over, as in :func:`bwd_bound` (``TF32_FLOP_PER_S, 3``: 3xTF32, as the
+    bf16 instantiation runs them); the causal products at the inputs'
+    rate."""
     nbytes = (BH * L * (2 * Dh + 2 * Dv) * in_bytes + Dh * M * 4
               + BH * -(-L // chunk) * 4)
     feat = 2 * 2 * BH * L * Dh * (M + 1)                    # phi_q, phi_k: f32
     rate = BF16_FLOP_PER_S if in_bytes == 2 else F32_FLOP_PER_S
-    return bound(nbytes, feat / F32_FLOP_PER_S + fwd_products(BH, L, M, Dv) / rate)
+    return bound(nbytes, feat_passes * feat / feat_rate
+                 + fwd_products(BH, L, M, Dv) / rate)
 
 
 def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a,
@@ -504,8 +522,10 @@ def phase_kernel_a(dev, rec):
         torch.cuda.synchronize()
         e_m, e_o = rel_err(got_m, ref_m), rel_err(got, ref)
         name = str(dtype).replace('torch.', '')
+        was = ('' if dtype == torch.float32 else
+               f'; on 4x4 f32 tiles out <= {SCALAR_FWD["bf16 err"]:.2e}')
         print(f'phase 2 kernel A {name} B={B} H={N_HEAD} L={L}: '
-              f'kmax rel err {e_m:.2e}, out rel err {e_o:.2e} (tol {tol})')
+              f'kmax rel err {e_m:.2e}, out rel err {e_o:.2e} (tol {tol}{was})')
         expect(got.dtype == dtype and got.shape == ref.shape,
                'favor_fwd output dtype/shape')
         expect(e_m <= tol and e_o <= tol, f'kernel A {name} B={B} L={L}')
@@ -1015,7 +1035,8 @@ def phase_train(dev, smi, heads_last=False):
           f'peak {gib():.2f} GiB, losses {[round(x, 5) for x in losses]}, '
           f'launches per step {per_step}; with pass A on 4x4 f32 tiles '
           f'{SCALAR_PASS_A["wall " + layout]:.1f} ms a step, with pass B on them '
-          f'{SCALAR_PASS_B["wall " + layout]:.1f}')
+          f'{SCALAR_PASS_B["wall " + layout]:.1f}, with the forward on them '
+          f'{SCALAR_FWD["wall " + layout]:.1f}')
     expect(all(np.isfinite(losses)), 'bf16 losses finite')
     expect(all(p.dtype == torch.float32 for p in model.parameters()),
            'master weights stay f32')
@@ -1170,6 +1191,15 @@ def phase_composed(dev):
     return launches
 
 
+def fwd_beside(name, t, b, BH, L):
+    """The forward's 3xTF32 bound share, its f32 bound and the 4x4 design's
+    reading at this shape, for phases 6 and 6h."""
+    from emo_disentanger_tpu_torch.ops.linear_attention import KERNEL_CHUNK
+    b_f32 = fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, KERNEL_CHUNK)[0]
+    return (f' in 3xTF32 ({b / t:.3f} of it), {b_f32:.4f} with the omega products '
+            f'in f32 on the CUDA cores; on 4x4 f32 tiles {SCALAR_FWD[name]:.4f}')
+
+
 def phase_timing(dev, rec, smi):
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
@@ -1186,10 +1216,14 @@ def phase_timing(dev, rec, smi):
         p_k = time_ms(lambda: la._key_max_plain(k2, omega))
         p_f = time_ms(lambda: la._favor_compose(q, k, v, omega), iters=5)
         b_k, by_k = kmax_bound(BH, L, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK)
-        b_f, by_f = fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK)
+        # the forward's bound counts its omega products in 3xTF32, as it
+        # runs them; the f32 figure (CUDA cores) is printed beside it
+        b_f, by_f = fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK,
+                              TF32_FLOP_PER_S, 3)
         print(f'phase 6 kernel A bf16 B={B} L={L} [{smi}]: favor_kmax '
               f'{t_k:.4f} ms (plain {p_k:.4f}, bound {b_k:.4f} {by_k}); '
-              f'favor_fwd {t_f:.4f} ms (plain {p_f:.4f}, bound {b_f:.4f} {by_f})')
+              f'favor_fwd {t_f:.4f} ms (plain {p_f:.4f}, bound {b_f:.4f} {by_f}'
+              f'{fwd_beside(f"favor_fwd B={B} L={L}", t_f, b_f, BH, L)})')
         if B == ENTRY_B:
             rec['favor_kmax'].update(ms=t_k, plain_ms=p_k, bound_ms=b_k, bound_by=by_k)
             rec['favor_fwd'].update(ms=t_f, plain_ms=p_f, bound_ms=b_f, bound_by=by_f)
@@ -1289,7 +1323,7 @@ def phase_timing(dev, rec, smi):
         'favor_fwd_hl': (
             time_ms(lambda: la._favor_fwd_hl_cuda(q, k, v, omega, hpart, H), iters=5),
             time_ms(lambda: la._hl_compose(q, k, v, omega, H), iters=2, warmup=1),
-            fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, C)),
+            fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, C, TF32_FLOP_PER_S, 3)),
         'favor_bwd_a_hl': (
             time_ms(lambda: la._favor_bwd_a_hl_cuda(q, k, v, g, omega, hpart, H),
                     iters=5, warmup=1),
@@ -1306,11 +1340,14 @@ def phase_timing(dev, rec, smi):
             b_b),
     }
     for name, (t, p, (b, by)) in hl.items():
+        more = (fwd_beside(f'{name} B={B} L={L}', t, b, BH, L) if name == 'favor_fwd_hl'
+                else beside(name, t, b))
         print(f'phase 6h kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
-              f'(plain {p:.4f}, bound {b:.4f} {by}{beside(name, t, b)})')
+              f'(plain {p:.4f}, bound {b:.4f} {by}{more})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
     print(f'phase 6h head-major at the same shape [{smi}]: favor_kmax '
-          f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms, favor_bwd_a '
+          f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms (on 4x4 f32 tiles '
+          f'{SCALAR_FWD[f"favor_fwd B={B} L={L}"]:.4f}), favor_bwd_a '
           f'{times["favor_bwd_a"][0]:.4f} ms, favor_bwd_b {times["favor_bwd_b"][0]:.4f} ms')
 
 
@@ -1459,9 +1496,12 @@ def phase_profile_train(step, batch, extras, wall_ms, smi, label='phase 7b',
           f'wall {wall_ms:.1f} ms/step, device busy {busy:.1f} ms/step (idle '
           f'share {1 - busy / wall_ms:.3f}); copy kernels {copy_ms(prof, 2):.2f} '
           f'ms/step; device ms/step by kernel: {top}')
+    hl = '' if layout == 'head-major' else '_hl'
+    print(f'{label} favor_fwd{hl} {kernel_ms(prof, 2, "favor_fwd_kernel"):.2f} ms/step, '
+          f'wall {wall_ms:.1f} ms/step; with the forward on 4x4 f32 tiles '
+          f'{SCALAR_FWD["step " + layout]:.2f} and {SCALAR_FWD["wall " + layout]:.1f}')
     for p, scalar in (('a', SCALAR_PASS_A), ('b', SCALAR_PASS_B)):
-        name = f'favor_bwd_{p}' + ('' if layout == 'head-major' else '_hl')
-        print(f'{label} {name} {kernel_ms(prof, 2, f"favor_bwd_{p}_kernel"):.2f} '
+        print(f'{label} favor_bwd_{p}{hl} {kernel_ms(prof, 2, f"favor_bwd_{p}_kernel"):.2f} '
               f'ms/step, wall {wall_ms:.1f} ms/step; with pass {p.upper()} on 4x4 f32 '
               f'tiles {scalar["step " + layout]:.2f} and {scalar["wall " + layout]:.1f}')
 

@@ -53,38 +53,24 @@
 // passes run on the tensor cores (below).  No TMA or pipelining yet, and
 // one block per row leaves SMs idle below B*H = 132.
 //
-// Both passes under bf16 (tc_mma): the five products of each pass whose
-// operands the TPU rounds to bf16 run as mma.sync.m16n8k16 bf16 with f32
-// accumulation, which is exactly what the TPU's bf16 dot with f32
-// accumulation computes.  Pass A's are the scores phi_q phi_k^T, the
-// numerator sc v + phi_q S, the a matrix u v^T, dphi_q = a phi_k + u S^T
-// and the state update S += phi_k^T v; pass B's the scores, dv = p^T u +
-// phi_k R, the a matrix, dphi_k = a^T phi_q + v R^T and the state update
-// R += phi_q^T u.  A pass's 200-217 KB of shared memory allow one block an
-// SM, and B*H = 128 rows already take 128 of the 132 SMs, so more blocks
-// per row cannot help: the lever is the work inside the SM.  Each warp
-// builds its fragments from the f32 tiles with scalar shared loads,
-// rounding two values into one register (__floats2bfloat162_rn, round to
-// nearest even, as rnd<T>).  The K slots of a 16-wide step are permuted
-// (the product does not depend on the order of K, only on A and B
-// agreeing): lane t takes the four consecutive k = k0 + 8t + 4s + {0..3}
-// in step s of each 32-wide pair (of a 16-wide tail, k0 + 4t + {0..3}).
-// Every tile has a row stride of 1 mod 32 (the +1 padding), so the 32
-// lanes (g = lane/4, t) of a load hit the banks g + 8t + const:
-// conflict-free, where the usual (2t, 2t+1) slots would meet 4-way.  The
-// same holds for an operand read transposed, as pass B's p^T and a^T read
-// sc[i][j] with k = i: each step of k moves CP = 65 = 1 mod 32 banks.  The
-// 8 warps share each product's 16 x 16 output groups (two 16x8 tiles, one
-// A fragment); the causal products skip the groups above the diagonal and
-// run K only to the group's last row, and pass B's suffix products start K
-// at the group's first row j0 (tc_mma on pointers offset by j0 rows, K = C
-// - j0), the masked zeros of sc covering i < j inside the diagonal group.
-// The epilogues are elementwise on the accumulators.  The omega products
-// (the two feature maps and the chain rule), which the TPU keeps in f32,
-// run in 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32: each f32 operand split
-// into two TF32 parts, three products), f32-accurate to ~1e-6.  The q, k,
-// v and g (pass B: u) rows come in by 16-byte loads, four in flight a
-// thread.  The denominator and ||x||^2 are a warp a row, the z and r
+// Both passes under bf16 run on the tensor cores with the helpers of
+// favor_tc.cuh (its note has the fragments and the bank map): the five
+// products of each pass whose operands the TPU rounds to bf16 on tc_mma,
+// the omega products (the two feature maps and the chain rule) in 3xTF32
+// on tc_mma_f32.  Pass A's are the scores phi_q phi_k^T, the numerator
+// sc v + phi_q S, the a matrix u v^T, dphi_q = a phi_k + u S^T and the
+// state update S += phi_k^T v; pass B's the scores, dv = p^T u + phi_k R,
+// the a matrix, dphi_k = a^T phi_q + v R^T and the state update R +=
+// phi_q^T u.  A pass's 200-217 KB of shared memory allow one block an SM,
+// and B*H = 128 rows already take 128 of the 132 SMs, so more blocks per
+// row cannot help: the lever is the work inside the SM.  The causal
+// products skip the groups above the diagonal and run K only to the
+// group's last row, and pass B's suffix products start K at the group's
+// first row j0 (tc_mma on pointers offset by j0 rows, K = C - j0), the
+// masked zeros of sc covering i < j inside the diagonal group; pass B's
+// p^T and a^T read sc[i][j] with k = i, each step of k moving CP = 65 = 1
+// mod 32 banks.  The q, k, v and g (pass B: u) rows come in by 16-byte
+// loads.  The denominator and ||x||^2 are a warp a row, the z and r
 // updates four lanes a feature.  The f32 instantiations keep the mma4x4
 // path, bit for bit.
 //
@@ -95,11 +81,10 @@
 // omega's product, w and r stay f32.  u and w are stored
 // in bf16 (the TPU's bf16 uw residual), and pass B reads them back rounded.
 
-#include <stdint.h>
-
 #include <type_traits>
 
 #include "favor_common.cuh"
+#include "favor_tc.cuh"
 
 namespace {
 
@@ -207,182 +192,6 @@ __device__ void chain_rule(T* dx, const float* t, const float* xs, const float* 
   }
 }
 
-// omega [Dh][M] -> shared [Dh][M+1]; the state and its vector to zero; returns
-// the row's key stabilizer, the max of favor_kmax's partial maxima.
-__device__ float setup(float* om, const float* omega, float* state, float* vec,
-                       const float* partial, int Dh, int Dv, int M, int np) {
-  for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) {
-    const int d = i / M, m = i - d * M;
-    om[d * (M + 1) + m] = omega[i];
-  }
-  for (int i = threadIdx.x; i < M * (Dv + 1); i += blockDim.x) state[i] = 0.f;
-  for (int i = threadIdx.x; i < M; i += blockDim.x) vec[i] = 0.f;
-  float kmax = -INFINITY;
-  for (int c = 0; c < np; ++c) kmax = fmaxf(kmax, partial[(size_t)blockIdx.x * np + c]);
-  __syncthreads();
-  return kmax;
-}
-
-// two f32 values -> one register of two bf16 (lo in the low half), rounded
-// to nearest even as rnd<__nv_bfloat16> rounds
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// d (16x8 f32) += a (16x16 bf16) b (16x8 bf16)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp: acc[nt] (the 16x8 tile at rows i0.., columns j0 + 8 nt..) +=
-// sum_{k<K} A(i, k) B(k, j), operands rounded to bf16, with A(i, k) =
-// A[i*ai + k*ak] and B(k, j) = B[k*bk + j*bj] f32 in shared memory; K a
-// multiple of 16.  Fragments as the PTX ISA's m16n8k16 figures (g = lane/4,
-// t = lane%4): A regs (g, s0 s1), (g+8, s0 s1), (g, s2 s3), (g+8, s2 s3),
-// B regs (s0 s1, n = g), (s2 s3, n = g), C (g, 2t 2t+1), (g+8, 2t 2t+1),
-// with the K slots s0..s3 of lane t at k = kk..kk+3 (see the note above).
-template <int NT>
-__device__ __forceinline__ void tc_mma(float (*acc)[4], const float* A, int ai, int ak, int i0,
-                                       const float* B, int bk, int bj, int j0, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a0 = A + (i0 + g) * ai;
-  const float* a1 = a0 + 8 * ai;
-  const float* b0 = B + (j0 + g) * bj;
-  auto step = [&](int kk) {
-    const float* x0 = a0 + kk * ak;
-    const float* x1 = a1 + kk * ak;
-    const uint32_t a[4] = {pack_bf16(x0[0], x0[ak]), pack_bf16(x1[0], x1[ak]),
-                           pack_bf16(x0[2 * ak], x0[3 * ak]),
-                           pack_bf16(x1[2 * ak], x1[3 * ak])};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* y = b0 + nt * 8 * bj + kk * bk;
-      const uint32_t b[2] = {pack_bf16(y[0], y[bk]), pack_bf16(y[2 * bk], y[3 * bk])};
-      mma_bf16(acc[nt], a, b);
-    }
-  };
-  int k0 = 0;
-  for (; k0 + 32 <= K; k0 += 32) {
-    step(k0 + 8 * t);
-    step(k0 + 8 * t + 4);
-  }
-  if (k0 < K) step(k0 + 4 * t);
-}
-
-// f(i, j, value) for each accumulator of tc_mma<NT>'s tiles at (i0, j0)
-template <int NT, class F>
-__device__ __forceinline__ void tc_each(float (*acc)[4], int i0, int j0, F f) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      f(i0 + g + 8 * (r >> 1), j0 + 8 * nt + 2 * t + (r & 1), acc[nt][r]);
-}
-
-// The block's warps share the R x N output of a product as (R/16) x (N/16)
-// groups of two 16x8 tiles; body(acc, i0, j0) for each group of this warp,
-// acc zeroed.  R and N multiples of 16.
-template <class F>
-__device__ __forceinline__ void tc_groups(int R, int N, F body) {
-  const int ng = N / 16, nwarp = blockDim.x >> 5;
-  for (int grp = threadIdx.x >> 5; grp < (R / 16) * ng; grp += nwarp) {
-    float acc[2][4] = {};
-    body(acc, (grp / ng) * 16, (grp % ng) * 16);
-  }
-}
-
-// x -> TF32 hi, x truncated to TF32's 10 mantissa bits (one logic op), and
-// the rest x - hi (exact in f32) rounded to TF32 as lo: hi + lo is x to
-// ~2^-21 relative.  One conversion a value, where rounding hi too took two
-// and cost pass A 6% (kernel_sections.py).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// d (16x8 f32) += a (16x8 tf32) b (8x8 tf32)
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// tc_mma's product in f32 accuracy, for the omega products: 3xTF32 on
-// mma.sync.m16n8k8, each operand split into TF32 hi and lo, and lo hi +
-// hi lo + hi hi accumulated in f32 (lo lo, ~2^-20 relative, dropped), as
-// flash_attn_fwd.cu does.  Fragments as the PTX ISA's m16n8k8 .tf32
-// figures: A regs (g, s0), (g+8, s0), (g, s1), (g+8, s1), B regs (s0, n = g),
-// (s1, n = g); lane t's K slots s0, s1 at k = kk, kk+1, with kk = k0 + 8t + 2s
-// in step s of each 32-wide run (conflict-free, as in tc_mma), k0 + 4t and
-// k0 + 4t + 2 in a 16-wide tail.  K a multiple of 16.
-template <int NT>
-__device__ __forceinline__ void tc_mma_f32(float (*acc)[4], const float* A, int ai, int ak,
-                                           int i0, const float* B, int bk, int bj, int j0,
-                                           int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a0 = A + (i0 + g) * ai;
-  const float* a1 = a0 + 8 * ai;
-  const float* b0 = B + (j0 + g) * bj;
-  auto step = [&](int kk) {
-    uint32_t ah[4], al[4];
-    split_tf32(a0[kk * ak], ah[0], al[0]);
-    split_tf32(a1[kk * ak], ah[1], al[1]);
-    split_tf32(a0[(kk + 1) * ak], ah[2], al[2]);
-    split_tf32(a1[(kk + 1) * ak], ah[3], al[3]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* y = b0 + nt * 8 * bj + kk * bk;
-      uint32_t bh[2], bl[2];
-      split_tf32(y[0], bh[0], bl[0]);
-      split_tf32(y[bk], bh[1], bl[1]);
-      mma_tf32(acc[nt], al, bh);
-      mma_tf32(acc[nt], ah, bl);
-      mma_tf32(acc[nt], ah, bh);
-    }
-  };
-  int k0 = 0;
-  for (; k0 + 32 <= K; k0 += 32)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) step(k0 + 8 * t + 2 * s);
-  for (; k0 < K; k0 += 16) {
-    step(k0 + 4 * t);
-    step(k0 + 4 * t + 2);
-  }
-}
-
-// features' function for the bf16 instantiations, its h = xs . omega in
-// 3xTF32 (tc_mma_f32).  Ends with __syncthreads().
-template <bool QUERY>
-__device__ void features_tc(float* phi, const float* xs, const float* sq, const float* om, int n,
-                            int Dh, int M, float kmax, float rsqm) {
-  const int MP = M + 1;
-  tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
-    tc_mma_f32<2>(acc, xs, Dh + 1, 1, i0, om, MP, 1, j0, Dh);
-    tc_each<2>(acc, i0, j0, [&](int i, int m, float x) {
-      const float h = x - sq[i];
-      phi[i * MP + m] = QUERY ? h : (i < n ? expf(h - kmax) * rsqm : 0.f);
-    });
-  });
-  __syncthreads();
-  if (QUERY) {
-    const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
-    for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
-      float mx = -INFINITY;
-      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, phi[i * MP + m]);
-      mx = warp_max(mx);
-      for (int m = lane; m < M; m += 32)
-        phi[i * MP + m] = i < n ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
-    }
-    __syncthreads();
-  }
-}
-
 // chain_rule's function for the bf16 instantiations, t . omega^T in
 // 3xTF32 (tc_mma_f32)
 __device__ void chain_rule_tc(__nv_bfloat16* dx, const float* t, const float* xs,
@@ -402,52 +211,6 @@ __device__ void chain_rule_tc(__nv_bfloat16* dx, const float* t, const float* xs
       if (i < n) dx[(size_t)i * ld + d] = __float2bfloat16(scale * (x - rs[i] * xs[i * XP + d]));
     });
   });
-}
-
-// dst[i][d] = src[i * ld + d] * mul for rows i < n, 0 for the ragged tail:
-// C rows of D bf16 values (D a multiple of 8, src 16-byte aligned, as the
-// wrappers check) into f32 rows D + 1 apart.  16-byte loads, four of them
-// in flight a thread before any is stored.
-__device__ __forceinline__ void load_rows_tc(float* dst, const __nv_bfloat16* src, int n, int D,
-                                             int ld, float mul) {
-  constexpr int U = 4;
-  const int V = D / 8;
-  for (int base = threadIdx.x; base < C * V; base += U * blockDim.x) {
-    uint4 raw[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int idx = base + u * blockDim.x, i = idx / V;
-      raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < C * V && i < n)
-        raw[u] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)i * ld + (idx - i * V) * 8));
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int idx = base + u * blockDim.x, i = idx / V;
-      if (idx < C * V) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
-        float* p = dst + i * (D + 1) + (idx - i * V) * 8;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h[e]);
-          p[2 * e] = f.x * mul;
-          p[2 * e + 1] = f.y * mul;
-        }
-      }
-    }
-  }
-}
-
-// sq[i] = ||xs_i||^2 / 2, a warp a row (xs [C][D+1]); ends with __syncthreads()
-__device__ __forceinline__ void row_sq_tc(float* sq, const float* xs, int D) {
-  const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s = fmaf(xs[i * (D + 1) + d], xs[i * (D + 1) + d], s);
-    s = warp_sum(s);
-    if (lane == 0) sq[i] = 0.5f * s;
-  }
-  __syncthreads();
 }
 
 template <class T, bool HL>
@@ -642,18 +405,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
         tc_mma<2>(acc, pk, 1, MP, i0, vv, DVP, 1, j0, C);
         tc_each<2>(acc, i0, j0, [&](int m, int d, float x) { S[m * DVP + d] += x; });
       });
-      // four lanes a feature, lane p of them summing the rows j with
-      // (j / 8) % 4 == p: the warp's loads hit 32 distinct banks
-      for (int idx = tid; idx < 4 * M; idx += blockDim.x) {
-        const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
-        float s = 0.f;
-        for (int r = 0; r < C; r += 32)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s += pk[(r + 8 * p + e) * MP + m];
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (p == 0) z[m] += s;
-      }
+      add_col_sums_tc(z, pk, M);
     } else {
       chain_rule<T>(dq + (size_t)r0 * ldx, pq, xs, om, rs, n, Dh, ldx, M, scale);
       for (int t = tid; t < (M / 4) * (Dv / 4); t += blockDim.x) {
@@ -782,7 +534,7 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
         tc_mma<2>(acc, pq, 1, MP, m0, uu, DVP, 1, d0, C);
         tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { R[m * DVP + d] += x; });
       });
-      // four lanes a feature, as pass A's z update
+      // four lanes a feature, as add_col_sums_tc
       for (int idx = tid; idx < 4 * M; idx += blockDim.x) {
         const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
         float s = 0.f;

@@ -409,26 +409,63 @@ def _favor_kmax_cuda(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     return partial
 
 
+def _favor_tile(dtype) -> int:
+    """The multiple the FAVOR+ forward and both backward passes take for
+    Dh, Dv and M: 16 under bf16, whose products run on the tensor cores in
+    16-wide steps (mma m16n8k16), 4 in f32 (4 x 4 register tiles)."""
+    return 16 if dtype == torch.bfloat16 else 4
+
+
+def _width_rule(tile) -> str:
+    return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
+
+
+def _check_aligned(name, tensors) -> None:
+    """Under bf16 the FAVOR+ forward and both backward passes load their
+    rows 16 bytes at a time."""
+    for n, t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
+                             f'boundary (got an offset of {t.data_ptr() % 16})')
+
+
+def _check_favor_shapes(name, q2, k2, v2, omega, partial, tile=4):
+    BH, L, Dh = q2.shape
+    Dv, M = v2.shape[2], omega.shape[1]
+    if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
+            or omega.shape[0] != Dh or partial.shape[0] != BH):
+        raise ValueError(f'{name}: mismatched shapes q {tuple(q2.shape)} k '
+                         f'{tuple(k2.shape)} v {tuple(v2.shape)} omega '
+                         f'{tuple(omega.shape)} partial {tuple(partial.shape)}')
+    if M % tile or Dv % tile or Dh % tile:
+        raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must be '
+                         f'{_width_rule(tile)}')
+    return BH, L, Dh, Dv, M
+
+
+def _check_fwd_inputs(q2, k2, v2, omega, partial):
+    """Raise unless ``favor_fwd`` takes these, on q's device; (BH, L, Dh,
+    Dv, M)."""
+    dev = q2.device
+    _check_tensor('q', q2, (torch.float32, torch.bfloat16), 3, dev)
+    for name, t in (('k', k2), ('v', v2)):
+        _check_tensor(name, t, (q2.dtype,), 3, dev)
+    _check_tensor('omega', omega, (torch.float32,), 2, dev)
+    _check_tensor('partial', partial, (torch.float32,), 2, dev)
+    BH, L, Dh, Dv, M = dims = _check_favor_shapes('favor_fwd', q2, k2, v2, omega,
+                                                  partial, _favor_tile(q2.dtype))
+    if partial.shape[1] != -(-L // KERNEL_CHUNK):
+        raise ValueError(f'favor_fwd: partial {tuple(partial.shape)} for L={L}')
+    _check_aligned('favor_fwd', (('q', q2), ('k', k2), ('v', v2)))
+    return dims
+
+
 def _favor_fwd_cuda(q2, k2, v2, omega, partial, eps=EPS) -> torch.Tensor:
     """Launch ``favor_fwd`` on [BH, L, Dh] q/k, [BH, L, Dv] v and the key
     maxima of :func:`_favor_kmax_cuda`; returns [BH, L, Dv] in q's dtype."""
     dev = q2.device
-    _check_cuda('q', q2, (torch.float32, torch.bfloat16), 3, dev)
-    _check_cuda('k', k2, (q2.dtype,), 3, dev)
-    _check_cuda('v', v2, (q2.dtype,), 3, dev)
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
-    _check_cuda('partial', partial, (torch.float32,), 2, dev)
-    BH, L, Dh = q2.shape
-    Dv = v2.shape[2]
-    M = omega.shape[1]
-    if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
-            or omega.shape[0] != Dh
-            or tuple(partial.shape) != (BH, -(-L // KERNEL_CHUNK))):
-        raise ValueError('favor_fwd: mismatched shapes q {} k {} v {} omega {} '
-                         'partial {}'.format(*(tuple(t.shape) for t in (
-                             q2, k2, v2, omega, partial))))
-    if M % 4 or Dv % 4:
-        raise ValueError(f'favor_fwd: M={M} and Dv={Dv} must be multiples of 4')
+    _require_cuda(dev)
+    BH, L, Dh, Dv, M = _check_fwd_inputs(q2, k2, v2, omega, partial)
     out = torch.empty(BH, L, Dv, dtype=q2.dtype, device=dev)
     lib = _lib()
     err = lib.favor_fwd(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
@@ -464,39 +501,6 @@ def _bwd_lib():
     return _build.library('favor_bwd', _BWD_SIGNATURES)
 
 
-def _bwd_tile(dtype) -> int:
-    """The multiple both backward passes take for Dh, Dv and M: 16 under
-    bf16, whose products run on the tensor cores in 16-wide steps (mma
-    m16n8k16), 4 in f32 (4 x 4 register tiles)."""
-    return 16 if dtype == torch.bfloat16 else 4
-
-
-def _width_rule(tile) -> str:
-    return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
-
-
-def _check_aligned(name, tensors) -> None:
-    """Under bf16 both backward passes load their rows 16 bytes at a time."""
-    for n, t in tensors:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
-                             f'boundary (got an offset of {t.data_ptr() % 16})')
-
-
-def _check_bwd_shapes(name, q2, k2, v2, omega, partial, tile=4):
-    BH, L, Dh = q2.shape
-    Dv, M = v2.shape[2], omega.shape[1]
-    if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
-            or omega.shape[0] != Dh or partial.shape[0] != BH):
-        raise ValueError(f'{name}: mismatched shapes q {tuple(q2.shape)} k '
-                         f'{tuple(k2.shape)} v {tuple(v2.shape)} omega '
-                         f'{tuple(omega.shape)} partial {tuple(partial.shape)}')
-    if M % tile or Dv % tile or Dh % tile:
-        raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must be '
-                         f'{_width_rule(tile)}')
-    return BH, L, Dh, Dv, M
-
-
 def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
     """Raise unless pass A takes these, on q's device; (BH, L, Dh, Dv, M)."""
     dev = q2.device
@@ -505,8 +509,8 @@ def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
         _check_tensor(name, t, (q2.dtype,), 3, dev)
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
-    dims = _check_bwd_shapes('favor_bwd_a', q2, k2, v2, omega, partial,
-                             _bwd_tile(q2.dtype))
+    dims = _check_favor_shapes('favor_bwd_a', q2, k2, v2, omega, partial,
+                               _favor_tile(q2.dtype))
     if g2.shape != v2.shape:
         raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
                          f'{tuple(v2.shape)}')
@@ -546,8 +550,9 @@ def _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial):
     _check_tensor('w', w, (q2.dtype,), 2, dev)
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
-    BH, L, Dh, Dv, M = dims = _check_bwd_shapes('favor_bwd_b', q2, k2, v2, omega,
-                                                partial, _bwd_tile(q2.dtype))
+    BH, L, Dh, Dv, M = dims = _check_favor_shapes('favor_bwd_b', q2, k2, v2,
+                                                  omega, partial,
+                                                  _favor_tile(q2.dtype))
     if u.shape != v2.shape or tuple(w.shape) != (BH, L):
         raise ValueError(f'favor_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} '
                          f'vs v {tuple(v2.shape)}')
@@ -624,7 +629,8 @@ def favor_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``favor_bwd_b`` backward, which mask the ragged last chunk themselves.
     Under bf16 inputs the kernels round the chunk products' operands to bf16
     with float32 accumulation, as the TPU kernels do, and keep the (u, w)
-    residual in bf16."""
+    residual in bf16; there they run on the tensor cores and take Dh, Dv
+    and M multiples of 16 (4 in f32), raising otherwise."""
     *lead, L, Dh = q.shape
     Dv = v.shape[-1]
     bh = math.prod(lead)
@@ -724,13 +730,22 @@ def _check_hl_inputs(name, q, others, omega, partial, n_head, tile=4):
     return B, L, Dh, M
 
 
+def _check_fwd_hl_inputs(q, k, v, omega, partial, n_head):
+    """Raise unless ``favor_fwd_hl`` takes these, on q's device;
+    (B, L, Dh, M)."""
+    others = (('k', k), ('v', v))
+    dims = _check_hl_inputs('favor_fwd_hl', q, others, omega, partial, n_head,
+                            _favor_tile(q.dtype))
+    _check_aligned('favor_fwd_hl', (('q', q),) + others)
+    return dims
+
+
 def _favor_fwd_hl_cuda(q, k, v, omega, partial, n_head, eps=EPS):
     """Launch ``favor_fwd_hl`` on heads-last q, k, v [B, L, H * Dh] and the
     key maxima of :func:`_favor_kmax_hl_cuda`; returns [B, L, H * Dh] in
     q's dtype."""
     _require_cuda(q.device)
-    B, L, Dh, M = _check_hl_inputs('favor_fwd_hl', q, (('k', k), ('v', v)),
-                                   omega, partial, n_head)
+    B, L, Dh, M = _check_fwd_hl_inputs(q, k, v, omega, partial, n_head)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.favor_fwd_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -747,7 +762,7 @@ def _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head):
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v), ('g', g))
     dims = _check_hl_inputs('favor_bwd_a_hl', q, others, omega, partial, n_head,
-                            _bwd_tile(q.dtype))
+                            _favor_tile(q.dtype))
     _check_aligned('favor_bwd_a_hl', (('q', q),) + others)
     return dims
 
@@ -778,7 +793,7 @@ def _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head):
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v), ('u', u))
     B, L, Dh, M = dims = _check_hl_inputs('favor_bwd_b_hl', q, others, omega,
-                                          partial, n_head, _bwd_tile(q.dtype))
+                                          partial, n_head, _favor_tile(q.dtype))
     _check_tensor('w', w, (q.dtype,), 2, q.device)
     if tuple(w.shape) != (B * n_head, L):
         raise ValueError(f'favor_bwd_b_hl: w {tuple(w.shape)} for B={B}, '

@@ -10,14 +10,15 @@ the same seeded inputs, the outputs compared, and each kernel's time.
 
 * ``favor``: the head-major FAVOR+ kernels #1-#4 (``favor_kmax``,
   ``favor_fwd``, ``favor_bwd_a``, ``favor_bwd_b``) at the shapes of the
-  kernel table in PERF.md (bf16: kmax and fwd at B=2 L=1024 and B=16 L=2048,
-  the backward passes at B=16 L=3072; f32 at a ragged L=1000), and the
-  heads-last backward passes #10 ``favor_bwd_a_hl`` and #11
+  kernel table in PERF.md (bf16: kmax and fwd at B=2 L=1024 and B=16
+  L=2048, all four at B=16 L=3072; f32 at a ragged L=1000), and the
+  heads-last #9 ``favor_fwd_hl``, #10 ``favor_bwd_a_hl`` and #11
   ``favor_bwd_b_hl`` at B=16 L=3072 bf16 on the same values.  Pass B is
   fed a (u, w) drawn from the seed, not pass A's, so its outputs do not
-  depend on pass A.  Outputs are compared bit for bit, except the backward
-  passes' bf16 outputs (#3, #4, #10, #11), whose tensor-core products may
-  sum in another order: by the largest relative difference;
+  depend on pass A.  Outputs are compared bit for bit, except the bf16
+  outputs of the forward and the backward passes (#2-#4, #9-#11), whose
+  tensor-core products may sum in another order: by the largest relative
+  difference;
 * ``decode``: #12 ``performer_decode_layer``, one serving step of 12 layers
   at B=16 with bf16 weights from zero state; its output and the layers'
   (S, z) are compared by the largest relative difference, and its time is
@@ -42,7 +43,7 @@ D_MODEL, D_FF, N_LAYER, SERVE_B = 512, 2048, 12, 16
 FLASH_B, FLASH_L = 16, 2048
 KERNELS = ('favor', 'decode', 'flash')
 CASES = (('bf16', 2, 1024, ('fwd',)), ('bf16', 16, 2048, ('fwd',)),
-         ('bf16', 16, 3072, ('bwd',)), ('f32', 2, 1000, ('fwd', 'bwd')))
+         ('bf16', 16, 3072, ('fwd', 'bwd')), ('f32', 2, 1000, ('fwd', 'bwd')))
 
 
 def time_ms(fn, target_ms=100.0):
@@ -97,6 +98,8 @@ def save_favor(dev, gen, outs, times):
         outs[f'favor_kmax {tag}'] = part
         if 'fwd' in what:
             outs[f'favor_fwd {tag}'] = la._favor_fwd_cuda(q, k, v, omega, part)
+            if dt == 'bf16':
+                relative.append(f'favor_fwd {tag}')
             times[f'favor_kmax {tag}'] = time_ms(lambda: la._favor_kmax_cuda(k, omega))
             times[f'favor_fwd {tag}'] = time_ms(
                 lambda: la._favor_fwd_cuda(q, k, v, omega, part))
@@ -114,9 +117,14 @@ def save_favor(dev, gen, outs, times):
             times[f'favor_bwd_b {tag}'] = time_ms(
                 lambda: la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part))
             if dt == 'bf16':
-                # #10 and #11 on the same values, heads-last [B, L, H * Dh]
+                # #9-#11 on the same values, heads-last [B, L, H * Dh]
                 hq, hk, hv, hg, hu = (la._merge_heads(t, B) for t in (q, k, v, g, u_in))
                 hpart = la._favor_kmax_hl_cuda(hk, omega, N_HEAD)
+                outs[f'favor_fwd_hl {tag}'] = la._favor_fwd_hl_cuda(hq, hk, hv, omega, hpart,
+                                                                   N_HEAD)
+                relative.append(f'favor_fwd_hl {tag}')
+                times[f'favor_fwd_hl {tag}'] = time_ms(
+                    lambda: la._favor_fwd_hl_cuda(hq, hk, hv, omega, hpart, N_HEAD))
                 hl_a = la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD)
                 hl_b = la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, hpart, N_HEAD)
                 for name, t in zip(('dq', 'u', 'w', 'dk', 'dv'), hl_a + hl_b):

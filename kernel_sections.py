@@ -1,26 +1,27 @@
 #!/usr/bin/env python3
-"""Where FAVOR+ backward pass A's and pass B's time goes inside a chunk, on
-the GPU.
+"""Where the FAVOR+ forward's and backward passes' time goes inside a
+chunk, on the GPU.
 
     python3 kernel_sections.py
 
-Writes an instrumented copy of ``emo_disentanger_tpu_torch/csrc/favor_bwd.cu``
-to ``build/sections/``: in each pass's bf16 instantiation, thread 0 of each
-block reads ``clock64()`` after every ``__syncthreads()`` of the chunk loop
-and after each call that ends with one (``row_sq_tc``, ``features*``,
-``chain_rule*``), and adds the cycles since its last reading to that
-section's count.  Every added statement is guarded by the kernel's ``TC``
-flag, so the f32 instantiations compile as before.  It builds the copy
-(with ``favor_fwd.cu`` for the key maxima), runs pass A and then pass B (on
-pass A's (u, w)) at the bf16 train step's shape (B=16, 8 heads, L=3072,
-Dh = 64, M = 128) in both layouts (#3 ``favor_bwd_a``, #4 ``favor_bwd_b``,
-#10 ``favor_bwd_a_hl``, #11 ``favor_bwd_b_hl``), and prints, for each, one
-launch's time (CUDA events) and each section's mean cycles a chunk with the
-source line that ends it.  A section that waits at a barrier counts the
-wait for the slowest warp.  Last, it counts the opcodes of the head-major
-bf16 kernel of each pass in the built library (``cuobjdump -sass``:
-instructions in the code, not executed).  The repository's own sources are
-not touched.
+Writes instrumented copies of ``emo_disentanger_tpu_torch/csrc/favor_fwd.cu``
+and ``favor_bwd.cu`` to ``build/sections/`` (with the headers beside
+them): in the bf16 instantiation of the forward and of each backward pass,
+thread 0 of each block reads ``clock64()`` after every ``__syncthreads()``
+of the chunk loop and after each call that ends with one (``row_sq_tc``,
+``features*``, ``chain_rule*``), and adds the cycles since its last
+reading to that section's count.  Every added statement is guarded by the
+kernel's ``TC`` flag, so the f32 instantiations compile as before.  It
+builds the copies and runs, at the bf16 train step's shape (B=16, 8 heads,
+L=3072, Dh = 64, M = 128) in both layouts, the forward (#2 ``favor_fwd``,
+#9 ``favor_fwd_hl``), pass A (#3, #10) and pass B (#4, #11, on pass A's
+(u, w)), and prints, for each, one launch's time (CUDA events) and each
+section's mean cycles a chunk with the source line that ends it.  A
+section that waits at a barrier counts the wait for the slowest warp.
+Last, it counts the opcodes of the bf16 kernels in the built libraries
+(``cuobjdump -sass``: instructions in the code, not executed): the forward
+in both layouts, each backward pass head-major.  The repository's own
+sources are not touched.
 """
 
 import ctypes
@@ -38,18 +39,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / 'emo_disentanger_tpu_torch' / 'csrc'
 OUT = ROOT / 'build' / 'sections'
-SLOTS = 32                        # sections counted at most, a pass
+SLOTS = 32                        # sections counted at most, a kernel
 ROWS = 4096                       # blocks (batch*head rows) counted at most
 ENDS = re.compile(r'^(__syncthreads\(\);|row_sq_tc\(|features(_tc)?<|chain_rule(_tc)?[<(])')
-# each pass: its kernel and the header of its chunk loop
-PASSES = {'favor_bwd_a': ('favor_bwd_a_kernel', 'for (int r0 = 0; r0 < L; r0 += C) {'),
-          'favor_bwd_b': ('favor_bwd_b_kernel',
-                          'for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {')}
+IN_ORDER = 'for (int r0 = 0; r0 < L; r0 += C) {'
+# each source: its instrumented kernels, each with the header of its chunk loop
+KERNELS = {'favor_fwd.cu': {'favor_fwd': ('favor_fwd_kernel', IN_ORDER)},
+           'favor_bwd.cu': {'favor_bwd_a': ('favor_bwd_a_kernel', IN_ORDER),
+                            'favor_bwd_b': ('favor_bwd_b_kernel',
+                                            'for (int r0 = ((L - 1) / C) * C; r0 >= 0; '
+                                            'r0 -= C) {')}}
 
 
-def instrument_kernel(src, p, kernel, loop):
-    """``src`` with pass ``p``'s kernel stamped, and the line that ends each
-    of its sections."""
+def instrument_kernel(src, source, p, kernel, loop):
+    """``src`` with kernel ``p`` of ``source`` stamped, and the line that
+    ends each of its sections."""
     k0 = src.index(f'__global__ void {kernel}')
     k1 = src.index('\ntemplate <', k0) + 1          # the next template: the kernel's end
     first = src[:k0].count('\n') + 1                # the line k0 is on
@@ -64,7 +68,7 @@ def instrument_kernel(src, p, kernel, loop):
         if in_loop and ENDS.match(line.strip()) and len(ends) < SLOTS:
             out.append(f'    if (TC && threadIdx.x == 0) {{ const unsigned long long c_ = '
                        f'clock64(); sec_[{len(ends)}] += c_ - last_; last_ = c_; }}')
-            ends.append(f'favor_bwd.cu:{line_no} {line.strip()[:24]} (after "{note[:40]}")')
+            ends.append(f'{source}:{line_no} {line.strip()[:24]} (after "{note[:40]}")')
     body = '\n'.join(out)
     tail = body.rindex('  }\n}\n')
     body = (body[:tail] + f'  }}\n  if (TC && threadIdx.x == 0) for (int i = 0; i < {SLOTS}; '
@@ -72,17 +76,18 @@ def instrument_kernel(src, p, kernel, loop):
     return src[:k0] + body + src[k1:], ends
 
 
-def instrument():
-    """The instrumented source and, for each pass, the line that ends each
-    of its sections."""
-    src = (CSRC / 'favor_bwd.cu').read_text()
+def instrument(source='favor_bwd.cu'):
+    """The instrumented copy of ``source`` and, for each of its kernels,
+    the line that ends each of its sections."""
+    src = (CSRC / source).read_text()
+    kernels = KERNELS[source]
     ends = {}
     # the last kernel in the file first, so the lines of the others stay
     for p, (name, (kernel, loop)) in sorted(
-            enumerate(PASSES.items()), key=lambda e: -src.index(e[1][1][0])):
-        src, ends[name] = instrument_kernel(src, p, kernel, loop)
+            enumerate(kernels.items()), key=lambda e: -src.index(e[1][1][0])):
+        src, ends[name] = instrument_kernel(src, source, p, kernel, loop)
     src = src.replace('#include "favor_common.cuh"\n', '#include "favor_common.cuh"\n'
-                      f'__device__ unsigned long long g_sections[{len(PASSES)}][{ROWS}]'
+                      f'__device__ unsigned long long g_sections[{len(kernels)}][{ROWS}]'
                       f'[{SLOTS}];\n', 1)
     src = src.replace('extern "C" {\n', 'extern "C" {\nint read_sections(void* dst) {\n'
                       '  return (int)cudaMemcpyFromSymbol(dst, g_sections, sizeof(g_sections));\n}\n',
@@ -115,10 +120,12 @@ def main():
     from emo_disentanger_tpu_torch.ops import _build
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     OUT.mkdir(parents=True, exist_ok=True)
-    src, ends = instrument()
-    (OUT / 'favor_bwd.cu').write_text(src)
-    for name in ('favor_fwd.cu', *(p.name for p in CSRC.glob('*.cuh'))):
-        shutil.copy(CSRC / name, OUT / name)
+    ends = {}
+    for source in KERNELS:
+        src, ends[source] = instrument(source)
+        (OUT / source).write_text(src)
+    for header in CSRC.glob('*.cuh'):
+        shutil.copy(header, OUT / header.name)
     _build.CSRC, _build.BUILD_DIR = OUT, OUT / 'kernels'
     _build.build(['favor_fwd', 'favor_bwd'])
     dev, H, B, L = torch.device('cuda'), 8, 16, 3072
@@ -133,49 +140,56 @@ def main():
             q, k, v, g = (la._merge_heads(t, B) for t in (q, k, v, g))
             part = la._favor_kmax_hl_cuda(k, omega, H)
             _, u, w = la._favor_bwd_a_hl_cuda(q, k, v, g, omega, part, H)
-            runs = {'favor_bwd_a': lambda: la._favor_bwd_a_hl_cuda(q, k, v, g, omega, part, H),
+            runs = {'favor_fwd': lambda: la._favor_fwd_hl_cuda(q, k, v, omega, part, H),
+                    'favor_bwd_a': lambda: la._favor_bwd_a_hl_cuda(q, k, v, g, omega, part, H),
                     'favor_bwd_b': lambda: la._favor_bwd_b_hl_cuda(q, k, v, u, w, omega, part,
                                                                    H)}
         else:
             part = la._favor_kmax_cuda(k, omega)
             _, u, w = la._favor_bwd_a_cuda(q, k, v, g, omega, part)
-            runs = {'favor_bwd_a': lambda: la._favor_bwd_a_cuda(q, k, v, g, omega, part),
+            runs = {'favor_fwd': lambda: la._favor_fwd_cuda(q, k, v, omega, part),
+                    'favor_bwd_a': lambda: la._favor_bwd_a_cuda(q, k, v, g, omega, part),
                     'favor_bwd_b': lambda: la._favor_bwd_b_cuda(q, k, v, u, w, omega, part)}
-        for p, (name, run) in enumerate(runs.items()):
+        for name, run in runs.items():
+            source = next(src for src, names in KERNELS.items() if name in names)
+            kernels = list(KERNELS[source])
             ms = time_launch(run)
-            buf = (ctypes.c_ulonglong * (len(PASSES) * ROWS * SLOTS))()
-            err = _build._libs['favor_bwd'].read_sections(buf)
+            buf = (ctypes.c_ulonglong * (len(kernels) * ROWS * SLOTS))()
+            err = _build._libs[source[:-len('.cu')]].read_sections(buf)
             if err:
                 raise RuntimeError(f'read_sections: CUDA error {err}')
-            cyc = np.frombuffer(buf, dtype=np.uint64).reshape(len(PASSES), ROWS, SLOTS)
-            per = cyc[p, :B * H].astype(np.float64).mean(0) / chunks
+            cyc = np.frombuffer(buf, dtype=np.uint64).reshape(len(kernels), ROWS, SLOTS)
+            per = cyc[kernels.index(name), :B * H].astype(np.float64).mean(0) / chunks
             total = per.sum()
             print(f'kernel_sections {name} {layout} bf16 B={B} H={H} L={L} [{smi}]: '
                   f'{ms:.4f} ms a launch (CUDA events, instrumented); {total:.0f} cycles '
                   f'a chunk')
-            for i, end in enumerate(ends[name]):
+            for i, end in enumerate(ends[source][name]):
                 if per[i]:
                     print(f'  {per[i]:9.0f} cycles ({per[i] / total:6.1%}) to {end[:60]}')
-    for kernel, _ in PASSES.values():
+    for hl in (False, True):
+        print_sass(_build._target('favor_fwd'), 'favor_fwd_kernel', hl)
+    for kernel, _ in KERNELS['favor_bwd.cu'].values():
         print_sass(_build._target('favor_bwd'), kernel)
     return 0
 
 
-def print_sass(lib, kernel):
-    """The opcodes of the head-major bf16 instantiation of ``kernel``, most
-    frequent first."""
+def print_sass(lib, kernel, hl=False):
+    """The opcodes of the bf16 instantiation of ``kernel`` (heads-last
+    with ``hl``, else head-major), most frequent first."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     text = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, inside = Counter(), False
     for line in text.splitlines():
         if 'Function :' in line:
-            inside = f'{kernel}I13__nv_bfloat16Lb0' in line
+            inside = f'{kernel}I13__nv_bfloat16Lb{int(hl)}' in line
         elif inside:
             op = re.search(r'\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)', line)
             if op:
                 counts[op.group(1)] += 1
-    print(f'kernel_sections SASS of {kernel}<bf16, head-major>: '
+    layout = 'heads-last' if hl else 'head-major'
+    print(f'kernel_sections SASS of {kernel}<bf16, {layout}>: '
           + ', '.join(f'{op} {n}' for op, n in counts.most_common(16)))
 
 

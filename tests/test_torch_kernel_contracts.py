@@ -1,11 +1,13 @@
-"""The wrappers of kernels #12, #13 and the FAVOR+ backward passes A (#3,
-#10) and B (#4, #11) refuse what their kernels do not take, before
-anything is built or launched.
+"""The wrappers of kernels #12, #13, the FAVOR+ forward (#2, #9) and the
+backward passes A (#3, #10) and B (#4, #11) refuse what their kernels do
+not take, before anything is built or launched.
 
-``_flash_attention_cuda``, ``_decode_layer_cuda`` and the backward passes'
+``_flash_attention_cuda``, ``_decode_layer_cuda``, the forward's
+``_favor_fwd_cuda`` and ``_favor_fwd_hl_cuda`` and the backward passes'
 ``_favor_bwd_{a,b}_cuda`` and ``_favor_bwd_{a,b}_hl_cuda`` refuse CPU
 tensors (the public entry points would run the plain versions there); then
 each checks its inputs with a function (``_check_inputs``,
+``_check_fwd_inputs``, ``_check_fwd_hl_inputs``,
 ``_check_bwd_{a,b}_inputs``, ``_check_bwd_{a,b}_hl_inputs``) that is
 called here on CPU tensors so that each bad dtype, shape or layout raises
 its own error.
@@ -189,18 +191,19 @@ def test_favor_bwd_a_widths_in_f32(layout):
 
 @pytest.mark.parametrize('tile, ok', [(4, True), (16, False)])
 def test_check_bwd_shapes_width_rule(tile, ok):
-    """``_check_bwd_shapes`` takes Dh = Dv = 40 at the f32 multiple of 4
-    and refuses it at the bf16 multiple of 16 of both passes, naming the
+    """``_check_favor_shapes`` (``_check_bwd_shapes`` before the forward
+    shared it) takes Dh = Dv = 40 at the f32 multiple of 4 and refuses it
+    at the bf16 multiple of 16 of the forward and both passes, naming the
     rule."""
     q, k, v, _, omega, part = _pass_a('head-major', Dh=40, Dv=40)
-    for name in ('favor_bwd_a', 'favor_bwd_b'):
+    for name in ('favor_fwd', 'favor_bwd_a', 'favor_bwd_b'):
         if ok:
-            assert la._check_bwd_shapes(name, q, k, v, omega, part, tile) == (
+            assert la._check_favor_shapes(name, q, k, v, omega, part, tile) == (
                 4, 80, 40, 40, 32)
         else:
             with pytest.raises(ValueError, match=f'{name}: Dh=40, Dv=40 and M=32 '
                                                  'must be multiples of 16 under bf16'):
-                la._check_bwd_shapes(name, q, k, v, omega, part, tile)
+                la._check_favor_shapes(name, q, k, v, omega, part, tile)
 
 
 def _pass_b(layout, **kw):
@@ -255,3 +258,58 @@ def test_favor_bwd_b_widths_in_f32(layout):
     dims = _check_bwd_b(layout, *_pass_b(layout, Dh=40, Dv=40, M=36))
     assert dims == ((4, 80, 40, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
     assert _check_bwd_b(layout, *_pass_b(layout, dtype=torch.bfloat16))[-1] == 32
+
+
+def _fwd(layout, **kw):
+    """The forward's inputs: q, k, v, omega, partial (pass A's without g)."""
+    q, k, v, _, omega, part = _pass_a(layout, **kw)
+    return q, k, v, omega, part
+
+
+def _fwd_cases(layout):
+    q, k, v, omega, part = args = _fwd(layout)
+    return {
+        'cpu': (args, 'CUDA tensors'),
+        'mixed dtypes': ((q, k, v.to(torch.bfloat16), omega, part), 'v has dtype'),
+        'dtype of omega': ((q, k, v, omega.double(), part), 'omega has dtype'),
+        'partial of another length': ((q, k, v, omega, part[:, :1].contiguous()),
+                                      r'partial \('),
+        'head width under bf16': (_fwd(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
+                                  'multiples of 16 under bf16'),
+        'features under bf16': (_fwd(layout, M=40, dtype=torch.bfloat16),
+                                'multiples of 16 under bf16'),
+        'misaligned q under bf16': (_misaligned(_fwd(layout, dtype=torch.bfloat16), 0),
+                                    'bf16 q must start on a 16-byte boundary'),
+        'misaligned k under bf16': (_misaligned(_fwd(layout, dtype=torch.bfloat16), 1),
+                                    'bf16 k must start on a 16-byte boundary'),
+        'misaligned v under bf16': (_misaligned(_fwd(layout, dtype=torch.bfloat16), 2),
+                                    'bf16 v must start on a 16-byte boundary'),
+    }
+
+
+def _check_fwd(layout, *args):
+    if layout == 'heads-last':
+        return la._check_fwd_hl_inputs(*args, 2)
+    return la._check_fwd_inputs(*args)
+
+
+@pytest.mark.parametrize('case', sorted(_fwd_cases('head-major')))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_fwd_refuses(layout, case):
+    args, match = _fwd_cases(layout)[case]
+    with pytest.raises(ValueError, match=match):
+        if case != 'cpu':
+            _check_fwd(layout, *args)
+        elif layout == 'heads-last':
+            la._favor_fwd_hl_cuda(*args, 2)
+        else:
+            la._favor_fwd_cuda(*args)
+
+
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_fwd_widths_in_f32(layout):
+    """f32 keeps the multiple of 4 that bf16 refuses; bf16 takes the
+    multiple of 16 on aligned inputs."""
+    dims = _check_fwd(layout, *_fwd(layout, Dh=40, Dv=40, M=36))
+    assert dims == ((4, 80, 40, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
+    assert _check_fwd(layout, *_fwd(layout, dtype=torch.bfloat16))[-1] == 32

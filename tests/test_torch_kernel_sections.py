@@ -1,8 +1,9 @@
-"""``kernel_sections.py`` instruments the bf16 chunk loops of both backward
-passes and nothing else: the copy it builds on the card stamps each
-section of pass A's and pass B's loop, every added statement runs only
-under bf16 (``TC``), and the f32 path and the entry points are left as they
-are.  On the CPU only the source is made; nothing is built."""
+"""``kernel_sections.py`` instruments the bf16 chunk loops of the forward
+and of both backward passes and nothing else: the copies it builds on the
+card stamp each section of the forward's, pass A's and pass B's loop, every
+added statement runs only under bf16 (``TC``), and the f32 paths and the
+entry points are left as they are.  On the CPU only the sources are made;
+nothing is built."""
 
 import re
 
@@ -49,12 +50,12 @@ def test_instrument_stamps_each_section_of_pass_b():
         assert lines[int(no) - 1].strip().startswith(text), end
 
 
-def test_instrument_leaves_f32_path_and_entry_points_alone():
+def test_instrument_leaves_f32_path_and_entry_points_alone(source='favor_bwd.cu'):
     """Without the lines it adds, the copy is the original: the f32 path
     and the extern "C" entry points are as they were, and every added
     statement in a kernel runs only under ``TC``, the bf16 instantiation."""
-    original = (ks.CSRC / 'favor_bwd.cu').read_text()
-    src, _ = ks.instrument()
+    original = (ks.CSRC / source).read_text()
+    src, _ = ks.instrument(source)
     added = [l for l in src.split('\n') if 'sec_' in l or 'g_sections' in l]
     assert added and all('TC' in l for l in added if 'sec_' in l)
     read = ('int read_sections(void* dst) {\n  return (int)cudaMemcpyFromSymbol(dst, '
@@ -64,3 +65,29 @@ def test_instrument_leaves_f32_path_and_entry_points_alone():
     assert kept == original
     entry = lambda text: text[text.index('extern "C" {'):]
     assert entry(src).replace(read, '') == entry(original)
+
+
+def test_instrument_stamps_each_section_of_the_forward():
+    """The forward's bf16 loop is stamped at its loads, both ||x||^2 and
+    both feature maps, the scores, the denominator, the numerator and the
+    state update; the key-max kernel of the same file is not touched."""
+    src, ends = ks.instrument('favor_fwd.cu')
+    assert list(ends) == ['favor_fwd']
+    ends = ends['favor_fwd']
+    body = _kernel(src, 'favor_fwd_kernel')
+    assert _stamps(body) == list(range(len(ends)))
+    assert 10 <= len(ends) <= ks.SLOTS
+    for call in ('row_sq_tc(', 'features_tc<false>', 'features_tc<true>'):
+        assert sum(call in end for end in ends) == (2 if call == 'row_sq_tc(' else 1), call
+    assert 'g_sections[0][blockIdx.x][i] = sec_[i]' in body
+    assert 'sec_' not in _kernel(src, 'favor_kmax_kernel')
+    assert 'int read_sections(void* dst)' in src
+    lines = (ks.CSRC / 'favor_fwd.cu').read_text().split('\n')
+    for end in ends:
+        no, text = re.match(r'favor_fwd\.cu:(\d+) (.{1,24}) \(', end).groups()
+        assert lines[int(no) - 1].strip().startswith(text), end
+
+
+def test_instrument_leaves_forward_f32_path_and_entry_points_alone():
+    """As above, for the forward's source."""
+    test_instrument_leaves_f32_path_and_entry_points_alone('favor_fwd.cu')
