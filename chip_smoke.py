@@ -136,6 +136,16 @@ SCALAR_FWD = {'favor_fwd B=2 L=1024': 1.0261, 'favor_fwd B=16 L=2048': 2.3874,
               'step head-major': 42.20, 'step heads-last': 46.81,
               'wall head-major': 172.4, 'wall heads-last': 168.4,
               'bf16 err': 5.04e-3}
+# the key max (#1, #8) while its bf16 product ran as 4x4 f32 register tiles,
+# one chunk a block, read by this script on the same card and limit (after
+# the forward's redesign): ms at B=2 L=1024 and B=16 L=2048 (phase 6), at
+# B=16 L=3072 bf16 in both layouts (6h), ms a bf16 train step (7b, of 10 of
+# its 12 launches that the profiler kept; 7h) and the step's wall (8b,
+# 8h-b); printed beside today's readings
+SCALAR_KMAX = {'favor_kmax B=2 L=1024': 0.0406, 'favor_kmax B=16 L=2048': 0.2497,
+               'favor_kmax B=16 L=3072': 0.3807, 'favor_kmax_hl B=16 L=3072': 0.3940,
+               'step head-major': 3.96, 'step heads-last': 4.69,
+               'wall head-major': 147.0, 'wall heads-last': 138.5}
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -143,6 +153,9 @@ SCALAR_FWD = {'favor_fwd B=2 L=1024': 1.0261, 'favor_fwd B=16 L=2048': 2.3874,
 # plain versions compute in f32 (FAVOR) or round at other places (decode)
 TOL_F32 = 1e-4
 TOL_BF16 = 3e-2
+# the key max (#1, #8) is f32 arithmetic on the same values in both dtypes
+# (bf16 k widens exactly; its product in 3xTF32, ~1e-6), so it is held to
+# TOL_F32 in both: one TF32 pass (~1e-3) would fail it
 # the FAVOR kernels are held against their plain versions at the serving
 # entry shape, a ragged L, and the training path's two shapes:
 # train_stage2.run's f32 batch and the bf16 train step's
@@ -152,6 +165,10 @@ KERNEL_CASES = ((ENTRY_B, ENTRY_L, torch.float32), (ENTRY_B, ENTRY_L, torch.bflo
 # the heads-last kernels: the training path's two shapes and a ragged L
 HL_CASES = ((TRAIN_B, TRAIN_L, torch.float32), (BF16_B, TRAIN_L, torch.bfloat16),
             (ENTRY_B, 1000, torch.float32), (ENTRY_B, 1000, torch.bfloat16))
+# (Dh, M) beside the model's (64, 128) for the bf16 key max alone: omega in
+# registers with idle warps and a 16-wide K tail, and from shared memory
+# (Dh > 64, M > 128), at the ragged L
+KMAX_WIDTHS = ((32, 64), (48, 112), (80, 144), (64, 144))
 HEAD_MAJOR = ('favor_kmax', 'favor_fwd', 'favor_bwd_a', 'favor_bwd_b')
 HEADS_LAST = ('favor_kmax_hl', 'favor_fwd_hl', 'favor_bwd_a_hl', 'favor_bwd_b_hl')
 # causal_linear_attention's kernels #5-#7, held against their plain versions
@@ -238,10 +255,14 @@ def bound(nbytes, op_seconds):
 # work counts for the bounds (each input read once, each output written once)
 # ---------------------------------------------------------------------------
 
-def kmax_bound(BH, L, Dh, M, in_bytes, chunk):
+def kmax_bound(BH, L, Dh, M, in_bytes, chunk, rate=F32_FLOP_PER_S, passes=1):
+    """The key max: k read, one partial max a chunk written; h and ||x||^2
+    in f32, ``passes`` times over at ``rate`` (``TF32_FLOP_PER_S, 3``:
+    3xTF32, as the bf16 instantiation runs them; the default f32 on the
+    CUDA cores)."""
     nbytes = BH * L * Dh * in_bytes + Dh * M * 4 + BH * -(-L // chunk) * 4
     ops = 2 * BH * L * Dh * (M + 1)                         # h, ||x||^2: f32
-    return bound(nbytes, ops / F32_FLOP_PER_S)
+    return bound(nbytes, passes * ops / rate)
 
 
 def fwd_products(BH, L, M, Dv):
@@ -515,7 +536,8 @@ def phase_kernel_a(dev, rec):
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         q, k, v = qkv(gen, B, N_HEAD, L, dtype, dev)
         k2 = k.reshape(-1, L, D_HEAD)
-        got_m = la._favor_kmax_cuda(k2, omega).amax(1)
+        part = la._favor_kmax_cuda(k2, omega)
+        got_m = part.amax(1)
         ref_m = la._key_max_plain(k2, omega)
         got = la.favor_causal_attention(q, k, v, omega)
         ref = la._favor_compose(q, k, v, omega)
@@ -525,13 +547,28 @@ def phase_kernel_a(dev, rec):
         was = ('' if dtype == torch.float32 else
                f'; on 4x4 f32 tiles out <= {SCALAR_FWD["bf16 err"]:.2e}')
         print(f'phase 2 kernel A {name} B={B} H={N_HEAD} L={L}: '
-              f'kmax rel err {e_m:.2e}, out rel err {e_o:.2e} (tol {tol}{was})')
+              f'kmax rel err {e_m:.2e} (tol {TOL_F32}), out rel err {e_o:.2e} '
+              f'(tol {tol}{was})')
         expect(got.dtype == dtype and got.shape == ref.shape,
                'favor_fwd output dtype/shape')
-        expect(e_m <= tol and e_o <= tol, f'kernel A {name} B={B} L={L}')
+        expect(part.dtype == torch.float32
+               and part.shape == (B * N_HEAD, -(-L // la.KERNEL_CHUNK)),
+               'favor_kmax partial: one f32 max a 64-row chunk')
+        expect(e_m <= TOL_F32 and e_o <= tol, f'kernel A {name} B={B} L={L}')
         if (B, L, dtype) == (ENTRY_B, ENTRY_L, torch.bfloat16):
             rec['favor_kmax']['max_abs_err'] = max_abs(got_m, ref_m)
             rec['favor_fwd']['max_abs_err'] = max_abs(got, ref)
+    errs = {}
+    for Dh, M in KMAX_WIDTHS:
+        om = la.draw_orthogonal_features(Dh, M, gen).to(dev)
+        k2 = (0.5 * torch.randn(ENTRY_B * N_HEAD, 1000, Dh, generator=gen)).to(
+            dev, torch.bfloat16)
+        errs[Dh, M] = rel_err(la._favor_kmax_cuda(k2, om).amax(1),
+                              la._key_max_plain(k2, om))
+    print(f'phase 2 kernel #1 bfloat16 B={ENTRY_B} H={N_HEAD} L=1000 at (Dh, M) '
+          + ', '.join(f'{w}: kmax rel err {e:.2e}' for w, e in errs.items())
+          + f' (tol {TOL_F32})')
+    expect(max(errs.values()) <= TOL_F32, 'favor_kmax bf16 at other widths')
 
 
 def phase_kernel_c(dev, rec):
@@ -631,9 +668,11 @@ def phase_kernel_hl(dev, rec):
         line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
         name = str(dtype).replace('torch.', '')
         print(f'phase 2h kernels #8-#11 {name} B={B} H={H} L={L}: rel err '
-              f'{line} (tol {tol}); against #1-#4 on the split heads: '
+              f'{line} (tol {tol}, kmax {TOL_F32}); against #1-#4 on the split heads: '
               f'{"all bitwise equal" if not unequal else "differ: " + str(unequal)}')
-        expect(max(errs.values()) <= tol, f'heads-last kernels {name} B={B} L={L}')
+        expect(part.shape == (B * H, -(-L // C)), 'favor_kmax_hl partial shape')
+        expect(errs['kmax'] <= TOL_F32 and max(errs.values()) <= tol,
+               f'heads-last kernels {name} B={B} L={L}')
         expect(not unequal, f'heads-last kernels equal the head-major ones '
                f'{name} B={B} L={L}')
         if (B, L, dtype) == (BF16_B, TRAIN_L, torch.bfloat16):
@@ -1036,7 +1075,8 @@ def phase_train(dev, smi, heads_last=False):
           f'launches per step {per_step}; with pass A on 4x4 f32 tiles '
           f'{SCALAR_PASS_A["wall " + layout]:.1f} ms a step, with pass B on them '
           f'{SCALAR_PASS_B["wall " + layout]:.1f}, with the forward on them '
-          f'{SCALAR_FWD["wall " + layout]:.1f}')
+          f'{SCALAR_FWD["wall " + layout]:.1f}, with the key max on them '
+          f'{SCALAR_KMAX["wall " + layout]:.1f}')
     expect(all(np.isfinite(losses)), 'bf16 losses finite')
     expect(all(p.dtype == torch.float32 for p in model.parameters()),
            'master weights stay f32')
@@ -1200,6 +1240,15 @@ def fwd_beside(name, t, b, BH, L):
             f'in f32 on the CUDA cores; on 4x4 f32 tiles {SCALAR_FWD[name]:.4f}')
 
 
+def kmax_beside(name, t, b, BH, L):
+    """The key max's 3xTF32 bound share, its f32 bound and the 4x4 design's
+    reading at this shape, for phases 6 and 6h."""
+    from emo_disentanger_tpu_torch.ops.linear_attention import KERNEL_CHUNK
+    b_f32 = kmax_bound(BH, L, D_HEAD, FAVOR, 2, KERNEL_CHUNK)[0]
+    return (f' in 3xTF32 ({b / t:.3f} of it), {b_f32:.4f} in f32 on the CUDA cores; '
+            f'on 4x4 f32 tiles {SCALAR_KMAX[name]:.4f}')
+
+
 def phase_timing(dev, rec, smi):
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     from emo_disentanger_tpu_torch.ops import performer_decode as pd
@@ -1215,13 +1264,16 @@ def phase_timing(dev, rec, smi):
         t_f = time_ms(lambda: la._favor_fwd_cuda(q2, k2, v2, omega, part))
         p_k = time_ms(lambda: la._key_max_plain(k2, omega))
         p_f = time_ms(lambda: la._favor_compose(q, k, v, omega), iters=5)
-        b_k, by_k = kmax_bound(BH, L, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK)
-        # the forward's bound counts its omega products in 3xTF32, as it
-        # runs them; the f32 figure (CUDA cores) is printed beside it
+        # the key max's and the forward's bounds count their omega products
+        # in 3xTF32, as they run them; the f32 figures (CUDA cores) are
+        # printed beside them
+        b_k, by_k = kmax_bound(BH, L, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK,
+                               TF32_FLOP_PER_S, 3)
         b_f, by_f = fwd_bound(BH, L, D_HEAD, D_HEAD, FAVOR, 2, la.KERNEL_CHUNK,
                               TF32_FLOP_PER_S, 3)
         print(f'phase 6 kernel A bf16 B={B} L={L} [{smi}]: favor_kmax '
-              f'{t_k:.4f} ms (plain {p_k:.4f}, bound {b_k:.4f} {by_k}); '
+              f'{t_k:.4f} ms (plain {p_k:.4f}, bound {b_k:.4f} {by_k}'
+              f'{kmax_beside(f"favor_kmax B={B} L={L}", t_k, b_k, BH, L)}); '
               f'favor_fwd {t_f:.4f} ms (plain {p_f:.4f}, bound {b_f:.4f} {by_f}'
               f'{fwd_beside(f"favor_fwd B={B} L={L}", t_f, b_f, BH, L)})')
         if B == ENTRY_B:
@@ -1319,7 +1371,7 @@ def phase_timing(dev, rec, smi):
         'favor_kmax_hl': (
             time_ms(lambda: la._favor_kmax_hl_cuda(k, omega, H), iters=10),
             time_ms(lambda: la._key_max_plain(sp(k), omega), iters=5),
-            kmax_bound(BH, L, D_HEAD, FAVOR, 2, C)),
+            kmax_bound(BH, L, D_HEAD, FAVOR, 2, C, TF32_FLOP_PER_S, 3)),
         'favor_fwd_hl': (
             time_ms(lambda: la._favor_fwd_hl_cuda(q, k, v, omega, hpart, H), iters=5),
             time_ms(lambda: la._hl_compose(q, k, v, omega, H), iters=2, warmup=1),
@@ -1340,13 +1392,15 @@ def phase_timing(dev, rec, smi):
             b_b),
     }
     for name, (t, p, (b, by)) in hl.items():
-        more = (fwd_beside(f'{name} B={B} L={L}', t, b, BH, L) if name == 'favor_fwd_hl'
+        beside_hl = {'favor_kmax_hl': kmax_beside, 'favor_fwd_hl': fwd_beside}
+        more = (beside_hl[name](f'{name} B={B} L={L}', t, b, BH, L) if name in beside_hl
                 else beside(name, t, b))
         print(f'phase 6h kernel {name} bf16 B={B} L={L} [{smi}]: {t:.4f} ms '
               f'(plain {p:.4f}, bound {b:.4f} {by}{more})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
     print(f'phase 6h head-major at the same shape [{smi}]: favor_kmax '
-          f'{t_hm_k:.4f} ms, favor_fwd {t_hm_f:.4f} ms (on 4x4 f32 tiles '
+          f'{t_hm_k:.4f} ms (on 4x4 f32 tiles {SCALAR_KMAX[f"favor_kmax B={B} L={L}"]:.4f}), '
+          f'favor_fwd {t_hm_f:.4f} ms (on 4x4 f32 tiles '
           f'{SCALAR_FWD[f"favor_fwd B={B} L={L}"]:.4f}), favor_bwd_a '
           f'{times["favor_bwd_a"][0]:.4f} ms, favor_bwd_b {times["favor_bwd_b"][0]:.4f} ms')
 
@@ -1497,6 +1551,9 @@ def phase_profile_train(step, batch, extras, wall_ms, smi, label='phase 7b',
           f'share {1 - busy / wall_ms:.3f}); copy kernels {copy_ms(prof, 2):.2f} '
           f'ms/step; device ms/step by kernel: {top}')
     hl = '' if layout == 'head-major' else '_hl'
+    print(f'{label} favor_kmax{hl} {kernel_ms(prof, 2, "favor_kmax_kernel"):.2f} ms/step, '
+          f'wall {wall_ms:.1f} ms/step; with the key max on 4x4 f32 tiles '
+          f'{SCALAR_KMAX["step " + layout]:.2f} and {SCALAR_KMAX["wall " + layout]:.1f}')
     print(f'{label} favor_fwd{hl} {kernel_ms(prof, 2, "favor_fwd_kernel"):.2f} ms/step, '
           f'wall {wall_ms:.1f} ms/step; with the forward on 4x4 f32 tiles '
           f'{SCALAR_FWD["step " + layout]:.2f} and {SCALAR_FWD["wall " + layout]:.1f}')

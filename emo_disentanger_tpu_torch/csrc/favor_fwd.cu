@@ -57,6 +57,26 @@
 // z update four lanes a feature, the output stored two bf16 values a lane.
 // Rows past L are zero in phi_q, phi_k and v, so every product runs K to a
 // multiple of 16.  No TMA, wgmma or pipelining yet.
+//
+// favor_kmax_kernel under bf16 computes h = xs . omega - ||xs||^2/2 as
+// the forward's features_tc does (the same 3xTF32 split, K order and
+// accumulation on mma.sync, ||xs||^2 summed as row_sq_tc sums it) with a
+// max for the exp, so its stabilizer is the max of exactly the h that the
+// bf16 forward and both backward passes exponentiate (phi_k <= 1/sqrt(M)
+// holds exactly).  Bound by operations (at B=16 L=3072: 6.5 GFLOP, 0.039 ms
+// in 3xTF32 at the tensor cores' peak, against 0.015 ms to read k).  Its
+// first cut copied all of omega (32 KB) into shared memory for each 64-row
+// chunk and ran the product on 4x4 f32 tiles, bound by shared-memory loads.
+// Now a block takes several consecutive chunks of a row (launch_kmax's
+// rule), each still writing its own partial max, and at the model's widths
+// (Dh <= 64, M <= 128: kmax_chunks_regs) each warp keeps its 16 columns of
+// omega split to TF32 in registers for all of them; each chunk's rows come
+// in by cp.async while the previous chunk computes, are split to TF32 once
+// for all eight warps, and each warp runs its four row groups' products at
+// once.  Other widths take the forward's helpers as they are
+// (kmax_chunks_smem: omega in shared memory, load_rows_tc, row_sq_tc,
+// tc_mma_f32), with the same bits.  The f32 instantiation keeps the first
+// cut, one chunk a block, bit for bit.
 
 #include <type_traits>
 
@@ -65,48 +85,225 @@
 
 namespace {
 
-template <class T, bool HL>
-__global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restrict__ omega,
-                                  float* __restrict__ partial, int L, int Dh, int M,
-                                  int n_head, float scale) {
-  const int H = HL ? n_head : 1;
-  extern __shared__ float smem[];
-  float* om = smem;                    // [Dh][M]
-  float* xs = om + Dh * M;             // [C][Dh+1]
-  float* sq = xs + C * (Dh + 1);       // [C]
-  float* red = sq + C;                 // [32]
-  const int chunk = blockIdx.x, row = blockIdx.y, nch = gridDim.x;
-  const int r0 = chunk * C, n = min(C, L - r0);
-  for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
-  // the head-major address keeps its original form: through row_base this
-  // short kernel measured 4.6% slower on the H100 (kernel_ab.py)
-  load_scaled<T>(xs, sq,
-                 HL ? k + row_base(row, H, L, Dh) + (size_t)r0 * H * Dh
-                    : k + ((size_t)row * L + r0) * Dh,
-                 n, Dh, H * Dh, scale);
+// The bf16 key max keeps omega's TF32 split in registers, a warp's 16
+// columns, when each of the THREADS / 32 warps has at most one 16-column
+// slab (M <= 128) and Dh <= 64 (KMAX_STEPS steps of 8 in K: 64 registers
+// a thread); other widths read omega from shared memory through
+// tc_mma_f32.  One rule, for the kernel and its launch's shared memory.
+constexpr int KMAX_STEPS = 8;
+__host__ __device__ constexpr bool kmax_omega_in_registers(int Dh, int M) {
+  return Dh <= 8 * KMAX_STEPS && M <= 16 * (THREADS / 32);
+}
 
-  float mx = -INFINITY;
-  const int RT = C / 4, NT = M / 4;
-  for (int t = threadIdx.x; t < RT * NT; t += blockDim.x) {
-    const int it = t / NT, jt = t - it * NT;
-    float acc[4][4];
-    zero4x4(acc);
-    mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, RT, om, M, 1, jt, NT, Dh);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = it + r * RT;
-      if (i < n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) mx = fmaxf(mx, acc[r][c] - sq[i]);
-    }
+// cp.async the n rows of D bf16 values at src, ld apart, into raw [C][D]
+// (D a multiple of 8, src 16-byte aligned, as the wrappers check), one
+// commit group; rows past n are not fetched
+__device__ __forceinline__ void fetch_rows_async(__nv_bfloat16* raw, const __nv_bfloat16* src,
+                                                 int n, int D, int ld) {
+  const int V = D / 8;
+  for (int idx = threadIdx.x; idx < n * V; idx += blockDim.x) {
+    const int i = idx / V, v = idx - i * V;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(raw + i * D + 8 * v)),
+                 "l"(src + (size_t)i * ld + 8 * v));
   }
+  asm volatile("cp.async.commit_group;");
+}
+
+// The chunk's rows for the key max's register path (Dh <= 64): x = raw
+// [C][Dh] times scale as load_rows_tc makes it (0 for rows i >= n), split
+// to TF32 once into xh, xl [C][Dh+1] for every warp's product, and sq[i] =
+// ||x_i||^2 / 2 as row_sq_tc sums it (lane l takes d = l, then l + 32,
+// then warp_sum's butterfly), each warp's C / 8 rows at once: one pass, no
+// f32 copy of the rows.  Ends with __syncthreads().
+__device__ __forceinline__ void kmax_rows_tc(uint32_t* xh, uint32_t* xl, float* sq,
+                                             const __nv_bfloat16* raw, int n, int Dh,
+                                             float scale) {
+  constexpr int NW = THREADS / 32, R = C / NW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float sum[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = warp + r * NW;
+    sum[r] = 0.f;
+#pragma unroll
+    for (int d = lane; d < 8 * KMAX_STEPS; d += 32)
+      if (d < Dh) {
+        const float x = i < n ? __bfloat162float(raw[i * Dh + d]) * scale : 0.f;
+        split_tf32(x, xh[i * (Dh + 1) + d], xl[i * (Dh + 1) + d]);
+        sum[r] = fmaf(x, x, sum[r]);
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+  if (lane == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) sq[warp + r * NW] = 0.5f * sum[r];
+  __syncthreads();
+}
+
+// the block's max of each thread's mx, stored by thread 0 at *dst
+__device__ __forceinline__ void store_block_max(float mx, float* red, float* dst) {
   mx = warp_max(mx);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
   __syncthreads();
   if (threadIdx.x < 32) {
     mx = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : -INFINITY;
     mx = warp_max(mx);
-    if (threadIdx.x == 0) partial[(size_t)row * nch + chunk] = mx;
+    if (threadIdx.x == 0) *dst = mx;
+  }
+}
+
+// The bf16 key max of chunks [c0, c1) of one row (k at the row's first
+// position, partial at its first chunk's max), omega's columns in
+// registers (kmax_omega_in_registers): warp w keeps its 16 columns split to
+// TF32 for all the chunks, as tc_mma_f32 would split them at each use; the
+// rows come in by cp.async, the next chunk's while this one computes.
+__device__ void kmax_chunks_regs(float* smem, const __nv_bfloat16* k, const float* omega,
+                                 float* partial, int c0, int c1, int L, int Dh, int M,
+                                 int ld, float scale) {
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][C][Dh]
+  uint32_t* xh = reinterpret_cast<uint32_t*>(smem + C * Dh);     // [C][Dh+1]
+  uint32_t* xl = xh + C * (Dh + 1);                              // [C][Dh+1]
+  float* sq = reinterpret_cast<float*>(xl + C * (Dh + 1));       // [C]
+  float* red = sq + C;                                           // [32]
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int j0 = 16 * (threadIdx.x >> 5), steps = Dh / 8;
+  uint32_t bh[KMAX_STEPS][2][2], bl[KMAX_STEPS][2][2];
+  if (j0 < M) {
+#pragma unroll
+    for (int s = 0; s < KMAX_STEPS; ++s)
+      if (s < steps)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            split_tf32(omega[(tf32_k(s, Dh, t) + e) * M + j0 + 8 * nt + g], bh[s][nt][e],
+                       bl[s][nt][e]);
+  }
+  fetch_rows_async(raw, k + (size_t)c0 * C * ld, min(C, L - c0 * C), Dh, ld);
+  for (int c = c0; c < c1; ++c) {
+    const int r0 = c * C, n = min(C, L - r0);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (c + 1 < c1)
+      fetch_rows_async(raw + ((c + 1 - c0) & 1) * C * Dh, k + (size_t)(r0 + C) * ld,
+                       min(C, L - r0 - C), Dh, ld);
+    kmax_rows_tc(xh, xl, sq, raw + ((c - c0) & 1) * C * Dh, n, Dh, scale);
+    // tc_mma_f32's steps on the split rows and registers, the warp's C / 16
+    // row groups at once (independent accumulators)
+    float mx = -INFINITY;
+    if (j0 < M) {
+      constexpr int G = C / 16;
+      float acc[G][2][4] = {};
+#pragma unroll
+      for (int s = 0; s < KMAX_STEPS; ++s)
+        if (s < steps) {
+          const int kk = tf32_k(s, Dh, t);
+#pragma unroll
+          for (int q = 0; q < G; ++q) {
+            const int a0 = (16 * q + g) * (Dh + 1) + kk, a1 = a0 + 8 * (Dh + 1);
+            const uint32_t ah[4] = {xh[a0], xh[a1], xh[a0 + 1], xh[a1 + 1]};
+            const uint32_t al[4] = {xl[a0], xl[a1], xl[a0 + 1], xl[a1 + 1]};
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              mma_tf32(acc[q][nt], al, bh[s][nt]);
+              mma_tf32(acc[q][nt], ah, bl[s][nt]);
+              mma_tf32(acc[q][nt], ah, bh[s][nt]);
+            }
+          }
+        }
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        tc_each<2>(acc[q], 16 * q, j0, [&](int i, int, float x) {
+          if (i < n) mx = fmaxf(mx, x - sq[i]);
+        });
+    }
+    store_block_max(mx, red, partial + c);
+  }
+}
+
+// The same at other widths: omega padded to [Dh][M+1] in shared memory,
+// the rows by load_rows_tc, the product through tc_mma_f32.
+__device__ void kmax_chunks_smem(float* smem, const __nv_bfloat16* k, const float* omega,
+                                 float* partial, int c0, int c1, int L, int Dh, int M,
+                                 int ld, float scale) {
+  float* om = smem;                    // [Dh][M+1]
+  float* xs = om + Dh * (M + 1);       // [C][Dh+1]
+  float* sq = xs + C * (Dh + 1);       // [C]
+  float* red = sq + C;                 // [32]
+  omega_padded(om, omega, Dh, M);      // once for the block's chunks
+  for (int c = c0; c < c1; ++c) {
+    const int r0 = c * C, n = min(C, L - r0);
+    load_rows_tc(xs, k + (size_t)r0 * ld, n, Dh, ld, scale);
+    __syncthreads();
+    row_sq_tc(sq, xs, Dh);
+    float mx = -INFINITY;
+    tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
+      tc_mma_f32<2>(acc, xs, Dh + 1, 1, i0, om, M + 1, 1, j0, Dh);
+      tc_each<2>(acc, i0, j0, [&](int i, int, float x) {
+        if (i < n) mx = fmaxf(mx, x - sq[i]);
+      });
+    });
+    store_block_max(mx, red, partial + c);
+  }
+}
+
+template <class T, bool HL>
+__global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restrict__ omega,
+                                  float* __restrict__ partial, int L, int Dh, int M,
+                                  int n_head, float scale, int per_block) {
+  // bf16: h on the tensor cores, per_block consecutive chunks of the row a
+  // block (Dh and M multiples of 16 and k 16-byte aligned, which the
+  // wrappers check); f32: one chunk a block on 4x4 tiles
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+  const int H = HL ? n_head : 1;
+  extern __shared__ float smem[];
+  const int row = blockIdx.y, nch = (L + C - 1) / C;
+
+  if constexpr (TC) {
+    // either path computes h bit for bit as features_tc does (the note at
+    // the top)
+    const int c0 = blockIdx.x * per_block, c1 = min(nch, c0 + per_block);
+    k += row_base(row, H, L, Dh);
+    partial += (size_t)row * nch;
+    if (kmax_omega_in_registers(Dh, M))
+      kmax_chunks_regs(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
+    else
+      kmax_chunks_smem(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
+  } else {
+    float* om = smem;                    // [Dh][M]
+    float* xs = om + Dh * M;             // [C][Dh+1]
+    float* sq = xs + C * (Dh + 1);       // [C]
+    float* red = sq + C;                 // [32]
+    const int chunk = blockIdx.x;
+    const int r0 = chunk * C, n = min(C, L - r0);
+    for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
+    // the head-major address keeps its original form: through row_base this
+    // short kernel measured 4.6% slower on the H100 (kernel_ab.py)
+    load_scaled<T>(xs, sq,
+                   HL ? k + row_base(row, H, L, Dh) + (size_t)r0 * H * Dh
+                      : k + ((size_t)row * L + r0) * Dh,
+                   n, Dh, H * Dh, scale);
+
+    float mx = -INFINITY;
+    const int RT = C / 4, NT = M / 4;
+    for (int t = threadIdx.x; t < RT * NT; t += blockDim.x) {
+      const int it = t / NT, jt = t - it * NT;
+      float acc[4][4];
+      zero4x4(acc);
+      mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, RT, om, M, 1, jt, NT, Dh);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = it + r * RT;
+        if (i < n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mx = fmaxf(mx, acc[r][c] - sq[i]);
+      }
+    }
+    store_block_max(mx, red, partial + (size_t)row * nch + chunk);
   }
 }
 
@@ -329,13 +526,27 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
 template <class T, bool HL>
 int launch_kmax(const void* k, const float* omega, float* partial, int BH, int H, int L,
                 int Dh, int M, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (Dh * M + C * (Dh + 1) + C + 32);
+  // bf16: per consecutive chunks a block, so that omega is read and split
+  // once for them and the next chunk's rows load while one computes: the
+  // most of 8, 4 and 2 that still leaves 512 blocks, about two waves at
+  // two blocks an SM, else 1 (kernel_sections.py --kmax: 8 fastest at B=16
+  // L=2048 and 3072, 1 and 2 at the serving path's 256 chunks)
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+  const int nch = (L + C - 1) / C;
+  int per = 1;
+  while (TC && per < 8 && BH * nch / (2 * per) >= 512) per *= 2;
+  // f32: omega [Dh][M] and the rows [C][Dh+1]; bf16: the same with omega
+  // [Dh][M+1], or two chunks' raw rows and their TF32 split
+  const int rows = !TC ? Dh * M + C * (Dh + 1)
+                       : kmax_omega_in_registers(Dh, M) ? C * Dh + 2 * C * (Dh + 1)
+                                                        : Dh * (M + 1) + C * (Dh + 1);
+  const size_t smem = sizeof(float) * (rows + C + 32);
   cudaError_t err = allow_smem(favor_kmax_kernel<T, HL>, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + C - 1) / C, BH);
+  dim3 grid((nch + per - 1) / per, BH);
   favor_kmax_kernel<T, HL><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega,
                                                         partial, L, Dh, M, H,
-                                                        feature_scale(Dh));
+                                                        feature_scale(Dh), per);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Tensor-core helpers shared by the bf16 instantiations of the FAVOR+
-// kernels: the forward (favor_fwd.cu) and both backward passes
-// (favor_bwd.cu).  Like favor_common.cuh, they live in an anonymous
+// kernels: the key max and the forward (favor_fwd.cu) and both backward
+// passes (favor_bwd.cu).  Like favor_common.cuh, they live in an anonymous
 // namespace, so each library gets its own copy; ops/_build.py hashes every
 // header with each source, so an edit here rebuilds both.  linear_attn.cu
 // does not include this header.
@@ -35,14 +35,19 @@
 
 namespace {
 
-// omega [Dh][M] -> shared [Dh][M+1]; the state and its vector to zero; returns
-// the row's key stabilizer, the max of favor_kmax's partial maxima.
-__device__ float setup(float* om, const float* omega, float* state, float* vec,
-                       const float* partial, int Dh, int Dv, int M, int np) {
+// omega [Dh][M] -> shared [Dh][M+1], the layout features_tc reads
+__device__ __forceinline__ void omega_padded(float* om, const float* omega, int Dh, int M) {
   for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) {
     const int d = i / M, m = i - d * M;
     om[d * (M + 1) + m] = omega[i];
   }
+}
+
+// omega_padded; the state and its vector to zero; returns the row's key
+// stabilizer, the max of favor_kmax's partial maxima.
+__device__ float setup(float* om, const float* omega, float* state, float* vec,
+                       const float* partial, int Dh, int Dv, int M, int np) {
+  omega_padded(om, omega, Dh, M);
   for (int i = threadIdx.x; i < M * (Dv + 1); i += blockDim.x) state[i] = 0.f;
   for (int i = threadIdx.x; i < M; i += blockDim.x) vec[i] = 0.f;
   float kmax = -INFINITY;
@@ -182,6 +187,14 @@ __device__ __forceinline__ void tc_mma_f32(float (*acc)[4], const float* A, int 
     step(k0 + 4 * t);
     step(k0 + 4 * t + 2);
   }
+}
+
+// lane t's first K slot in step s of tc_mma_f32 over K (the slots kk and
+// kk + 1), for a caller that holds an operand's fragments itself: kk = k0 +
+// 8t + 2s' in a 32-wide run, k0 + 4t + 2s' in a 16-wide tail (s' = s % 4)
+__device__ __forceinline__ int tf32_k(int s, int K, int t) {
+  const int k0 = 32 * (s / 4);
+  return k0 + (k0 + 32 <= K ? 8 * t : 4 * t) + 2 * (s % 4);
 }
 
 // features' function for the bf16 instantiations, its h = xs . omega in

@@ -387,17 +387,54 @@ def _check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None
                          f'contiguous={t.is_contiguous()})')
 
 
+def _favor_tile(dtype) -> int:
+    """The multiple the FAVOR+ key max, forward and both backward passes
+    take for Dh, Dv and M: 16 under bf16, whose products run on the tensor
+    cores in 16-wide steps (mma m16n8k16), 4 in f32 (4 x 4 register
+    tiles)."""
+    return 16 if dtype == torch.bfloat16 else 4
+
+
+def _width_rule(tile) -> str:
+    return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
+
+
+def _check_aligned(name, tensors) -> None:
+    """Under bf16 the FAVOR+ key max, forward and both backward passes
+    load their rows 16 bytes at a time."""
+    for n, t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
+                             f'boundary (got an offset of {t.data_ptr() % 16})')
+
+
+def _check_kmax_inputs(k2, omega):
+    """Raise unless ``favor_kmax`` takes these, on k's device; (BH, L, Dh,
+    M).  Under bf16 the kernel runs on the tensor cores with 16-byte loads,
+    as the forward does: Dh and M multiples of 16, k 16-byte aligned; in
+    f32, M a multiple of 4."""
+    dev = k2.device
+    _check_tensor('k', k2, (torch.float32, torch.bfloat16), 3, dev)
+    _check_tensor('omega', omega, (torch.float32,), 2, dev)
+    BH, L, Dh = k2.shape
+    M = omega.shape[1]
+    if omega.shape[0] != Dh:
+        raise ValueError(f'favor_kmax: omega {tuple(omega.shape)} vs Dh={Dh}')
+    if _favor_tile(k2.dtype) == 16 and (Dh % 16 or M % 16):
+        raise ValueError(f'favor_kmax: Dh={Dh} and M={M} must be '
+                         f'{_width_rule(16)}')
+    if M % 4:
+        raise ValueError(f'favor_kmax: M={M} must be a multiple of 4')
+    _check_aligned('favor_kmax', (('k', k2),))
+    return BH, L, Dh, M
+
+
 def _favor_kmax_cuda(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """Launch ``favor_kmax``: per-chunk key maxima [BH, ceil(L/64)] f32 (the
     row's stabilizer is their max, taken by ``favor_fwd``)."""
     dev = k2.device
-    _check_cuda('k', k2, (torch.float32, torch.bfloat16), 3, dev)
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
-    BH, L, Dh = k2.shape
-    M = omega.shape[1]
-    if omega.shape[0] != Dh or M % 4:
-        raise ValueError(f'favor_kmax: omega {tuple(omega.shape)} vs Dh={Dh}; '
-                         f'M must be a multiple of 4')
+    _require_cuda(dev)
+    BH, L, Dh, M = _check_kmax_inputs(k2, omega)
     partial = torch.empty(BH, -(-L // KERNEL_CHUNK), dtype=torch.float32,
                           device=dev)
     lib = _lib()
@@ -407,26 +444,6 @@ def _favor_kmax_cuda(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, 'favor_kmax')
     _build.LAUNCHES['favor_kmax'] += 1
     return partial
-
-
-def _favor_tile(dtype) -> int:
-    """The multiple the FAVOR+ forward and both backward passes take for
-    Dh, Dv and M: 16 under bf16, whose products run on the tensor cores in
-    16-wide steps (mma m16n8k16), 4 in f32 (4 x 4 register tiles)."""
-    return 16 if dtype == torch.bfloat16 else 4
-
-
-def _width_rule(tile) -> str:
-    return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
-
-
-def _check_aligned(name, tensors) -> None:
-    """Under bf16 the FAVOR+ forward and both backward passes load their
-    rows 16 bytes at a time."""
-    for n, t in tensors:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
-                             f'boundary (got an offset of {t.data_ptr() % 16})')
 
 
 def _check_favor_shapes(name, q2, k2, v2, omega, partial, tile=4):
@@ -693,14 +710,25 @@ def _hl_shapes(name, q, omega, n_head, tile=4):
     return B, L, Dh, M
 
 
+def _check_kmax_hl_inputs(k, omega, n_head):
+    """Raise unless ``favor_kmax_hl`` takes these, on k's device; (B, L, Dh,
+    M).  The shape check (M <= 128 first) comes first, since the op's first
+    launch is this one; the widths and alignment as
+    :func:`_check_kmax_inputs`, but Dh a multiple of 4 in f32 too."""
+    B, L, Dh, M = _hl_shapes('favor_kmax_hl', k, omega, n_head,
+                             _favor_tile(k.dtype))
+    _check_tensor('k', k, (torch.float32, torch.bfloat16), 3, k.device)
+    _check_tensor('omega', omega, (torch.float32,), 2, k.device)
+    _check_aligned('favor_kmax_hl', (('k', k),))
+    return B, L, Dh, M
+
+
 def _favor_kmax_hl_cuda(k, omega, n_head):
     """Launch ``favor_kmax_hl`` on heads-last k [B, L, H * Dh]: per-chunk key
-    maxima [B * H, ceil(L/64)] f32, row b * H + h.  The first launch of the
-    op, so its shape check (M <= 128 first) comes before the device's."""
-    B, L, Dh, M = _hl_shapes('favor_kmax_hl', k, omega, n_head)
+    maxima [B * H, ceil(L/64)] f32, row b * H + h."""
+    B, L, Dh, M = _check_kmax_hl_inputs(k, omega, n_head)
     dev = k.device
-    _check_cuda('k', k, (torch.float32, torch.bfloat16), 3, dev)
-    _check_cuda('omega', omega, (torch.float32,), 2, dev)
+    _require_cuda(dev)
     partial = torch.empty(B * n_head, -(-L // KERNEL_CHUNK), dtype=torch.float32,
                           device=dev)
     lib = _lib()

@@ -12,13 +12,15 @@ the same seeded inputs, the outputs compared, and each kernel's time.
   ``favor_fwd``, ``favor_bwd_a``, ``favor_bwd_b``) at the shapes of the
   kernel table in PERF.md (bf16: kmax and fwd at B=2 L=1024 and B=16
   L=2048, all four at B=16 L=3072; f32 at a ragged L=1000), and the
-  heads-last #9 ``favor_fwd_hl``, #10 ``favor_bwd_a_hl`` and #11
-  ``favor_bwd_b_hl`` at B=16 L=3072 bf16 on the same values.  Pass B is
-  fed a (u, w) drawn from the seed, not pass A's, so its outputs do not
-  depend on pass A.  Outputs are compared bit for bit, except the bf16
-  outputs of the forward and the backward passes (#2-#4, #9-#11), whose
-  tensor-core products may sum in another order: by the largest relative
-  difference;
+  heads-last #8 ``favor_kmax_hl``, #9 ``favor_fwd_hl``, #10
+  ``favor_bwd_a_hl`` and #11 ``favor_bwd_b_hl`` at B=16 L=3072 bf16 on the
+  same values.  Under bf16, #2-#4 and #9-#11 take the partial maxima of
+  the f32 key max on ``k.float()``, and pass B a (u, w) drawn from the
+  seed, not pass A's, so that their outputs do not depend on the bf16 key
+  max or on pass A.  Outputs are compared bit for bit, except the bf16 key
+  max's (#1, #8), whose design changes the order of its sums: by the
+  largest relative difference.  The key max is also timed as the
+  profiler's device time beside the CUDA events;
 * ``decode``: #12 ``performer_decode_layer``, one serving step of 12 layers
   at B=16 with bf16 weights from zero state; its output and the layers'
   (S, z) are compared by the largest relative difference, and its time is
@@ -96,11 +98,18 @@ def save_favor(dev, gen, outs, times):
         tag = f'{dt} B={B} L={L}'
         part = la._favor_kmax_cuda(k, omega)
         outs[f'favor_kmax {tag}'] = part
+        times[f'favor_kmax {tag}'] = time_ms(lambda: la._favor_kmax_cuda(k, omega))
+        # at tens of microseconds CUDA events time the wrapper's host work too
+        dev_ms, _ = device_ms(lambda: la._favor_kmax_cuda(k, omega), 1)
+        if dev_ms is not None:
+            times[f'favor_kmax device {tag}'] = dev_ms
+        if dt == 'bf16':
+            # the kernels after it take the f32 key max's partial maxima
+            relative.append(f'favor_kmax {tag}')
+            part = la._favor_kmax_cuda(k.float(), omega)
+            outs[f'favor_kmax f32 of {tag}'] = part
         if 'fwd' in what:
             outs[f'favor_fwd {tag}'] = la._favor_fwd_cuda(q, k, v, omega, part)
-            if dt == 'bf16':
-                relative.append(f'favor_fwd {tag}')
-            times[f'favor_kmax {tag}'] = time_ms(lambda: la._favor_kmax_cuda(k, omega))
             times[f'favor_fwd {tag}'] = time_ms(
                 lambda: la._favor_fwd_cuda(q, k, v, omega, part))
         if 'bwd' in what:
@@ -110,31 +119,30 @@ def save_favor(dev, gen, outs, times):
             dk, dv = la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part)
             for name, t in (('dq', dq), ('u', u), ('w', w), ('dk', dk), ('dv', dv)):
                 outs[f'favor_bwd {name} {tag}'] = t
-                if dt == 'bf16':
-                    relative.append(f'favor_bwd {name} {tag}')
             times[f'favor_bwd_a {tag}'] = time_ms(
                 lambda: la._favor_bwd_a_cuda(q, k, v, g, omega, part))
             times[f'favor_bwd_b {tag}'] = time_ms(
                 lambda: la._favor_bwd_b_cuda(q, k, v, u_in, w_in, omega, part))
             if dt == 'bf16':
-                # #9-#11 on the same values, heads-last [B, L, H * Dh]
+                # #8-#11 on the same values, heads-last [B, L, H * Dh]; the
+                # partial's rows b * H + h are the split heads'
                 hq, hk, hv, hg, hu = (la._merge_heads(t, B) for t in (q, k, v, g, u_in))
-                hpart = la._favor_kmax_hl_cuda(hk, omega, N_HEAD)
-                outs[f'favor_fwd_hl {tag}'] = la._favor_fwd_hl_cuda(hq, hk, hv, omega, hpart,
-                                                                   N_HEAD)
-                relative.append(f'favor_fwd_hl {tag}')
+                outs[f'favor_kmax_hl {tag}'] = la._favor_kmax_hl_cuda(hk, omega, N_HEAD)
+                relative.append(f'favor_kmax_hl {tag}')
+                times[f'favor_kmax_hl {tag}'] = time_ms(
+                    lambda: la._favor_kmax_hl_cuda(hk, omega, N_HEAD))
+                outs[f'favor_fwd_hl {tag}'] = la._favor_fwd_hl_cuda(hq, hk, hv, omega, part,
+                                                                    N_HEAD)
                 times[f'favor_fwd_hl {tag}'] = time_ms(
-                    lambda: la._favor_fwd_hl_cuda(hq, hk, hv, omega, hpart, N_HEAD))
-                hl_a = la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD)
-                hl_b = la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, hpart, N_HEAD)
+                    lambda: la._favor_fwd_hl_cuda(hq, hk, hv, omega, part, N_HEAD))
+                hl_a = la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, part, N_HEAD)
+                hl_b = la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, part, N_HEAD)
                 for name, t in zip(('dq', 'u', 'w', 'dk', 'dv'), hl_a + hl_b):
                     outs[f'favor_bwd_hl {name} {tag}'] = t
-                    relative.append(f'favor_bwd_hl {name} {tag}')
                 times[f'favor_bwd_a_hl {tag}'] = time_ms(
-                    lambda: la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, hpart, N_HEAD))
+                    lambda: la._favor_bwd_a_hl_cuda(hq, hk, hv, hg, omega, part, N_HEAD))
                 times[f'favor_bwd_b_hl {tag}'] = time_ms(
-                    lambda: la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, hpart,
-                                                    N_HEAD))
+                    lambda: la._favor_bwd_b_hl_cuda(hq, hk, hv, hu, w_in, omega, part, N_HEAD))
     return relative
 
 

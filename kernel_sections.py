@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the FAVOR+ forward's and backward passes' time goes inside a
-chunk, on the GPU.
+chunk, on the GPU; and the bf16 key max at each number of chunks a block.
 
     python3 kernel_sections.py
+    python3 kernel_sections.py --kmax
 
 Writes instrumented copies of ``emo_disentanger_tpu_torch/csrc/favor_fwd.cu``
 and ``favor_bwd.cu`` to ``build/sections/`` (with the headers beside
@@ -22,8 +23,20 @@ Last, it counts the opcodes of the bf16 kernels in the built libraries
 (``cuobjdump -sass``: instructions in the code, not executed): the forward
 in both layouts, each backward pass head-major.  The repository's own
 sources are not touched.
+
+``--kmax`` instead writes copies of ``favor_fwd.cu`` to
+``build/sections/kmax<n>/`` in which the bf16 key max (#1 ``favor_kmax``,
+#8 ``favor_kmax_hl``) takes n = 1, 2, 4 or 8 chunks a block whatever the
+launch's size (``launch_kmax``'s rule replaced), and one more,
+``kmax8s``, with 8 a block and omega read from shared memory instead of
+registers (``kmax_omega_in_registers`` false); builds the five at once,
+prints ptxas's registers for the bf16 key max, checks that all five give
+the same partial maxima bit for bit, and times each (CUDA events) in
+turns (1, 2, 4, 8, 8s, 8s, 8, 4, 2, 1) at B=16 L=3072 in both layouts,
+B=16 L=2048 and B=2 L=1024.
 """
 
+import argparse
 import ctypes
 import os
 import re
@@ -95,28 +108,116 @@ def instrument(source='favor_bwd.cu'):
     return src, ends
 
 
-def time_launch(run):
-    """ms of one launch (CUDA events over 10), then one more launch whose
-    section counts stay in g_sections."""
-    run()
+KMAX_RULE = 'while (TC && per < 8 && BH * nch / (2 * per) >= 512) per *= 2;'
+KMAX_REGS = 'return Dh <= 8 * KMAX_STEPS && M <= 16 * (THREADS / 32);'
+# (name, chunks a block, omega in registers where the widths allow)
+KMAX_VARIANTS = (('1', 1, True), ('2', 2, True), ('4', 4, True), ('8', 8, True),
+                 ('8s', 8, False))
+
+
+def kmax_variant(per, regs=True):
+    """``favor_fwd.cu`` with the bf16 key max's chunks a block fixed at
+    ``per``, in place of ``launch_kmax``'s rule, and without ``regs``
+    omega read from shared memory at every width."""
+    src = (CSRC / 'favor_fwd.cu').read_text()
+    if src.count(KMAX_RULE) != 1 or src.count(KMAX_REGS) != 1:
+        raise RuntimeError("the key max's rules are not in favor_fwd.cu as expected")
+    src = src.replace(KMAX_RULE, f'if (TC) per = {per};')
+    return src if regs else src.replace(KMAX_REGS, 'return false;')
+
+
+def time_kmax_variants(smi):
+    """Build the ``kmax_variant`` copies at once, then check and time each
+    in turns at the main path's shapes (the docstring's ``--kmax``)."""
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    jobs, libs = {}, {}
+    for name, per, regs in KMAX_VARIANTS:
+        _build.CSRC = OUT / f'kmax{name}'
+        _build.BUILD_DIR = _build.CSRC / 'kernels'
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        (_build.CSRC / 'favor_fwd.cu').write_text(kmax_variant(per, regs))
+        for header in CSRC.glob('*.cuh'):
+            shutil.copy(header, _build.CSRC / header.name)
+        target = _build._target('favor_fwd')
+        jobs[name] = (_build.CSRC, target, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(target),
+             str(_build.CSRC / 'favor_fwd.cu')],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (csrc, target, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'kmax{name}: nvcc exited {proc.returncode}\n{text}')
+        entry = ''
+        for line in text.splitlines() if name in ('1', '8s') else ():
+            if 'Compiling entry function' in line:
+                entry = line
+            if 'favor_kmax_kernelI13__nv_bfloat16' in entry:
+                print(f'kernel_sections --kmax {name} ptxas: ' + line.strip())
+        _build.CSRC, _build.BUILD_DIR = csrc, target.parent
+        _build._libs.pop('favor_fwd', None)
+        libs[name] = la._lib()
+    dev, H = torch.device('cuda'), 8
+    gen = torch.Generator().manual_seed(0)
+    omega = la.draw_orthogonal_features(64, 128, gen).to(dev)
+    for layout, B, L in (('head-major', 16, 3072), ('heads-last', 16, 3072),
+                         ('head-major', 16, 2048), ('head-major', 2, 1024)):
+        k = (0.5 * torch.randn(B * H, L, 64, generator=gen)).to(dev, torch.bfloat16)
+        if layout == 'heads-last':
+            k = la._merge_heads(k, B)
+            run = lambda: la._favor_kmax_hl_cuda(k, omega, H)
+        else:
+            run = lambda: la._favor_kmax_cuda(k, omega)
+        parts, ms = {}, {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            _build._libs['favor_fwd'] = libs[name]
+            parts[name] = run()
+            ms[name].append(mean_ms(run, 50, 3))
+        same = all(torch.equal(part, parts['1']) for part in parts.values())
+        print(f'kernel_sections --kmax bf16 {layout} B={B} H={H} L={L} [{smi}]: '
+              + ', '.join(f'{name} a block {t[0]:.4f} / {t[1]:.4f} ms'
+                          for name, t in ms.items())
+              + f'; partial maxima {"bitwise equal" if same else "DIFFER"} across them')
+        if not same:
+            raise RuntimeError('the key max depends on its chunks a block')
+
+
+def mean_ms(run, iters, warmup):
+    """Mean ms of one launch from CUDA events over ``iters``."""
+    for _ in range(warmup):
+        run()
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    for _ in range(10):
+    for _ in range(iters):
         run()
     stop.record()
     stop.synchronize()
-    ms = start.elapsed_time(stop) / 10
+    return start.elapsed_time(stop) / iters
+
+
+def time_launch(run):
+    """ms of one launch (CUDA events over 10), then one more launch whose
+    section counts stay in g_sections."""
+    ms = mean_ms(run, 10, 1)
     run()
     torch.cuda.synchronize()
     return ms
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--kmax', action='store_true',
+                    help='time the bf16 key max at 1, 2, 4 and 8 chunks a block')
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print('kernel_sections: CUDA is not available', file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    smi = os.popen('nvidia-smi --query-gpu=name,power.limit --format=csv,noheader').read().strip()
+    if args.kmax:
+        time_kmax_variants(smi)
+        return 0
     from emo_disentanger_tpu_torch.ops import _build
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     OUT.mkdir(parents=True, exist_ok=True)
@@ -132,7 +233,6 @@ def main():
     gen = torch.Generator().manual_seed(0)
     omega = la.draw_orthogonal_features(64, 128, gen).to(dev)
     chunks = -(-L // la.KERNEL_CHUNK)
-    smi = os.popen('nvidia-smi --query-gpu=name,power.limit --format=csv,noheader').read().strip()
     for layout in ('head-major', 'heads-last'):
         q, k, v, g = [(0.5 * torch.randn(B * H, L, 64, generator=gen)).to(dev, torch.bfloat16)
                       for _ in range(4)]

@@ -1,18 +1,23 @@
-"""The wrappers of kernels #12, #13, the FAVOR+ forward (#2, #9) and the
-backward passes A (#3, #10) and B (#4, #11) refuse what their kernels do
-not take, before anything is built or launched.
+"""The wrappers of kernels #12, #13, the FAVOR+ key max (#1, #8), forward
+(#2, #9) and the backward passes A (#3, #10) and B (#4, #11) refuse what
+their kernels do not take, before anything is built or launched.
 
-``_flash_attention_cuda``, ``_decode_layer_cuda``, the forward's
+``_flash_attention_cuda``, ``_decode_layer_cuda``, the key max's
+``_favor_kmax_cuda`` and ``_favor_kmax_hl_cuda``, the forward's
 ``_favor_fwd_cuda`` and ``_favor_fwd_hl_cuda`` and the backward passes'
 ``_favor_bwd_{a,b}_cuda`` and ``_favor_bwd_{a,b}_hl_cuda`` refuse CPU
 tensors (the public entry points would run the plain versions there); then
 each checks its inputs with a function (``_check_inputs``,
+``_check_kmax_inputs``, ``_check_kmax_hl_inputs``,
 ``_check_fwd_inputs``, ``_check_fwd_hl_inputs``,
 ``_check_bwd_{a,b}_inputs``, ``_check_bwd_{a,b}_hl_inputs``) that is
 called here on CPU tensors so that each bad dtype, shape or layout raises
 its own error.
 ``_build.library`` is replaced by a stub that fails the test, so none of
 these reaches nvcc or a launch."""
+
+import collections
+import types
 
 import pytest
 import torch
@@ -313,3 +318,88 @@ def test_favor_fwd_widths_in_f32(layout):
     dims = _check_fwd(layout, *_fwd(layout, Dh=40, Dv=40, M=36))
     assert dims == ((4, 80, 40, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
     assert _check_fwd(layout, *_fwd(layout, dtype=torch.bfloat16))[-1] == 32
+
+
+def _kmax(layout, **kw):
+    """The key max's inputs: k, omega (pass A's)."""
+    _, k, _, _, omega, _ = _pass_a(layout, **kw)
+    return k, omega
+
+
+def _kmax_cases(layout):
+    k, omega = args = _kmax(layout)
+    bf = torch.bfloat16
+    return {
+        'cpu': (args, 'CUDA tensors'),
+        'dtype of k': ((k.double(), omega), 'k has dtype'),
+        'dtype of omega': ((k, omega.double()), 'omega has dtype'),
+        'omega of another width': ((k, omega[:-1].contiguous()), r'omega \('),
+        'head width under bf16': (_kmax(layout, Dh=40, dtype=bf),
+                                  'multiples of 16 under bf16'),
+        'features under bf16': (_kmax(layout, M=40, dtype=bf),
+                                'multiples of 16 under bf16'),
+        'features in f32': (_kmax(layout, M=38), 'of 4'),
+        'misaligned k under bf16': (_misaligned(_kmax(layout, dtype=bf), 0),
+                                    'bf16 k must start on a 16-byte boundary'),
+    }
+
+
+def _check_kmax(layout, *args):
+    if layout == 'heads-last':
+        return la._check_kmax_hl_inputs(*args, 2)
+    return la._check_kmax_inputs(*args)
+
+
+@pytest.mark.parametrize('case', sorted(_kmax_cases('head-major')))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_kmax_refuses(layout, case):
+    args, match = _kmax_cases(layout)[case]
+    with pytest.raises(ValueError, match=match):
+        if case != 'cpu':
+            _check_kmax(layout, *args)
+        elif layout == 'heads-last':
+            la._favor_kmax_hl_cuda(*args, 2)
+        else:
+            la._favor_kmax_cuda(*args)
+
+
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_kmax_widths_in_f32(layout):
+    """f32 keeps its rule, M a multiple of 4 (heads-last, Dh too), so the
+    widths that bf16 refuses pass; bf16 takes multiples of 16 on aligned
+    k."""
+    dims = _check_kmax(layout, *_kmax(layout, Dh=40, M=36))
+    assert dims == ((4, 80, 40, 36) if layout == 'head-major' else (2, 80, 40, 36))
+    if layout == 'head-major':
+        assert _check_kmax(layout, *_kmax(layout, Dh=42, M=36)) == (4, 80, 42, 36)
+    assert _check_kmax(layout, *_kmax(layout, dtype=torch.bfloat16)) == (
+        (4, 80, 64, 32) if layout == 'head-major' else (2, 80, 64, 32))
+
+
+@pytest.mark.parametrize('L', [64, 80, 1000])
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_kmax_partial_shape(monkeypatch, layout, L):
+    """The wrappers give the kernel a partial [BH, ceil(L/64)] f32 on k's
+    device, one max per 64-row chunk, which the forward's check takes.  The
+    library, the device check and the stream are faked, so nothing is built
+    or launched; the launch count is restored with the rest."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+    monkeypatch.setattr(la, '_lib', Lib)
+    monkeypatch.setattr(la, '_require_cuda', lambda device: None)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_build, 'LAUNCHES', collections.Counter())
+    q, k, v, omega, _ = _fwd(layout, L=L, dtype=torch.bfloat16)
+    if layout == 'heads-last':
+        part, name = la._favor_kmax_hl_cuda(k, omega, 2), 'favor_kmax_hl'
+    else:
+        part, name = la._favor_kmax_cuda(k, omega), 'favor_kmax'
+    assert part.shape == (4, -(-L // 64)) and part.dtype == torch.float32
+    assert [(n, args[2]) for n, args in calls] == [(name, part.data_ptr())]
+    assert _build.LAUNCHES == {name: 1}
+    assert _check_fwd(layout, q, k, v, omega, part)[1] == L
+    monkeypatch.undo()

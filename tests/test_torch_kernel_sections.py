@@ -2,10 +2,13 @@
 and of both backward passes and nothing else: the copies it builds on the
 card stamp each section of the forward's, pass A's and pass B's loop, every
 added statement runs only under bf16 (``TC``), and the f32 paths and the
-entry points are left as they are.  On the CPU only the sources are made;
+entry points are left as they are.  Its ``--kmax`` copies change only the
+bf16 key max's chunks a block.  On the CPU only the sources are made;
 nothing is built."""
 
 import re
+
+import pytest
 
 import kernel_sections as ks
 
@@ -91,3 +94,21 @@ def test_instrument_stamps_each_section_of_the_forward():
 def test_instrument_leaves_forward_f32_path_and_entry_points_alone():
     """As above, for the forward's source."""
     test_instrument_leaves_f32_path_and_entry_points_alone('favor_fwd.cu')
+
+
+@pytest.mark.parametrize('name, per, regs', ks.KMAX_VARIANTS)
+def test_kmax_variant_fixes_chunks_a_block(name, per, regs):
+    """A ``--kmax`` copy differs from ``favor_fwd.cu`` only in the key
+    max's two rules: ``launch_kmax``'s chunks a block, replaced by a fixed
+    count under bf16 (f32 keeps one chunk a block), and, for the ``s``
+    copy, where omega is kept, replaced by shared memory at every width."""
+    original = (ks.CSRC / 'favor_fwd.cu').read_text().split('\n')
+    src = ks.kmax_variant(per, regs).split('\n')
+    assert len(src) == len(original)
+    diff = [(a.strip(), b.strip()) for a, b in zip(original, src) if a != b]
+    want = [] if regs else [(ks.KMAX_REGS, 'return false;')]
+    want.append((ks.KMAX_RULE, f'if (TC) per = {per};'))
+    assert diff == want and name.rstrip('s') == str(per)
+    launch = '\n'.join(original)
+    launch = launch[launch.index('int launch_kmax('):launch.index('int launch_fwd(')]
+    assert ks.KMAX_RULE in launch
