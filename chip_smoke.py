@@ -146,6 +146,12 @@ SCALAR_KMAX = {'favor_kmax B=2 L=1024': 0.0406, 'favor_kmax B=16 L=2048': 0.2497
                'favor_kmax B=16 L=3072': 0.3807, 'favor_kmax_hl B=16 L=3072': 0.3940,
                'step head-major': 3.96, 'step heads-last': 4.69,
                'wall head-major': 147.0, 'wall heads-last': 138.5}
+# the composed op's backward passes (#6, #7) while all their products ran as
+# 4x4 f32 register tiles, read by this script on the same card and limit
+# (after the key max's redesign): ms at BH=128 L=3072 M=128 Dv=64 f32 (phase
+# 6l) and the composed forward+backward (6l, two readings); printed beside
+# today's readings
+SCALAR_CLA = {'cla_bwd_a': 4.5395, 'cla_bwd_b': 4.2132, 'fwd+bwd composed': (16.5067, 16.5187)}
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -181,6 +187,10 @@ CLA_CASES = ((BF16_B, TRAIN_L, torch.float32, torch.float32),
              (ENTRY_B, 1000, torch.float32, torch.float32),
              (ENTRY_B, 1000, torch.bfloat16, torch.bfloat16),
              (ENTRY_B, 1000, torch.float32, torch.bfloat16))
+# (M, Dv) beside the composed path's (128, 64) for the backward passes at the
+# ragged L (f32): widths off 16, which the passes pad to 16 in shared
+# memory, and widths past 128 / 64
+CLA_WIDTHS = ((36, 20), (144, 80))
 # the composed FAVOR+ path's gradients against the fused op's: the same
 # function up to summation order, through the feature map's chain rule
 TOL_COMPOSED_GRAD = 1e-3
@@ -324,12 +334,15 @@ def cla_fwd_bound(BH, L, M, Dv, in_bytes):
     return bound(nbytes, fwd_products(BH, L, M, Dv) / F32_FLOP_PER_S)
 
 
-def cla_bwd_bound(BH, L, M, Dv, pass_a):
+def cla_bwd_bound(BH, L, M, Dv, pass_a, rate=F32_FLOP_PER_S, passes=1):
     """Kernel #6 or #7, f32: pass A reads phi_q, phi_k, v, g and writes
     dphi_q, u, w; pass B reads phi_q, phi_k, v, u, w and writes dphi_k, dv
-    -- 3 M + 3 Dv + 1 values a position both ways; no feature map."""
+    -- 3 M + 3 Dv + 1 values a position both ways; no feature map.  The
+    products count at ``rate``, ``passes`` times over (``TF32_FLOP_PER_S,
+    3``: 3xTF32, as both passes run them; the default f32 on the CUDA
+    cores)."""
     nbytes = BH * L * (3 * M + 3 * Dv + 1) * 4
-    return bound(nbytes, bwd_products(BH, L, M, Dv, pass_a) / F32_FLOP_PER_S)
+    return bound(nbytes, passes * bwd_products(BH, L, M, Dv, pass_a) / rate)
 
 
 def decode_bound(B, D, H, M, F, w_bytes, x_bytes):
@@ -684,25 +697,37 @@ def phase_kernel_hl(dev, rec):
                 max_abs(*pairs[n]) for n in ('dk', 'dv'))
 
 
-def cla_inputs(gen, B, L, dev):
+def cla_inputs(gen, B, L, dev, M=FAVOR, Dv=D_HEAD):
     """Kernels #5-#7's inputs as the composed path makes them: the FAVOR+
-    features of qkv()'s q and k (D_HEAD = 64, FAVOR = 128, f32) as
-    [B*H, L, FAVOR], v and a cotangent g as [B*H, L, D_HEAD]."""
+    features of qkv()'s q and k (D_HEAD = 64, M features, f32) as
+    [B*H, L, M], v and a cotangent g as [B*H, L, Dv]."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
-    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
-    q, k, v, g = (qkv(gen, B, N_HEAD, L, torch.float32, dev)
-                  + qkv(gen, B, N_HEAD, L, torch.float32, dev)[:1])
+    omega = la.draw_orthogonal_features(D_HEAD, M, gen).to(dev)
+    q, k = qkv(gen, B, N_HEAD, L, torch.float32, dev)[:2]
+    v, g = ((0.5 * torch.randn(B * N_HEAD, L, Dv, generator=gen)).to(dev)
+            for _ in range(2))
     flat = lambda t: t.reshape(B * N_HEAD, L, t.shape[-1])
     return (flat(la.favor_features(q, omega, is_query=True)),
-            flat(la.favor_features(k, omega, is_query=False)), flat(v), flat(g))
+            flat(la.favor_features(k, omega, is_query=False)), v, g)
+
+
+def cla_bwd_pairs(la, q, k, v, g, C):
+    """Passes A and B on the card beside their plain versions, pass B fed
+    the kernel's own (u, w): {name: (kernel, plain)}."""
+    dq, u, w = la._cla_bwd_a_cuda(q, k, v, g)
+    dk, dv = la._cla_bwd_b_cuda(q, k, v, u, w)
+    rdq, ru, rw = la._cla_bwd_a_plain(q, k, v, g, C)
+    rdk, rdv = la._cla_bwd_b_plain(q, k, v, u, w, C)
+    return dict(dphi_q=(dq, rdq), u=(u, ru), w=(w, rw), dphi_k=(dk, rdk), dv=(dv, rdv))
 
 
 def phase_kernel_cla(dev, rec):
     """Kernels #5-#7 against their plain versions at the kernels' chunk:
     the forward, pass A, and pass B fed the kernel's own (u, w), at the
     composed path's shape and a ragged L in f32; the forward also on bf16
-    features and v, and on f32 features with bf16 v (f32 out).  The
-    composed path's shape gives the recorded errors."""
+    features and v, and on f32 features with bf16 v (f32 out); then both
+    passes at the ragged L at the widths of CLA_WIDTHS.  The composed
+    path's shape gives the recorded errors."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     gen = torch.Generator().manual_seed(21)
     C = la.KERNEL_CHUNK
@@ -711,12 +736,7 @@ def phase_kernel_cla(dev, rec):
         q, k, v = q.to(dtype), k.to(dtype), v.to(v_dtype)
         pairs = {'out': (la._cla_fwd_cuda(q, k, v), la._cla_fwd_plain(q, k, v, C))}
         if dtype == v_dtype == torch.float32:
-            dq, u, w = la._cla_bwd_a_cuda(q, k, v, g)
-            dk, dv = la._cla_bwd_b_cuda(q, k, v, u, w)
-            rdq, ru, rw = la._cla_bwd_a_plain(q, k, v, g, C)
-            rdk, rdv = la._cla_bwd_b_plain(q, k, v, u, w, C)
-            pairs.update(dphi_q=(dq, rdq), u=(u, ru), w=(w, rw),
-                         dphi_k=(dk, rdk), dv=(dv, rdv))
+            pairs.update(cla_bwd_pairs(la, q, k, v, g, C))
         torch.cuda.synchronize()
         for name, (a, b) in pairs.items():
             expect(a.dtype == torch.float32 and a.shape == b.shape
@@ -736,6 +756,20 @@ def phase_kernel_cla(dev, rec):
                 max_abs(*pairs[n]) for n in ('dphi_q', 'u', 'w'))
             rec['cla_bwd_b']['max_abs_err'] = max(
                 max_abs(*pairs[n]) for n in ('dphi_k', 'dv'))
+    B, L = ENTRY_B, 1000
+    for M, Dv in CLA_WIDTHS:
+        pairs = cla_bwd_pairs(la, *cla_inputs(gen, B, L, dev, M, Dv), C)
+        torch.cuda.synchronize()
+        for name, (a, b) in pairs.items():
+            expect(a.dtype == torch.float32 and a.shape == b.shape
+                   and bool(torch.isfinite(a).all()),
+                   f'causal_linear_attention {name} M={M} Dv={Dv} dtype/shape/finite')
+        errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
+        print(f'phase 2l kernels #6-#7 f32 B={B} H={N_HEAD} L={L} M={M} Dv={Dv}: '
+              f'rel err {", ".join(f"{n} {e:.2e}" for n, e in errs.items())} '
+              f'(tol {TOL_F32})')
+        expect(max(errs.values()) <= TOL_F32,
+               f'causal_linear_attention backward passes M={M} Dv={Dv}')
 
 
 def phase_kernel_b(dev, rec):
@@ -1421,19 +1455,24 @@ def phase_timing_cla(dev, rec, smi):
         'cla_fwd': (time_ms(lambda: la._cla_fwd_cuda(q, k, v), iters=10),
                     time_ms(lambda: la._cla_fwd_plain(q, k, v, C), iters=3, warmup=1),
                     cla_fwd_bound(BH, L, FAVOR, D_HEAD, 4)),
-        'cla_bwd_a': (time_ms(lambda: la._cla_bwd_a_cuda(q, k, v, g), iters=5, warmup=1),
+        'cla_bwd_a': (time_ms(lambda: la._cla_bwd_a_cuda(q, k, v, g), iters=10, warmup=2),
                       time_ms(lambda: la._cla_bwd_a_plain(q, k, v, g, C),
                               iters=2, warmup=1),
-                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, True)),
-        'cla_bwd_b': (time_ms(lambda: la._cla_bwd_b_cuda(q, k, v, u, w), iters=5,
-                              warmup=1),
+                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, True, TF32_FLOP_PER_S, 3)),
+        'cla_bwd_b': (time_ms(lambda: la._cla_bwd_b_cuda(q, k, v, u, w), iters=10,
+                              warmup=2),
                       time_ms(lambda: la._cla_bwd_b_plain(q, k, v, u, w, C),
                               iters=2, warmup=1),
-                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, False)),
+                      cla_bwd_bound(BH, L, FAVOR, D_HEAD, False, TF32_FLOP_PER_S, 3)),
     }
     for name, (t, p, (b, by)) in times.items():
+        # the passes' bounds count their products in 3xTF32, as they run
+        # them; the f32 figure (CUDA cores) and the 4x4 design's time beside
+        more = ('' if name not in SCALAR_CLA else
+                f' in 3xTF32, {cla_bwd_bound(BH, L, FAVOR, D_HEAD, name == "cla_bwd_a")[0]:.4f}'
+                f' in f32 on the CUDA cores; on 4x4 f32 tiles {SCALAR_CLA[name]:.4f}')
         print(f'phase 6l kernel {name} f32 B={B} H={N_HEAD} L={L} M={FAVOR} '
-              f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (plain {p:.4f}, bound {b:.4f} {by})')
+              f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (plain {p:.4f}, bound {b:.4f} {by}{more})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
     del q, k, v, g, u, w
 
@@ -1466,8 +1505,8 @@ def phase_timing_cla(dev, rec, smi):
           f'L={L} Dh={D_HEAD} M={FAVOR} [{smi}], two readings each (CUDA events): '
           f'forward {fmt(res["fwd", "composed"])} ms composed, '
           f'{fmt(res["fwd", "fused"])} ms fused; forward+backward '
-          f'{fmt(res["fwd+bwd", "composed"])} ms composed, '
-          f'{fmt(res["fwd+bwd", "fused"])} ms fused')
+          f'{fmt(res["fwd+bwd", "composed"])} ms composed (on 4x4 f32 tiles '
+          f'{fmt(SCALAR_CLA["fwd+bwd composed"])}), {fmt(res["fwd+bwd", "fused"])} ms fused')
 
 
 def phase_profile(model, omegas, vocab, dev, smi):

@@ -534,20 +534,7 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
         tc_mma<2>(acc, pq, 1, MP, m0, uu, DVP, 1, d0, C);
         tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { R[m * DVP + d] += x; });
       });
-      // four lanes a feature, as add_col_sums_tc
-      for (int idx = tid; idx < 4 * M; idx += blockDim.x) {
-        const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
-        float s = 0.f;
-        for (int i0 = 0; i0 < C; i0 += 32)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int i = i0 + 8 * p + e;
-            s = fmaf(wv[i], pq[i * MP + m], s);
-          }
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (p == 0) r[m] += s;
-      }
+      add_wcol_sums_tc(r, pq, wv, M);
     } else {
       load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
       features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);

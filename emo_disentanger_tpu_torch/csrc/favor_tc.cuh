@@ -1,31 +1,36 @@
 // Tensor-core helpers shared by the bf16 instantiations of the FAVOR+
-// kernels: the key max and the forward (favor_fwd.cu) and both backward
-// passes (favor_bwd.cu).  Like favor_common.cuh, they live in an anonymous
+// kernels, the key max and the forward (favor_fwd.cu) and both backward
+// passes (favor_bwd.cu), and by the composed op's f32 backward passes
+// (linear_attn.cu).  Like favor_common.cuh, they live in an anonymous
 // namespace, so each library gets its own copy; ops/_build.py hashes every
-// header with each source, so an edit here rebuilds both.  linear_attn.cu
-// does not include this header.
+// header with each source, so an edit here rebuilds all three.
 //
 // The products whose operands the TPU kernels round to bf16 run as
 // mma.sync.m16n8k16 bf16 with f32 accumulation (tc_mma), which is exactly
 // what the TPU's bf16 dot with f32 accumulation computes; the omega
-// products, which the TPU keeps in f32, run in 3xTF32 on mma.sync.m16n8k8
-// (tc_mma_f32), f32-accurate to ~1e-6.  Each warp builds its fragments
+// products, which the TPU keeps in f32, and every product of the composed
+// op's f32 backward run in 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32),
+// f32-accurate to ~1e-6.  Each warp builds its fragments
 // from the kernels' f32 tiles in shared memory with scalar shared loads,
 // rounding two values into one register (__floats2bfloat162_rn, round to
 // nearest even, as rnd<T>).  The K slots of a 16-wide step are permuted
 // (the product does not depend on the order of K, only on A and B
 // agreeing): lane t takes the four consecutive k = k0 + 8t + 4s + {0..3}
 // in step s of each 32-wide pair (of a 16-wide tail, k0 + 4t + {0..3}).
-// Every tile has a row stride of 1 mod 32 (the +1 padding), so the 32
-// lanes (g = lane/4, t) of a load hit the banks g + 8t + const:
+// Every tile has an odd row stride (the +1 padding of a width that is a
+// multiple of 16, so 1 mod 32 at widths that are multiples of 32), so the
+// 32 lanes (g = lane/4, t) of a load hit the banks g * stride + 8t + const:
 // conflict-free, where the usual (2t, 2t+1) slots would meet 4-way.  The
 // same holds for an operand read transposed (k stepping a padded row):
-// each step of k moves a stride of 1 mod 32 banks.  The block's warps
+// each step of k moves an odd stride of banks.  The block's warps
 // share each product's 16 x 16 output groups (tc_groups: two 16x8 tiles,
 // one A fragment); tc_each runs an elementwise epilogue on the
-// accumulators.  The rows come in by 16-byte loads, four in flight a
-// thread (load_rows_tc); ||x||^2 is a warp a row (row_sq_tc) and column
-// sums four lanes a feature (add_col_sums_tc).
+// accumulators, tc_each2 on each lane's pairs of adjacent columns (for
+// 8-byte stores).  The rows come in by 16-byte loads, four in flight a
+// thread (load_rows_tc for bf16; load_rows_f32_tc, two f32 tiles at once,
+// eight); ||x||^2 is a
+// warp a row (row_sq_tc) and column sums four lanes a feature
+// (add_col_sums_tc, add_wcol_sums_tc weighted).
 
 #pragma once
 
@@ -115,6 +120,18 @@ __device__ __forceinline__ void tc_each(float (*acc)[4], int i0, int j0, F f) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       f(i0 + g + 8 * (r >> 1), j0 + 8 * nt + 2 * t + (r & 1), acc[nt][r]);
+}
+
+// f(i, j, x_j, x_j+1) for each lane's pair of adjacent columns (j even) of
+// tc_mma<NT>'s tiles at (i0, j0)
+template <int NT, class F>
+__device__ __forceinline__ void tc_each2(float (*acc)[4], int i0, int j0, F f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f(i0 + g + 8 * h, j0 + 8 * nt + 2 * t, acc[nt][2 * h], acc[nt][2 * h + 1]);
 }
 
 // The block's warps share the R x N output of a product as (R/16) x (N/16)
@@ -258,6 +275,44 @@ __device__ __forceinline__ void load_rows_tc(float* dst, const __nv_bfloat16* sr
   }
 }
 
+// d0[i][c] = s0[i * D + c] and d1[i][c] = s1[i * D + c] for rows i < n and
+// columns c < D, 0 for the ragged tail and the pad columns up to DP: two
+// tiles of C rows of f32 into rows DP + 1 apart (D and DP multiples of 4,
+// s0 and s1 16-byte aligned, as the wrappers check).  16-byte loads, eight
+// of them (four a tile) in flight a thread before any is stored.
+__device__ __forceinline__ void load_rows_f32_tc(float* d0, const float* s0, float* d1,
+                                                 const float* s1, int n, int D, int DP) {
+  constexpr int U = 4;
+  const int V = DP / 4, VD = D / 4;
+  for (int base = threadIdx.x; base < C * V; base += U * blockDim.x) {
+    float4 raw[2][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, i = idx / V, c = idx - i * V;
+      raw[0][u] = raw[1][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (idx < C * V && i < n && c < VD) {
+        raw[0][u] = __ldg(reinterpret_cast<const float4*>(s0 + (size_t)i * D + c * 4));
+        raw[1][u] = __ldg(reinterpret_cast<const float4*>(s1 + (size_t)i * D + c * 4));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = base + u * blockDim.x, i = idx / V;
+      if (idx < C * V) {
+        const int at = i * (DP + 1) + (idx - i * V) * 4;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          float* p = (t ? d1 : d0) + at;
+          p[0] = raw[t][u].x;
+          p[1] = raw[t][u].y;
+          p[2] = raw[t][u].z;
+          p[3] = raw[t][u].w;
+        }
+      }
+    }
+  }
+}
+
 // sq[i] = ||xs_i||^2 / 2, a warp a row (xs [C][D+1]); ends with __syncthreads()
 __device__ __forceinline__ void row_sq_tc(float* sq, const float* xs, int D) {
   const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
@@ -284,6 +339,25 @@ __device__ __forceinline__ void add_col_sums_tc(float* z, const float* x, int M)
     s += __shfl_xor_sync(0xffffffffu, s, 8);
     s += __shfl_xor_sync(0xffffffffu, s, 16);
     if (p == 0) z[m] += s;
+  }
+}
+
+// r[m] += sum_{i<C} wts[i] x[i][m], add_col_sums_tc's lanes and order
+__device__ __forceinline__ void add_wcol_sums_tc(float* r, const float* x, const float* wts,
+                                                 int M) {
+  const int MP = M + 1, lane = threadIdx.x & 31;
+  for (int idx = threadIdx.x; idx < 4 * M; idx += blockDim.x) {
+    const int p = lane >> 3, m = (idx >> 5) * 8 + (lane & 7);
+    float s = 0.f;
+    for (int i0 = 0; i0 < C; i0 += 32)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = i0 + 8 * p + e;
+        s = fmaf(wts[i], x[i * MP + m], s);
+      }
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (p == 0) r[m] += s;
   }
 }
 

@@ -32,17 +32,33 @@
 // 604 MB and needs 13.1 GFLOP, each backward pass 907 MB and 19.5-19.7 GFLOP
 // (the per-position recurrence's products, counted by chip_smoke.py's
 // cla_fwd_bound / cla_bwd_bound; the chunk triangles below are this kernel's
-// overhead), f32 at 67 TFLOP/s: bounded by operations, at 0.195 and 0.29 ms.
+// overhead).  The forward, f32 at 67 TFLOP/s, is bounded by operations at
+// 0.195 ms.  The backward passes run their products in 3xTF32 (three TF32
+// passes at 495 TFLOP/s, 0.12 ms), so their 907 MB at 3.35 TB/s bound them:
+// 0.27 ms each (0.29 ms for the same products in f32 on the CUDA cores).
 //
-// Design (simple first, as the FAVOR+ kernels): one thread block per row loops
-// over 64-row chunks, the TPU grid's sequential chunk axis.  The carried state
-// and the chunk's tiles live in shared memory, rows padded +1 against bank
-// conflicts: 130 KB forward, 163 KB pass A and 147 KB pass B at the shapes
-// above.  Products are 4x4 register micro-tiles over shared memory (mma4x4 of
-// favor_common.cuh), row reductions a warp per row.  No tensor cores, TMA or
-// pipelining yet, and one block per row leaves SMs idle below BH = 132.
+// Design: one thread block per row loops over 64-row chunks, the TPU grid's
+// sequential chunk axis.  The carried state and the chunk's tiles live in
+// shared memory, rows padded +1 against bank conflicts: 130 KB forward, 163
+// KB pass A and 147 KB pass B at the shapes above.  The forward (simple
+// first, as the FAVOR+ kernels began) takes its rows by scalar loads and runs
+// its products as 4x4 register micro-tiles over shared memory (mma4x4 of
+// favor_common.cuh).  The backward passes run on the tensor cores with the
+// helpers of favor_tc.cuh, the fused passes' design (favor_bwd.cu) without
+// the feature maps and the chain rule: all five products of each pass
+// (pass A: the scores phi_q phi_k^T, the numerator sc v + phi_q S, the a
+// matrix u v^T, dphi_q = a phi_k + u S^T and the update S += phi_k^T v;
+// pass B: the scores, dv = p^T u + phi_k R, the a matrix, dphi_k = a^T phi_q
+// + v R^T and the update R += phi_q^T u) in 3xTF32 on mma.sync.m16n8k8, as
+// the inputs are f32 and one TF32 pass errs ~1e-3.  The causal products skip
+// the groups above the diagonal and run K only to the group's last row; pass
+// B's suffix products start K at the group's first row.  Rows come in by
+// 16-byte loads, the denominator and w are a warp a row, z and r four lanes
+// a feature, and the outputs leave as 8-byte pairs.  No TMA or pipelining
+// yet, and one block per row leaves SMs idle below BH = 132.
 
 #include "favor_common.cuh"
+#include "favor_tc.cuh"
 
 namespace {
 
@@ -80,25 +96,6 @@ __device__ void causal_scores(float* sc, const float* pq, const float* pk, int M
   }
 }
 
-// sc[i][j] = u_i . v_j + w_i for j <= i, else 0
-__device__ void a_matrix(float* sc, const float* uu, const float* vv, const float* wv,
-                         int Dv) {
-  const int DVP = Dv + 1, CP = C + 1;
-  for (int t = threadIdx.x; t < (C / 4) * (C / 4); t += blockDim.x) {
-    const int it = t / (C / 4), jt = t - it * (C / 4);
-    float acc[4][4];
-    zero4x4(acc);
-    mma4x4<float, false, false>(acc, uu, DVP, 1, it, C / 4, vv, 1, DVP, jt, C / 4, Dv);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = it + r * (C / 4), j = jt + c * (C / 4);
-        sc[i * CP + j] = j <= i ? acc[r][c] + wv[i] : 0.f;
-      }
-  }
-}
-
 // den[i] = sum_{j<=i} sc[i][j] + phi_q_i . z + eps, a warp per row
 __device__ void denominators(float* den, const float* sc, const float* pq, const float* z,
                              int M, float eps) {
@@ -112,10 +109,10 @@ __device__ void denominators(float* den, const float* sc, const float* pq, const
   }
 }
 
-// state[m][d] += sum_{j<n} x[j][m] y[j][d] and vec[m] += sum_{j<n} wts_j x[j][m]
-// (wts_j = 1 when wts is null); x [C][M+1], y [C][Dv+1], state [M][Dv+1]
-__device__ void add_state(float* state, float* vec, const float* x, const float* y,
-                          const float* wts, int n, int M, int Dv) {
+// state[m][d] += sum_{j<n} x[j][m] y[j][d] and vec[m] += sum_{j<n} x[j][m];
+// x [C][M+1], y [C][Dv+1], state [M][Dv+1]
+__device__ void add_state(float* state, float* vec, const float* x, const float* y, int n,
+                          int M, int Dv) {
   const int MP = M + 1, DVP = Dv + 1;
   for (int t = threadIdx.x; t < (M / 4) * (Dv / 4); t += blockDim.x) {
     const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
@@ -129,7 +126,7 @@ __device__ void add_state(float* state, float* vec, const float* x, const float*
   }
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
     float s = 0.f;
-    for (int j = 0; j < n; ++j) s = wts ? fmaf(wts[j], x[j * MP + m], s) : s + x[j * MP + m];
+    for (int j = 0; j < n; ++j) s += x[j * MP + m];
     vec[m] += s;
   }
 }
@@ -182,25 +179,39 @@ __global__ void cla_fwd_kernel(const TQ* __restrict__ q, const TK* __restrict__ 
       }
     }
     __syncthreads();
-    add_state(S, z, pk, vv, nullptr, n, M, Dv);
+    add_state(S, z, pk, vv, n, M, Dv);
     __syncthreads();
   }
 }
+
+// The backward passes run every product on the tensor cores in 3xTF32
+// (tc_mma_f32 of favor_tc.cuh), the fused passes' design without the maps
+// and the chain rule.  M and Dv are padded to the next multiple of 16 in
+// shared memory (pad16), with pad columns loaded as zero and never stored,
+// so the rows stay odd-strided (favor_tc.cuh's bank map) and every width
+// the wrappers take (multiples of 4) runs.
+__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
+
+// Their shared memory allows one block an SM, so they run 16 warps a block,
+// not THREADS' 8: more mma.sync chains and row loads in flight, the same
+// bits (kernel_sections.py --cla times 8, 16 and 24 warps in turns).
+constexpr int BWD_THREADS = 512;
 
 __global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const float* __restrict__ g,
                                  float* __restrict__ dq, float* __restrict__ u_out,
                                  float* __restrict__ w_out, int L, int M, int Dv, float eps) {
   extern __shared__ float smem[];
-  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
-  float* S = smem;                     // [M][Dv+1]   running sum phi_k v^T
-  float* z = S + M * DVP;              // [M]         running sum phi_k
-  float* pq = z + M;                   // [C][M+1]
-  float* pk = pq + C * MP;             // [C][M+1]
-  float* vv = pk + C * MP;             // [C][Dv+1]
-  float* gu = vv + C * DVP;            // [C][Dv+1]   g, then u
-  float* go = gu + C * DVP;            // [C][Dv+1]   g * out
-  float* sc = go + C * DVP;            // [C][C+1]    masked scores, then a
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const int MP = M16 + 1, DVP = D16 + 1, CP = C + 1;
+  float* S = smem;                     // [M16][D16+1] running sum phi_k v^T
+  float* z = S + M16 * DVP;            // [M16]        running sum phi_k
+  float* pq = z + M16;                 // [C][M16+1]
+  float* pk = pq + C * MP;             // [C][M16+1]
+  float* vv = pk + C * MP;             // [C][D16+1]
+  float* gu = vv + C * DVP;            // [C][D16+1]   g, then u
+  float* go = gu + C * DVP;            // [C][D16+1]   g * out
+  float* sc = go + C * DVP;            // [C][C+1]     masked scores, then a
   float* den = sc + C * CP;            // [C]
   float* wv = den + C;                 // [C]
   const int tid = threadIdx.x, lane = tid & 31, nwarp = blockDim.x >> 5;
@@ -212,46 +223,53 @@ __global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __res
   g += row * L * Dv;
   u_out += row * L * Dv;
   w_out += row * L;
-  zero_state(S, z, M, Dv);
+  zero_state(S, z, M16, D16);
 
   for (int r0 = 0; r0 < L; r0 += C) {
     const int n = min(C, L - r0);
-    load_rows<float>(pq, q + (size_t)r0 * M, n, M);
-    load_rows<float>(pk, k + (size_t)r0 * M, n, M);
-    load_rows<float>(vv, v + (size_t)r0 * Dv, n, Dv);
-    load_rows<float>(gu, g + (size_t)r0 * Dv, n, Dv);
+
+    // this chunk's phi_q, phi_k, v and g rows
+    load_rows_f32_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
+    load_rows_f32_tc(vv, v + (size_t)r0 * Dv, gu, g + (size_t)r0 * Dv, n, Dv, D16);
     __syncthreads();
-    causal_scores(sc, pq, pk, M);
+
+    // sc = phi_q phi_k^T, masked to j <= i
+    tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+      if (j0 <= i0) tc_mma_f32<2>(acc, pq, MP, 1, i0, pk, 1, MP, j0, M16);
+      tc_each<2>(acc, i0, j0, [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x : 0.f; });
+    });
     __syncthreads();
-    denominators(den, sc, pq, z, M, eps);
+
+    // den_i = sum_{j<=i} sc_ij + phi_q_i . z + eps, a warp per row
+    for (int i = tid >> 5; i < C; i += nwarp) {
+      float s = 0.f;
+      for (int j = lane; j < C; j += 32) s += sc[i * CP + j];
+      for (int m = lane; m < M16; m += 32) s = fmaf(pq[i * MP + m], z[m], s);
+      s = warp_sum(s);
+      if (lane == 0) den[i] = s + eps;
+    }
     __syncthreads();
 
     // out_i = (sc_i . v + phi_q_i . S) / den_i; go = g * out; u = g / den
-    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
-      mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * (C / 4);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int d = jt + c * (Dv / 4);
-          const float gv = gu[i * DVP + d], u = gv / den[i];
-          go[i * DVP + d] = gv * (acc[r][c] / den[i]);
-          gu[i * DVP + d] = u;
-          if (i < n) u_out[(size_t)(r0 + i) * Dv + d] = u;
-        }
-      }
-    }
+    tc_groups(C, D16, [&](float (*acc)[4], int i0, int d0) {
+      tc_mma_f32<2>(acc, sc, CP, 1, i0, vv, DVP, 1, d0, i0 + 16);
+      tc_mma_f32<2>(acc, pq, MP, 1, i0, S, DVP, 1, d0, M16);
+      tc_each2<2>(acc, i0, d0, [&](int i, int d, float x0, float x1) {
+        float* gi = gu + i * DVP + d;
+        const float2 uu = make_float2(gi[0] / den[i], gi[1] / den[i]);
+        go[i * DVP + d] = gi[0] * (x0 / den[i]);
+        go[i * DVP + d + 1] = gi[1] * (x1 / den[i]);
+        if (i < n && d < Dv) *reinterpret_cast<float2*>(u_out + (size_t)(r0 + i) * Dv + d) = uu;
+        gi[0] = uu.x;
+        gi[1] = uu.y;
+      });
+    });
     __syncthreads();
 
     // w_i = -(g_i . out_i) / den_i, a warp per row
     for (int i = tid >> 5; i < C; i += nwarp) {
       float s = 0.f;
-      for (int d = lane; d < Dv; d += 32) s += go[i * DVP + d];
+      for (int d = lane; d < D16; d += 32) s += go[i * DVP + d];
       s = warp_sum(s);
       if (lane == 0) {
         const float w = -s / den[i];
@@ -260,29 +278,33 @@ __global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __res
       }
     }
     __syncthreads();
-    a_matrix(sc, gu, vv, wv, Dv);
+
+    // a_ij = u_i . v_j + w_i for j <= i, into sc
+    tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+      if (j0 <= i0) tc_mma_f32<2>(acc, gu, DVP, 1, i0, vv, 1, DVP, j0, D16);
+      tc_each<2>(acc, i0, j0,
+                 [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x + wv[i] : 0.f; });
+    });
     __syncthreads();
 
     // dphi_q = a . phi_k + u . S^T + w z
-    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
-      const int it = t / (M / 4), jt = t - it * (M / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, pk, MP, 1, jt, M / 4, n);
-      mma4x4<float, false, false>(acc, gu, DVP, 1, it, C / 4, S, 1, DVP, jt, M / 4, Dv);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * (C / 4);
-        if (i < n)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int m = jt + c * (M / 4);
-            dq[(size_t)(r0 + i) * M + m] = acc[r][c] + wv[i] * z[m];
-          }
-      }
-    }
+    tc_groups(C, M16, [&](float (*acc)[4], int i0, int m0) {
+      tc_mma_f32<2>(acc, sc, CP, 1, i0, pk, MP, 1, m0, i0 + 16);
+      tc_mma_f32<2>(acc, gu, DVP, 1, i0, S, 1, DVP, m0, D16);
+      tc_each2<2>(acc, i0, m0, [&](int i, int m, float x0, float x1) {
+        if (i < n && m < M)
+          *reinterpret_cast<float2*>(dq + (size_t)(r0 + i) * M + m) =
+              make_float2(x0 + wv[i] * z[m], x1 + wv[i] * z[m + 1]);
+      });
+    });
     __syncthreads();                   // the products above read S and z
-    add_state(S, z, pk, vv, nullptr, n, M, Dv);
+
+    // S += phi_k^T v, z += sum_j phi_k_j
+    tc_groups(M16, D16, [&](float (*acc)[4], int m0, int d0) {
+      tc_mma_f32<2>(acc, pk, 1, MP, m0, vv, DVP, 1, d0, C);
+      tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { S[m * DVP + d] += x; });
+    });
+    add_col_sums_tc(z, pk, M16);
     __syncthreads();
   }
 }
@@ -292,14 +314,15 @@ __global__ void cla_bwd_b_kernel(const float* __restrict__ q, const float* __res
                                  const float* __restrict__ w, float* __restrict__ dk,
                                  float* __restrict__ dv, int L, int M, int Dv) {
   extern __shared__ float smem[];
-  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
-  float* R = smem;                     // [M][Dv+1]   suffix sum phi_q u^T
-  float* r = R + M * DVP;              // [M]         suffix sum w phi_q
-  float* pq = r + M;                   // [C][M+1]
-  float* pk = pq + C * MP;             // [C][M+1]
-  float* vv = pk + C * MP;             // [C][Dv+1]
-  float* uu = vv + C * DVP;            // [C][Dv+1]
-  float* sc = uu + C * DVP;            // [C][C+1]    p, then a
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const int MP = M16 + 1, DVP = D16 + 1, CP = C + 1;
+  float* R = smem;                     // [M16][D16+1] suffix sum phi_q u^T
+  float* r = R + M16 * DVP;            // [M16]        suffix sum w phi_q
+  float* pq = r + M16;                 // [C][M16+1]
+  float* pk = pq + C * MP;             // [C][M16+1]
+  float* vv = pk + C * MP;             // [C][D16+1]
+  float* uu = vv + C * DVP;            // [C][D16+1]
+  float* sc = uu + C * DVP;            // [C][C+1]     p, then a
   float* wv = sc + C * CP;             // [C]
   const int tid = threadIdx.x;
   const size_t row = blockIdx.x;
@@ -310,58 +333,63 @@ __global__ void cla_bwd_b_kernel(const float* __restrict__ q, const float* __res
   u += row * L * Dv;
   dv += row * L * Dv;
   w += row * L;
-  zero_state(R, r, M, Dv);
+  zero_state(R, r, M16, D16);
 
   for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {
     const int n = min(C, L - r0);
-    load_rows<float>(pq, q + (size_t)r0 * M, n, M);
-    load_rows<float>(pk, k + (size_t)r0 * M, n, M);
-    load_rows<float>(vv, v + (size_t)r0 * Dv, n, Dv);
-    load_rows<float>(uu, u + (size_t)r0 * Dv, n, Dv);
+
+    // this chunk's phi_q, phi_k, v, u rows and w
+    load_rows_f32_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
+    load_rows_f32_tc(vv, v + (size_t)r0 * Dv, uu, u + (size_t)r0 * Dv, n, Dv, D16);
     for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? w[r0 + i] : 0.f;
     __syncthreads();
-    causal_scores(sc, pq, pk, M);
+
+    // sc = phi_q phi_k^T, masked to j <= i
+    tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+      if (j0 <= i0) tc_mma_f32<2>(acc, pq, MP, 1, i0, pk, 1, MP, j0, M16);
+      tc_each<2>(acc, i0, j0, [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x : 0.f; });
+    });
     __syncthreads();
 
-    // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R
-    for (int t = tid; t < (C / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, sc, 1, CP, it, C / 4, uu, DVP, 1, jt, Dv / 4, n);
-      mma4x4<float, false, false>(acc, pk, MP, 1, it, C / 4, R, DVP, 1, jt, Dv / 4, M);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const int j = it + rr * (C / 4);
-        if (j < n)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dv[(size_t)(r0 + j) * Dv + jt + c * (Dv / 4)] = acc[rr][c];
-      }
-    }
+    // dv_j = sum_{i>=j} p_ij u_i + phi_k_j . R: the suffix product reads sc
+    // transposed from the group's first row j0 on (the masked zeros of sc
+    // cover i < j)
+    tc_groups(C, D16, [&](float (*acc)[4], int j0, int d0) {
+      tc_mma_f32<2>(acc, sc + j0 * CP, 1, CP, j0, uu + j0 * DVP, DVP, 1, d0, C - j0);
+      tc_mma_f32<2>(acc, pk, MP, 1, j0, R, DVP, 1, d0, M16);
+      tc_each2<2>(acc, j0, d0, [&](int j, int d, float x0, float x1) {
+        if (j < n && d < Dv)
+          *reinterpret_cast<float2*>(dv + (size_t)(r0 + j) * Dv + d) = make_float2(x0, x1);
+      });
+    });
     __syncthreads();
-    a_matrix(sc, uu, vv, wv, Dv);
+
+    // a_ij = u_i . v_j + w_i for j <= i, into sc
+    tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+      if (j0 <= i0) tc_mma_f32<2>(acc, uu, DVP, 1, i0, vv, 1, DVP, j0, D16);
+      tc_each<2>(acc, i0, j0,
+                 [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x + wv[i] : 0.f; });
+    });
     __syncthreads();
 
     // dphi_k_j = sum_{i>=j} a_ij phi_q_i + v_j . R^T + r
-    for (int t = tid; t < (C / 4) * (M / 4); t += blockDim.x) {
-      const int it = t / (M / 4), jt = t - it * (M / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, sc, 1, CP, it, C / 4, pq, MP, 1, jt, M / 4, n);
-      mma4x4<float, false, false>(acc, vv, DVP, 1, it, C / 4, R, 1, DVP, jt, M / 4, Dv);
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
-        const int j = it + rr * (C / 4);
-        if (j < n)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int m = jt + c * (M / 4);
-            dk[(size_t)(r0 + j) * M + m] = acc[rr][c] + r[m];
-          }
-      }
-    }
+    tc_groups(C, M16, [&](float (*acc)[4], int j0, int m0) {
+      tc_mma_f32<2>(acc, sc + j0 * CP, 1, CP, j0, pq + j0 * MP, MP, 1, m0, C - j0);
+      tc_mma_f32<2>(acc, vv, DVP, 1, j0, R, 1, DVP, m0, D16);
+      tc_each2<2>(acc, j0, m0, [&](int j, int m, float x0, float x1) {
+        if (j < n && m < M)
+          *reinterpret_cast<float2*>(dk + (size_t)(r0 + j) * M + m) =
+              make_float2(x0 + r[m], x1 + r[m + 1]);
+      });
+    });
     __syncthreads();                   // the products above read R and r
-    add_state(R, r, pq, uu, wv, n, M, Dv);
+
+    // R += phi_q^T u, r += sum_i w_i phi_q_i
+    tc_groups(M16, D16, [&](float (*acc)[4], int m0, int d0) {
+      tc_mma_f32<2>(acc, pq, 1, MP, m0, uu, DVP, 1, d0, C);
+      tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { R[m * DVP + d] += x; });
+    });
+    add_wcol_sums_tc(r, pq, wv, M16);
     __syncthreads();
   }
 }
@@ -415,11 +443,12 @@ int cla_fwd(const void* q, const void* k, const void* v, float* out, int BH, int
 // dphi_q [BH, L, M], u [BH, L, Dv], w [BH, L] f32.
 int cla_bwd_a(const float* q, const float* k, const float* v, const float* g, float* dq,
               float* u, float* w, int BH, int L, int M, int Dv, float eps, void* stream) {
-  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + 3 * C * (Dv + 1) +
-                                       C * (C + 1) + 2 * C);
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const size_t smem = sizeof(float) * (M16 * (D16 + 1) + M16 + 2 * C * (M16 + 1) +
+                                       3 * C * (D16 + 1) + C * (C + 1) + 2 * C);
   cudaError_t err = allow_smem(cla_bwd_a_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cla_bwd_a_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  cla_bwd_a_kernel<<<BH, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, g, dq, u, w, L, M, Dv, eps);
   return (int)cudaGetLastError();
 }
@@ -428,11 +457,12 @@ int cla_bwd_a(const float* q, const float* k, const float* v, const float* g, fl
 // -> dphi_k [BH, L, M], dv [BH, L, Dv] f32.
 int cla_bwd_b(const float* q, const float* k, const float* v, const float* u, const float* w,
               float* dk, float* dv, int BH, int L, int M, int Dv, void* stream) {
-  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + 2 * C * (Dv + 1) +
-                                       C * (C + 1) + C);
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const size_t smem = sizeof(float) * (M16 * (D16 + 1) + M16 + 2 * C * (M16 + 1) +
+                                       2 * C * (D16 + 1) + C * (C + 1) + C);
   cudaError_t err = allow_smem(cla_bwd_b_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cla_bwd_b_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  cla_bwd_b_kernel<<<BH, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, u, w, dk, dv, L, M, Dv);
   return (int)cudaGetLastError();
 }

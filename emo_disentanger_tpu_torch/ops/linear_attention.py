@@ -399,12 +399,15 @@ def _width_rule(tile) -> str:
     return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
 
 
-def _check_aligned(name, tensors) -> None:
-    """Under bf16 the FAVOR+ key max, forward and both backward passes
-    load their rows 16 bytes at a time."""
+def _check_aligned(name, tensors, dtypes=(torch.bfloat16,)) -> None:
+    """Raise unless each tensor of a type in ``dtypes`` starts on a 16-byte
+    boundary: under bf16 the FAVOR+ key max, forward and both backward
+    passes load their rows 16 bytes at a time, and so do the composed op's
+    f32 backward passes (``dtypes=(torch.float32,)``)."""
     for n, t in tensors:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f'{name}: bf16 {n} must start on a 16-byte '
+        if t.dtype in dtypes and t.data_ptr() % 16:
+            kind = 'bf16' if t.dtype == torch.bfloat16 else 'f32'
+            raise ValueError(f'{name}: {kind} {n} must start on a 16-byte '
                              f'boundary (got an offset of {t.data_ptr() % 16})')
 
 
@@ -992,11 +995,14 @@ def _cla_fwd_cuda(q2, k2, v2, eps=EPS) -> torch.Tensor:
 def _cla_bwd_a_cuda(q2, k2, v2, g2, eps=EPS):
     """Launch ``cla_bwd_a`` (pass A) on float32 [BH, L, M] features and
     [BH, L, Dv] v and g; returns dphi_q [BH, L, M], u [BH, L, Dv] and
-    w [BH, L], float32."""
+    w [BH, L], float32.  The kernel loads rows 16 bytes at a time, so each
+    input must start on a 16-byte boundary."""
     BH, L, M, Dv = _check_cla_inputs('cla_bwd_a', q2, k2, v2, (torch.float32,))
     _check_cuda('g', g2, (torch.float32,), 3, q2.device)
     if g2.shape != v2.shape:
         raise ValueError(f'cla_bwd_a: g {tuple(g2.shape)} vs v {tuple(v2.shape)}')
+    _check_aligned('cla_bwd_a', (('phi_q', q2), ('phi_k', k2), ('v', v2), ('g', g2)),
+                   (torch.float32,))
     dq = torch.empty_like(q2)
     u = torch.empty_like(v2)
     w = torch.empty(BH, L, dtype=torch.float32, device=q2.device)
@@ -1011,13 +1017,17 @@ def _cla_bwd_a_cuda(q2, k2, v2, g2, eps=EPS):
 
 def _cla_bwd_b_cuda(q2, k2, v2, u, w):
     """Launch ``cla_bwd_b`` (pass B) on the inputs of pass A and its (u, w);
-    returns dphi_k [BH, L, M] and dv [BH, L, Dv], float32."""
+    returns dphi_k [BH, L, M] and dv [BH, L, Dv], float32.  phi_q, phi_k,
+    v and u must start on a 16-byte boundary (16-byte row loads); w is read
+    a value at a time."""
     BH, L, M, Dv = _check_cla_inputs('cla_bwd_b', q2, k2, v2, (torch.float32,))
     _check_cuda('u', u, (torch.float32,), 3, q2.device)
     _check_cuda('w', w, (torch.float32,), 2, q2.device)
     if u.shape != v2.shape or tuple(w.shape) != (BH, L):
         raise ValueError(f'cla_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} vs '
                          f'v {tuple(v2.shape)}')
+    _check_aligned('cla_bwd_b', (('phi_q', q2), ('phi_k', k2), ('v', v2), ('u', u)),
+                   (torch.float32,))
     dk = torch.empty_like(k2)
     dv = torch.empty_like(v2)
     lib = _cla_lib()
@@ -1027,6 +1037,25 @@ def _cla_bwd_b_cuda(q2, k2, v2, u, w):
     _build.check(lib, err, 'cla_bwd_b')
     _build.LAUNCHES['cla_bwd_b'] += 1
     return dk, dv
+
+
+def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor on a 16-byte boundary: a
+    misaligned view is copied again, which moves its address and nothing
+    else (values, device and shape stay)."""
+    t = t.to(torch.float32).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _cla_bwd_cuda(q2, k2, v2, g, eps=EPS):
+    """The composed op's backward on the card: ``cla_bwd_a`` then
+    ``cla_bwd_b`` on float32 copies of the inputs and the gradient, as JAX
+    casts before its backward kernels, each aligned for their 16-byte
+    loads; returns dphi_q, dphi_k, dv (float32)."""
+    q, k, v, g = (_f32_aligned(t) for t in (q2, k2, v2, g))
+    dq, u, w = _cla_bwd_a_cuda(q, k, v, g, eps)
+    dk, dv = _cla_bwd_b_cuda(q, k, v, u, w)
+    return dq, dk, dv
 
 
 class _CausalLinearAttention(torch.autograd.Function):
@@ -1051,10 +1080,7 @@ class _CausalLinearAttention(torch.autograd.Function):
             dq, u, w = _cla_bwd_a_plain(q2, k2, v2, g, ctx.chunk, ctx.eps)
             dk, dv = _cla_bwd_b_plain(q2, k2, v2, u, w, ctx.chunk)
         else:
-            # float32 throughout, as JAX casts before its backward kernels
-            q, k, v, g = (t.to(torch.float32).contiguous() for t in (q2, k2, v2, g))
-            dq, u, w = _cla_bwd_a_cuda(q, k, v, g, ctx.eps)
-            dk, dv = _cla_bwd_b_cuda(q, k, v, u, w)
+            dq, dk, dv = _cla_bwd_cuda(q2, k2, v2, g, ctx.eps)
         return dq.to(q2.dtype), dk.to(k2.dtype), dv.to(v2.dtype), None, None
 
 

@@ -2,7 +2,7 @@
 """Hold the port's kernels of two checkouts against each other on one GPU:
 the same seeded inputs, the outputs compared, and each kernel's time.
 
-    python3 kernel_ab.py --save OUT.pt [--root DIR] [--kernels favor,decode,flash]
+    python3 kernel_ab.py --save OUT.pt [--root DIR] [--kernels favor,decode,flash,cla]
     python3 kernel_ab.py --compare A.pt B.pt [C.pt ...]
 
 ``--save`` builds the kernels of ``DIR/emo_disentanger_tpu_torch`` (into
@@ -27,6 +27,11 @@ the same seeded inputs, the outputs compared, and each kernel's time.
   the device time a layer from torch.profiler beside CUDA events;
 * ``flash``: #13 ``flash_attention_fwd`` at B=16 H=8 L=2048 f32, compared
   by the largest relative difference.
+* ``cla``: the composed op's kernels #5 ``cla_fwd``, #6 ``cla_bwd_a`` and
+  #7 ``cla_bwd_b`` in f32 on FAVOR+ features (M=128, Dv=64) at BH=128
+  L=3072 and at B=2 L=1000 (BH=16); pass B is fed a (u, w) drawn from the
+  seed, so its outputs do not depend on pass A.  #5's output is compared
+  bit for bit, the passes' by the largest relative difference.
 
 It saves the outputs and times.  ``--compare`` reports, against the first
 file, which outputs differ (bitwise ones) or by how much (relative ones),
@@ -43,7 +48,8 @@ import torch
 N_HEAD, D_HEAD, FAVOR = 8, 64, 128
 D_MODEL, D_FF, N_LAYER, SERVE_B = 512, 2048, 12, 16
 FLASH_B, FLASH_L = 16, 2048
-KERNELS = ('favor', 'decode', 'flash')
+KERNELS = ('favor', 'decode', 'flash', 'cla')
+CLA_CASES = ((16, 3072), (2, 1000))
 CASES = (('bf16', 2, 1024, ('fwd',)), ('bf16', 16, 2048, ('fwd',)),
          ('bf16', 16, 3072, ('fwd', 'bwd')), ('f32', 2, 1000, ('fwd', 'bwd')))
 
@@ -196,9 +202,36 @@ def save_flash(dev, gen, outs, times):
     return [f'flash out {tag}']
 
 
+def save_cla(dev, gen, outs, times):
+    """#5-#7 in f32 at CLA_CASES; returns the passes' outputs, compared by
+    relative difference."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    relative = []
+    for B, L in CLA_CASES:
+        BH = B * N_HEAD
+        x = lambda D: (0.5 * torch.randn(BH, L, D, generator=gen)).to(dev)
+        q = la.favor_features(x(D_HEAD), omega, is_query=True)
+        k = la.favor_features(x(D_HEAD), omega, is_query=False)
+        v, g, u = x(D_HEAD), x(D_HEAD), x(D_HEAD)
+        w = (0.5 * torch.randn(BH, L, generator=gen)).to(dev)
+        tag = f'f32 BH={BH} L={L}'
+        outs[f'cla_fwd out {tag}'] = la._cla_fwd_cuda(q, k, v)
+        times[f'cla_fwd {tag}'] = time_ms(lambda: la._cla_fwd_cuda(q, k, v))
+        dq, u_a, w_a = la._cla_bwd_a_cuda(q, k, v, g)
+        dk, dv = la._cla_bwd_b_cuda(q, k, v, u, w)
+        for name, t in (('dphi_q', dq), ('u', u_a), ('w', w_a), ('dphi_k', dk), ('dv', dv)):
+            outs[f'cla_bwd {name} {tag}'] = t
+            relative.append(f'cla_bwd {name} {tag}')
+        times[f'cla_bwd_a {tag}'] = time_ms(lambda: la._cla_bwd_a_cuda(q, k, v, g))
+        times[f'cla_bwd_b {tag}'] = time_ms(lambda: la._cla_bwd_b_cuda(q, k, v, u, w))
+    return relative
+
+
 SAVERS = {'favor': (('favor_fwd', 'favor_bwd'), save_favor),
           'decode': (('performer_decode',), save_decode),
-          'flash': (('flash_attn_fwd',), save_flash)}
+          'flash': (('flash_attn_fwd',), save_flash),
+          'cla': (('linear_attn',), save_cla)}
 
 
 def save(root, path, kernels):

@@ -4,6 +4,7 @@ chunk, on the GPU; and the bf16 key max at each number of chunks a block.
 
     python3 kernel_sections.py
     python3 kernel_sections.py --kmax
+    python3 kernel_sections.py --cla
 
 Writes instrumented copies of ``emo_disentanger_tpu_torch/csrc/favor_fwd.cu``
 and ``favor_bwd.cu`` to ``build/sections/`` (with the headers beside
@@ -34,6 +35,16 @@ prints ptxas's registers for the bf16 key max, checks that all five give
 the same partial maxima bit for bit, and times each (CUDA events) in
 turns (1, 2, 4, 8, 8s, 8s, 8, 4, 2, 1) at B=16 L=3072 in both layouts,
 B=16 L=2048 and B=2 L=1024.
+
+``--cla`` does the same for the composed op's f32 backward passes, #6
+``cla_bwd_a`` and #7 ``cla_bwd_b`` of ``linear_attn.cu`` (its forward #5
+is not touched, and every added statement runs unconditionally, as the
+passes have no other instantiation): it builds the copy and runs both
+passes at the composed path's shape (BH=128, L=3072, M=128, Dv=64, f32;
+pass B on pass A's (u, w)), prints each section's cycles a chunk, then
+both kernels' SASS opcode counts; last, it builds copies of the source
+whose passes run 8, 16 or 24 warps a block (``BWD_THREADS``), checks
+that they give the same outputs bit for bit, and times them in turns.
 """
 
 import argparse
@@ -56,35 +67,41 @@ SLOTS = 32                        # sections counted at most, a kernel
 ROWS = 4096                       # blocks (batch*head rows) counted at most
 ENDS = re.compile(r'^(__syncthreads\(\);|row_sq_tc\(|features(_tc)?<|chain_rule(_tc)?[<(])')
 IN_ORDER = 'for (int r0 = 0; r0 < L; r0 += C) {'
+REVERSE = 'for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {'
 # each source: its instrumented kernels, each with the header of its chunk loop
 KERNELS = {'favor_fwd.cu': {'favor_fwd': ('favor_fwd_kernel', IN_ORDER)},
            'favor_bwd.cu': {'favor_bwd_a': ('favor_bwd_a_kernel', IN_ORDER),
-                            'favor_bwd_b': ('favor_bwd_b_kernel',
-                                            'for (int r0 = ((L - 1) / C) * C; r0 >= 0; '
-                                            'r0 -= C) {')}}
+                            'favor_bwd_b': ('favor_bwd_b_kernel', REVERSE)},
+           'linear_attn.cu': {'cla_bwd_a': ('cla_bwd_a_kernel', IN_ORDER),
+                              'cla_bwd_b': ('cla_bwd_b_kernel', REVERSE)}}
+# the condition each added statement runs under: the FAVOR+ kernels' bf16
+# (tensor-core) instantiation; the composed op's passes have only one
+GUARD = {'favor_fwd.cu': 'TC', 'favor_bwd.cu': 'TC', 'linear_attn.cu': 'true'}
 
 
 def instrument_kernel(src, source, p, kernel, loop):
     """``src`` with kernel ``p`` of ``source`` stamped, and the line that
     ends each of its sections."""
+    guard = GUARD[source]
     k0 = src.index(f'__global__ void {kernel}')
-    k1 = src.index('\ntemplate <', k0) + 1          # the next template: the kernel's end
+    k1 = src.index('\n}\n', k0) + 3                 # the kernel's closing brace
     first = src[:k0].count('\n') + 1                # the line k0 is on
     out, ends, in_loop, note = [], [], False, ''
     for line_no, line in enumerate(src[k0:k1].split('\n'), first):
         if loop in line:
-            out.append(f'  unsigned long long sec_[{SLOTS}] = {{}}, last_ = TC ? clock64() : 0;')
+            out.append(f'  unsigned long long sec_[{SLOTS}] = {{}}, '
+                       f'last_ = {guard} ? clock64() : 0;')
             in_loop = True
         out.append(line)
         if line.strip().startswith('//'):
             note = line.strip()[3:]
         if in_loop and ENDS.match(line.strip()) and len(ends) < SLOTS:
-            out.append(f'    if (TC && threadIdx.x == 0) {{ const unsigned long long c_ = '
+            out.append(f'    if ({guard} && threadIdx.x == 0) {{ const unsigned long long c_ = '
                        f'clock64(); sec_[{len(ends)}] += c_ - last_; last_ = c_; }}')
             ends.append(f'{source}:{line_no} {line.strip()[:24]} (after "{note[:40]}")')
     body = '\n'.join(out)
     tail = body.rindex('  }\n}\n')
-    body = (body[:tail] + f'  }}\n  if (TC && threadIdx.x == 0) for (int i = 0; i < {SLOTS}; '
+    body = (body[:tail] + f'  }}\n  if ({guard} && threadIdx.x == 0) for (int i = 0; i < {SLOTS}; '
             f'++i) g_sections[{p}][blockIdx.x][i] = sec_[i];\n}}\n' + body[tail + 6:])
     return src[:k0] + body + src[k1:], ends
 
@@ -108,6 +125,20 @@ def instrument(source='favor_bwd.cu'):
     return src, ends
 
 
+# the backward passes' threads a block, BWD_THREADS in linear_attn.cu,
+# and the warps a block of the --cla copies timed against each other
+CLA_THREADS = 'constexpr int BWD_THREADS = 512;'
+CLA_WARPS = (8, 16, 24)
+
+
+def cla_variant(warps):
+    """``linear_attn.cu`` with the backward passes at ``warps`` a block."""
+    src = (CSRC / 'linear_attn.cu').read_text()
+    if src.count(CLA_THREADS) != 1:
+        raise RuntimeError("BWD_THREADS is not in linear_attn.cu as expected")
+    return src.replace(CLA_THREADS, f'constexpr int BWD_THREADS = {32 * warps};')
+
+
 KMAX_RULE = 'while (TC && per < 8 && BH * nch / (2 * per) >= 512) per *= 2;'
 KMAX_REGS = 'return Dh <= 8 * KMAX_STEPS && M <= 16 * (THREADS / 32);'
 # (name, chunks a block, omega in registers where the widths allow)
@@ -126,37 +157,57 @@ def kmax_variant(per, regs=True):
     return src if regs else src.replace(KMAX_REGS, 'return false;')
 
 
+def build_variants(source, texts, load):
+    """Build each copy of ``source`` in ``texts`` ({name: source text})
+    under OUT/<name>/ at once; returns {name: (library, nvcc's output)},
+    each library loaded by ``load()`` with ``_build`` pointed at it."""
+    from emo_disentanger_tpu_torch.ops import _build
+    stem, jobs, libs = source[:-len('.cu')], {}, {}
+    for name, text in texts.items():
+        _build.CSRC = OUT / name
+        _build.BUILD_DIR = _build.CSRC / 'kernels'
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        (_build.CSRC / source).write_text(text)
+        for header in CSRC.glob('*.cuh'):
+            shutil.copy(header, _build.CSRC / header.name)
+        target = _build._target(stem)
+        jobs[name] = (_build.CSRC, target, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(target), str(_build.CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (csrc, target, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'{name}: nvcc exited {proc.returncode}\n{text}')
+        _build.CSRC, _build.BUILD_DIR = csrc, target.parent
+        _build._libs.pop(stem, None)
+        libs[name] = (load(), text)
+    return libs
+
+
+def ptxas_lines(text, needle):
+    """ptxas's lines for the kernels whose mangled names hold ``needle``."""
+    entry, out = '', []
+    for line in text.splitlines():
+        if 'Compiling entry function' in line:
+            entry = line
+        elif needle in entry:
+            out.append(line.strip())
+    return out
+
+
 def time_kmax_variants(smi):
     """Build the ``kmax_variant`` copies at once, then check and time each
     in turns at the main path's shapes (the docstring's ``--kmax``)."""
     from emo_disentanger_tpu_torch.ops import _build
     from emo_disentanger_tpu_torch.ops import linear_attention as la
-    jobs, libs = {}, {}
-    for name, per, regs in KMAX_VARIANTS:
-        _build.CSRC = OUT / f'kmax{name}'
-        _build.BUILD_DIR = _build.CSRC / 'kernels'
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        (_build.CSRC / 'favor_fwd.cu').write_text(kmax_variant(per, regs))
-        for header in CSRC.glob('*.cuh'):
-            shutil.copy(header, _build.CSRC / header.name)
-        target = _build._target('favor_fwd')
-        jobs[name] = (_build.CSRC, target, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(target),
-             str(_build.CSRC / 'favor_fwd.cu')],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (csrc, target, proc) in jobs.items():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f'kmax{name}: nvcc exited {proc.returncode}\n{text}')
-        entry = ''
-        for line in text.splitlines() if name in ('1', '8s') else ():
-            if 'Compiling entry function' in line:
-                entry = line
-            if 'favor_kmax_kernelI13__nv_bfloat16' in entry:
-                print(f'kernel_sections --kmax {name} ptxas: ' + line.strip())
-        _build.CSRC, _build.BUILD_DIR = csrc, target.parent
-        _build._libs.pop('favor_fwd', None)
-        libs[name] = la._lib()
+    built = build_variants('favor_fwd.cu', {f'kmax{name}': kmax_variant(per, regs)
+                                            for name, per, regs in KMAX_VARIANTS}, la._lib)
+    libs = {}
+    for name, _, _ in KMAX_VARIANTS:
+        libs[name], text = built[f'kmax{name}']
+        for line in ptxas_lines(text, 'favor_kmax_kernelI13__nv_bfloat16'):
+            if name in ('1', '8s'):
+                print(f'kernel_sections --kmax {name} ptxas: ' + line)
     dev, H = torch.device('cuda'), 8
     gen = torch.Generator().manual_seed(0)
     omega = la.draw_orthogonal_features(64, 128, gen).to(dev)
@@ -209,6 +260,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--kmax', action='store_true',
                     help='time the bf16 key max at 1, 2, 4 and 8 chunks a block')
+    ap.add_argument('--cla', action='store_true',
+                    help="the composed op's f32 backward passes (linear_attn.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('kernel_sections: CUDA is not available', file=sys.stderr)
@@ -220,15 +273,11 @@ def main():
         return 0
     from emo_disentanger_tpu_torch.ops import _build
     from emo_disentanger_tpu_torch.ops import linear_attention as la
-    OUT.mkdir(parents=True, exist_ok=True)
-    ends = {}
-    for source in KERNELS:
-        src, ends[source] = instrument(source)
-        (OUT / source).write_text(src)
-    for header in CSRC.glob('*.cuh'):
-        shutil.copy(header, OUT / header.name)
-    _build.CSRC, _build.BUILD_DIR = OUT, OUT / 'kernels'
-    _build.build(['favor_fwd', 'favor_bwd'])
+    sources = ('linear_attn.cu',) if args.cla else ('favor_fwd.cu', 'favor_bwd.cu')
+    ends = build_instrumented(sources)
+    if args.cla:
+        time_cla_sections(ends['linear_attn.cu'], smi)
+        return 0
     dev, H, B, L = torch.device('cuda'), 8, 16, 3072
     gen = torch.Generator().manual_seed(0)
     omega = la.draw_orthogonal_features(64, 128, gen).to(dev)
@@ -252,44 +301,119 @@ def main():
                     'favor_bwd_b': lambda: la._favor_bwd_b_cuda(q, k, v, u, w, omega, part)}
         for name, run in runs.items():
             source = next(src for src, names in KERNELS.items() if name in names)
-            kernels = list(KERNELS[source])
             ms = time_launch(run)
-            buf = (ctypes.c_ulonglong * (len(kernels) * ROWS * SLOTS))()
-            err = _build._libs[source[:-len('.cu')]].read_sections(buf)
-            if err:
-                raise RuntimeError(f'read_sections: CUDA error {err}')
-            cyc = np.frombuffer(buf, dtype=np.uint64).reshape(len(kernels), ROWS, SLOTS)
-            per = cyc[kernels.index(name), :B * H].astype(np.float64).mean(0) / chunks
-            total = per.sum()
-            print(f'kernel_sections {name} {layout} bf16 B={B} H={H} L={L} [{smi}]: '
-                  f'{ms:.4f} ms a launch (CUDA events, instrumented); {total:.0f} cycles '
-                  f'a chunk')
-            for i, end in enumerate(ends[source][name]):
-                if per[i]:
-                    print(f'  {per[i]:9.0f} cycles ({per[i] / total:6.1%}) to {end[:60]}')
+            per = read_cycles(source, name, B * H, chunks)
+            print_sections(f'{name} {layout} bf16 B={B} H={H} L={L} [{smi}]', ms, per,
+                           ends[source][name])
     for hl in (False, True):
-        print_sass(_build._target('favor_fwd'), 'favor_fwd_kernel', hl)
+        print_sass(_build._target('favor_fwd'), 'favor_fwd_kernel', hl=hl)
     for kernel, _ in KERNELS['favor_bwd.cu'].values():
         print_sass(_build._target('favor_bwd'), kernel)
     return 0
 
 
-def print_sass(lib, kernel, hl=False):
-    """The opcodes of the bf16 instantiation of ``kernel`` (heads-last
-    with ``hl``, else head-major), most frequent first."""
+def build_instrumented(sources):
+    """Write the instrumented copies of ``sources`` (with the headers) to
+    OUT, point ``_build`` at them and build them; returns each source's
+    section ends."""
+    from emo_disentanger_tpu_torch.ops import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    ends = {}
+    for source in sources:
+        src, ends[source] = instrument(source)
+        (OUT / source).write_text(src)
+    for header in CSRC.glob('*.cuh'):
+        shutil.copy(header, OUT / header.name)
+    _build.CSRC, _build.BUILD_DIR = OUT, OUT / 'kernels'
+    _build.build([source[:-len('.cu')] for source in sources])
+    return ends
+
+
+def print_sections(label, ms, per, ends):
+    """One launch's time and each section's mean cycles a chunk."""
+    total = per.sum()
+    print(f'kernel_sections {label}: {ms:.4f} ms a launch (CUDA events, instrumented); '
+          f'{total:.0f} cycles a chunk')
+    for i, end in enumerate(ends):
+        if per[i]:
+            print(f'  {per[i]:9.0f} cycles ({per[i] / total:6.1%}) to {end[:60]}')
+
+
+def read_cycles(source, name, rows, chunks):
+    """Kernel ``name``'s mean cycles a chunk by section over ``rows``."""
+    from emo_disentanger_tpu_torch.ops import _build
+    kernels = list(KERNELS[source])
+    buf = (ctypes.c_ulonglong * (len(kernels) * ROWS * SLOTS))()
+    err = _build._libs[source[:-len('.cu')]].read_sections(buf)
+    if err:
+        raise RuntimeError(f'read_sections: CUDA error {err}')
+    cyc = np.frombuffer(buf, dtype=np.uint64).reshape(len(kernels), ROWS, SLOTS)
+    return cyc[kernels.index(name), :rows].astype(np.float64).mean(0) / chunks
+
+
+def time_cla_sections(ends, smi):
+    """The ``--cla`` run: both passes of the instrumented linear_attn.cu at
+    the composed path's shape, then their SASS."""
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    dev, BH, L, M, Dv = torch.device('cuda'), 128, 3072, 128, 64
+    gen = torch.Generator().manual_seed(0)
+    omega = la.draw_orthogonal_features(64, M, gen).to(dev)
+    x = lambda D: (0.5 * torch.randn(BH, L, D, generator=gen)).to(dev)
+    q = la.favor_features(x(64), omega, is_query=True)
+    k = la.favor_features(x(64), omega, is_query=False)
+    v, g = x(Dv), x(Dv)
+    _, u, w_in = la._cla_bwd_a_cuda(q, k, v, g)
+    runs = {'cla_bwd_a': lambda: la._cla_bwd_a_cuda(q, k, v, g),
+            'cla_bwd_b': lambda: la._cla_bwd_b_cuda(q, k, v, u, w_in)}
+    for name, run in runs.items():
+        ms = time_launch(run)
+        per = read_cycles('linear_attn.cu', name, BH, -(-L // la.KERNEL_CHUNK))
+        print_sections(f'{name} f32 BH={BH} L={L} M={M} Dv={Dv} [{smi}]', ms, per,
+                       ends[name])
+    for kernel, _ in KERNELS['linear_attn.cu'].values():
+        print_sass(_build._target('linear_attn'), kernel, kernel, 'f32')
+
+    # the passes at 8, 16 and 24 warps a block, checked bitwise, in turns
+    built = build_variants('linear_attn.cu', {f'cla{w}': cla_variant(w) for w in CLA_WARPS},
+                           la._cla_lib)
+    outs, ms = {}, {w: {name: [] for name in runs} for w in CLA_WARPS}
+    for w in CLA_WARPS + CLA_WARPS[::-1]:
+        lib, text = built[f'cla{w}']
+        _build._libs['linear_attn'] = lib
+        if w not in outs:
+            print(f'kernel_sections --cla {w} warps ptxas: '
+                  + ' | '.join(l for l in ptxas_lines(text, 'cla_bwd') if 'registers' in l))
+            outs[w] = la._cla_bwd_a_cuda(q, k, v, g) + la._cla_bwd_b_cuda(q, k, v, u, w_in)
+        for name, run in runs.items():
+            ms[w][name].append(mean_ms(run, 20, 3))
+    same = all(torch.equal(a, b) for w in CLA_WARPS for a, b in zip(outs[w], outs[CLA_WARPS[0]]))
+    print(f'kernel_sections --cla f32 BH={BH} L={L} M={M} Dv={Dv} in turns [{smi}]: '
+          + ', '.join(f'{w} warps {name} {t[0]:.4f} / {t[1]:.4f} ms'
+                      for w in CLA_WARPS for name, t in ms[w].items())
+          + f'; outputs {"bitwise equal" if same else "DIFFER"} across them')
+    if not same:
+        raise RuntimeError("the backward passes depend on their warps a block")
+
+
+def print_sass(lib, kernel, needle=None, label=None, hl=False):
+    """The opcodes of the kernel whose mangled name holds ``needle`` (by
+    default the bf16 instantiation of ``kernel``, heads-last with ``hl``,
+    else head-major), most frequent first."""
+    needle = needle or f'{kernel}I13__nv_bfloat16Lb{int(hl)}'
+    label = label or f'bf16, {"heads-last" if hl else "head-major"}'
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     text = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, inside = Counter(), False
     for line in text.splitlines():
         if 'Function :' in line:
-            inside = f'{kernel}I13__nv_bfloat16Lb{int(hl)}' in line
+            inside = needle in line
         elif inside:
             op = re.search(r'\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)', line)
             if op:
                 counts[op.group(1)] += 1
-    layout = 'heads-last' if hl else 'head-major'
-    print(f'kernel_sections SASS of {kernel}<bf16, {layout}>: '
+    print(f'kernel_sections SASS of {kernel}<{label}>: '
           + ', '.join(f'{op} {n}' for op, n in counts.most_common(16)))
 
 

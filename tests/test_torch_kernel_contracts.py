@@ -1,6 +1,7 @@
 """The wrappers of kernels #12, #13, the FAVOR+ key max (#1, #8), forward
-(#2, #9) and the backward passes A (#3, #10) and B (#4, #11) refuse what
-their kernels do not take, before anything is built or launched.
+(#2, #9) and the backward passes A (#3, #10) and B (#4, #11), and of the
+composed op's backward passes (#6, #7), refuse what their kernels do not
+take, before anything is built or launched.
 
 ``_flash_attention_cuda``, ``_decode_layer_cuda``, the key max's
 ``_favor_kmax_cuda`` and ``_favor_kmax_hl_cuda``, the forward's
@@ -402,4 +403,137 @@ def test_favor_kmax_partial_shape(monkeypatch, layout, L):
     assert [(n, args[2]) for n, args in calls] == [(name, part.data_ptr())]
     assert _build.LAUNCHES == {name: 1}
     assert _check_fwd(layout, q, k, v, omega, part)[1] == L
+    monkeypatch.undo()
+
+
+# the composed op's backward passes (#6 cla_bwd_a, #7 cla_bwd_b): f32, M and
+# Dv multiples of 4 (padded to 16 in shared memory), rows loaded 16 bytes at
+# a time; the library, the device check and the stream faked as above
+
+
+def _cla(M=36, Dv=20, BH=3, L=70, dtype=torch.float32):
+    """phi_q, phi_k [BH, L, M], v, g [BH, L, Dv]."""
+    gen = torch.Generator().manual_seed(5)
+    q, k = (torch.rand(BH, L, M, generator=gen).to(dtype) for _ in range(2))
+    v, g = (torch.randn(BH, L, Dv, generator=gen).to(dtype) for _ in range(2))
+    return q, k, v, g
+
+
+def _fake_cla_lib(monkeypatch):
+    """Fake the library, the device check and the stream; returns the list
+    the fake library appends (name, args) to, each launch returning 0."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+    monkeypatch.setattr(la, '_cla_lib', Lib)
+    monkeypatch.setattr(la, '_require_cuda', lambda device: None)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_build, 'LAUNCHES', collections.Counter())
+    return calls
+
+
+def _cla_pass(name, q, k, v, g):
+    """Launch pass ``name`` ('a' or 'b'; b takes g as u and a w of its own)."""
+    if name == 'a':
+        return la._cla_bwd_a_cuda(q, k, v, g)
+    w = torch.zeros(q.shape[:2], dtype=q.dtype)
+    return la._cla_bwd_b_cuda(q, k, v, g, w)
+
+
+@pytest.mark.parametrize('name', ['a', 'b'])
+def test_cla_bwd_takes_widths_off_16(monkeypatch, name):
+    """M, Dv = 36, 20 (multiples of 4, not of 16) reach the kernel with
+    their own widths, outputs f32 of the inputs' shapes and w [BH, L]."""
+    calls = _fake_cla_lib(monkeypatch)
+    q, k, v, g = _cla()
+    outs = _cla_pass(name, q, k, v, g)
+    (kernel, args), = calls
+    assert kernel == f'cla_bwd_{name}' and _build.LAUNCHES == {kernel: 1}
+    first = 7
+    assert args[first:first + 4] == (3, 70, 36, 20)
+    shapes = ([(3, 70, 36), (3, 70, 20), (3, 70)] if name == 'a'
+              else [(3, 70, 36), (3, 70, 20)])
+    assert [tuple(t.shape) for t in outs] == shapes
+    assert all(t.dtype == torch.float32 for t in outs)
+    out_ptrs = args[4:7] if name == 'a' else args[5:7]
+    assert list(out_ptrs) == [t.data_ptr() for t in outs]
+    monkeypatch.undo()
+
+
+def _misaligned_f32(t):
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return shifted
+
+
+def _cla_bad_cases():
+    q, k, v, g = _cla()
+    return {
+        'M not a multiple of 4': (_cla(M=34), 'multiples of 4'),
+        'bf16 inputs': (_cla(dtype=torch.bfloat16), 'phi_q has dtype'),
+        'misaligned phi_q': ((_misaligned_f32(q), k, v, g),
+                             'f32 phi_q must start on a 16-byte boundary'),
+        'misaligned g or u': ((q, k, v, _misaligned_f32(g)), 'must start on a 16-byte boundary'),
+    }
+
+
+@pytest.mark.parametrize('case', sorted(_cla_bad_cases()))
+@pytest.mark.parametrize('name', ['a', 'b'])
+def test_cla_bwd_refuses(monkeypatch, name, case):
+    """M = 34, bf16 inputs and an f32 input off a 16-byte boundary raise
+    before the launch."""
+    calls = _fake_cla_lib(monkeypatch)
+    args, match = _cla_bad_cases()[case]
+    with pytest.raises(ValueError, match=match):
+        _cla_pass(name, *args)
+    assert calls == [] and not _build.LAUNCHES
+    monkeypatch.undo()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cla_backward_hands_the_kernels_aligned_f32_copies(monkeypatch, dtype):
+    """``_cla_bwd_cuda``, the backward's CUDA branch, casts to f32 and
+    copies a misaligned input again, so both passes launch on 16-byte
+    aligned f32 tensors holding the same values; pass B gets pass A's u
+    and a w of shape [BH, L]."""
+    calls = _fake_cla_lib(monkeypatch)
+    q, k, v, g = _cla()
+    ins = [_misaligned_f32(t) if dtype == torch.float32 else t.to(dtype)
+           for t in (q, k, v, g)]
+    for t in ins:
+        copy = la._f32_aligned(t)
+        assert copy.data_ptr() % 16 == 0 and torch.equal(copy, t.float())
+    dq, dk, dv = la._cla_bwd_cuda(*ins)
+    (name_a, args_a), (name_b, args_b) = calls
+    assert (name_a, name_b) == ('cla_bwd_a', 'cla_bwd_b')
+    assert all(p % 16 == 0 for p in args_a[:4] + args_b[:5])
+    assert args_b[3:5] == args_a[5:7]                 # pass A's u and w
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert all(t.dtype == torch.float32 for t in (dq, dk, dv))
+    assert _build.LAUNCHES == {'cla_bwd_a': 1, 'cla_bwd_b': 1}
+    monkeypatch.undo()
+
+
+def test_cla_backward_of_a_device_tensor_never_runs_the_plain_passes(monkeypatch):
+    """A tensor off the CPU takes ``_cla_bwd_cuda`` (here on the meta
+    device, recorded) and never ``_cla_bwd_a_plain`` / ``_cla_bwd_b_plain``."""
+    def plain(*args, **kwargs):
+        raise AssertionError('a device tensor reached a plain pass')
+    seen = []
+
+    def cuda(q2, k2, v2, g, eps):
+        seen.append((q2, k2, v2, g, eps))
+        return q2.float(), k2.float(), v2.float()
+    monkeypatch.setattr(la, '_cla_bwd_a_plain', plain)
+    monkeypatch.setattr(la, '_cla_bwd_b_plain', plain)
+    monkeypatch.setattr(la, '_cla_bwd_cuda', cuda)
+    q, k, v, g = (t.to('meta') for t in _cla())
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v), chunk=64, eps=la.EPS)
+    grads = la._CausalLinearAttention.backward(ctx, g)
+    assert len(seen) == 1 and seen[0][3] is g and seen[0][4] == la.EPS
+    assert [t.shape for t in grads[:3]] == [q.shape, k.shape, v.shape]
     monkeypatch.undo()

@@ -112,3 +112,56 @@ def test_kmax_variant_fixes_chunks_a_block(name, per, regs):
     launch = '\n'.join(original)
     launch = launch[launch.index('int launch_kmax('):launch.index('int launch_fwd(')]
     assert ks.KMAX_RULE in launch
+
+
+def _cla_kernel(text, name):
+    """The source of the non-template kernel ``name`` of linear_attn.cu."""
+    k0 = text.index('__global__ void ' + name)
+    return text[k0:text.index('\n}\n', k0) + 3]
+
+
+@pytest.mark.parametrize('name, n_sections', [('cla_bwd_a', 8), ('cla_bwd_b', 6)])
+def test_instrument_stamps_each_section_of_the_cla_passes(name, n_sections):
+    """``--cla`` stamps every barrier of each backward pass's chunk loop
+    (loads, products, row reductions, the state update), each section's
+    line naming the repository's source, and leaves the forward alone."""
+    src, ends = ks.instrument('linear_attn.cu')
+    assert list(ends) == ['cla_bwd_b', 'cla_bwd_a']
+    body = _cla_kernel(src, f'{name}_kernel')
+    assert _stamps(body) == list(range(n_sections)) == list(range(len(ends[name])))
+    p = list(ks.KERNELS['linear_attn.cu']).index(name)
+    assert f'g_sections[{p}][blockIdx.x][i] = sec_[i]' in body
+    assert 'sec_' not in src[src.index('__global__ void cla_fwd_kernel'):
+                             src.index('__global__ void cla_bwd_a_kernel')]
+    lines = (ks.CSRC / 'linear_attn.cu').read_text().split('\n')
+    for end in ends[name]:
+        no, text = re.match(r'linear_attn\.cu:(\d+) (.{1,24}) \(', end).groups()
+        assert lines[int(no) - 1].strip().startswith(text), end
+        assert text.startswith('__syncthreads();'), end
+
+
+def test_instrument_leaves_cla_source_and_entry_points_alone():
+    """Without the lines it adds, the copy of linear_attn.cu is the
+    original, entry points included."""
+    original = (ks.CSRC / 'linear_attn.cu').read_text()
+    src, _ = ks.instrument('linear_attn.cu')
+    read = ('int read_sections(void* dst) {\n  return (int)cudaMemcpyFromSymbol(dst, '
+            'g_sections, sizeof(g_sections));\n}\n')
+    added = [l for l in src.split('\n') if 'sec_' in l or 'g_sections' in l]
+    assert added and all('true' in l for l in added if 'sec_' in l)
+    kept = '\n'.join(l for l in src.replace(read, '').split('\n') if l not in added)
+    assert kept == original
+
+
+@pytest.mark.parametrize('warps', ks.CLA_WARPS)
+def test_cla_variant_changes_only_the_warps_a_block(warps):
+    """A ``--cla`` timing copy differs from ``linear_attn.cu`` only in the
+    backward passes' threads a block, and the source launches both passes
+    with that constant."""
+    original = (ks.CSRC / 'linear_attn.cu').read_text()
+    src = ks.cla_variant(warps).split('\n')
+    diff = [(a.strip(), b.strip()) for a, b in zip(original.split('\n'), src) if a != b]
+    want = [] if 32 * warps == 512 else [
+        (ks.CLA_THREADS, f'constexpr int BWD_THREADS = {32 * warps};')]
+    assert len(src) == len(original.split('\n')) and diff == want
+    assert original.count('<<<BH, BWD_THREADS, smem') == 2
