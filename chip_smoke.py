@@ -152,6 +152,12 @@ SCALAR_KMAX = {'favor_kmax B=2 L=1024': 0.0406, 'favor_kmax B=16 L=2048': 0.2497
 # 6l) and the composed forward+backward (6l, two readings); printed beside
 # today's readings
 SCALAR_CLA = {'cla_bwd_a': 4.5395, 'cla_bwd_b': 4.2132, 'fwd+bwd composed': (16.5067, 16.5187)}
+# the composed op's forward (#5) while its products ran as 4x4 f32 register
+# tiles on scalar loads, read by this script on the same card and limit
+# (after the passes' redesign): ms at BH=128 L=3072 M=128 Dv=64 f32 and the
+# composed forward, no autograd (phase 6l, two readings); printed beside
+# today's readings
+SCALAR_CLA_FWD = {'cla_fwd': 2.9512, 'fwd composed': (5.2739, 5.2920)}
 
 # tolerances, as the largest |kernel - plain| over the largest |plain|:
 # f32 differs only in summation order; under bf16 the kernels round their
@@ -187,10 +193,14 @@ CLA_CASES = ((BF16_B, TRAIN_L, torch.float32, torch.float32),
              (ENTRY_B, 1000, torch.float32, torch.float32),
              (ENTRY_B, 1000, torch.bfloat16, torch.bfloat16),
              (ENTRY_B, 1000, torch.float32, torch.bfloat16))
-# (M, Dv) beside the composed path's (128, 64) for the backward passes at the
-# ragged L (f32): widths off 16, which the passes pad to 16 in shared
-# memory, and widths past 128 / 64
+# (M, Dv) beside the composed path's (128, 64) for all three kernels at the
+# ragged L (the passes f32, the forward in each of CLA_FWD_MIXES): widths
+# off 16, which the kernels pad to 16 in shared memory, and widths past
+# 128 / 64
 CLA_WIDTHS = ((36, 20), (144, 80))
+# the forward's (features' dtype, v's dtype) at CLA_WIDTHS
+CLA_FWD_MIXES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.bfloat16))
 # the composed FAVOR+ path's gradients against the fused op's: the same
 # function up to summation order, through the feature map's chain rule
 TOL_COMPOSED_GRAD = 1e-3
@@ -326,12 +336,14 @@ def bwd_bound(BH, L, Dh, Dv, M, in_bytes, n_partial, pass_a,
                  + bwd_products(BH, L, M, Dv, pass_a) / rate)
 
 
-def cla_fwd_bound(BH, L, M, Dv, in_bytes):
+def cla_fwd_bound(BH, L, M, Dv, in_bytes, rate=F32_FLOP_PER_S, passes=1):
     """Kernel #5: phi_q, phi_k and v read once in their type, the f32 output
-    written once; the forward's causal products at the f32 rate (the kernel
-    widens bf16 inputs)."""
+    written once; the forward's causal products, f32 arithmetic whatever
+    the inputs' type (the kernel widens bf16 inputs), at ``rate``,
+    ``passes`` times over (``TF32_FLOP_PER_S, 3``: 3xTF32, as the kernel
+    runs them; the default f32 on the CUDA cores)."""
     nbytes = BH * L * (2 * M + Dv) * in_bytes + BH * L * Dv * 4
-    return bound(nbytes, fwd_products(BH, L, M, Dv) / F32_FLOP_PER_S)
+    return bound(nbytes, passes * fwd_products(BH, L, M, Dv) / rate)
 
 
 def cla_bwd_bound(BH, L, M, Dv, pass_a, rate=F32_FLOP_PER_S, passes=1):
@@ -721,13 +733,27 @@ def cla_bwd_pairs(la, q, k, v, g, C):
     return dict(dphi_q=(dq, rdq), u=(u, ru), w=(w, rw), dphi_k=(dk, rdk), dv=(dv, rdv))
 
 
+def dtype_name(dtype):
+    return str(dtype).replace('torch.', '')
+
+
+def misaligned(t, elements=1):
+    """A contiguous copy of ``t`` on its device starting ``elements``
+    values past the allocator's boundary."""
+    out = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = out[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernel_cla(dev, rec):
     """Kernels #5-#7 against their plain versions at the kernels' chunk:
     the forward, pass A, and pass B fed the kernel's own (u, w), at the
     composed path's shape and a ragged L in f32; the forward also on bf16
-    features and v, and on f32 features with bf16 v (f32 out); then both
-    passes at the ragged L at the widths of CLA_WIDTHS.  The composed
-    path's shape gives the recorded errors."""
+    features and v, and on f32 features with bf16 v (f32 out); then the
+    three at the ragged L at the widths of CLA_WIDTHS (the forward in each
+    of CLA_FWD_MIXES), and the op's forward on misaligned views.  The
+    composed path's shape gives the recorded errors."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     gen = torch.Generator().manual_seed(21)
     C = la.KERNEL_CHUNK
@@ -744,8 +770,7 @@ def phase_kernel_cla(dev, rec):
                    f'causal_linear_attention {name} dtype/shape/finite')
         errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
         line = ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
-        name = (f"{str(dtype).replace('torch.', '')} features, "
-                f"{str(v_dtype).replace('torch.', '')} v")
+        name = f'{dtype_name(dtype)} features, {dtype_name(v_dtype)} v'
         print(f'phase 2l kernels #5-#7 {name} B={B} H={N_HEAD} L={L} '
               f'M={FAVOR} Dv={D_HEAD}: rel err {line} (tol {TOL_F32})')
         expect(max(errs.values()) <= TOL_F32,
@@ -758,18 +783,36 @@ def phase_kernel_cla(dev, rec):
                 max_abs(*pairs[n]) for n in ('dphi_k', 'dv'))
     B, L = ENTRY_B, 1000
     for M, Dv in CLA_WIDTHS:
-        pairs = cla_bwd_pairs(la, *cla_inputs(gen, B, L, dev, M, Dv), C)
+        q, k, v, g = cla_inputs(gen, B, L, dev, M, Dv)
+        pairs = cla_bwd_pairs(la, q, k, v, g, C)
+        for dtype, v_dtype in CLA_FWD_MIXES:
+            ins = q.to(dtype), k.to(dtype), v.to(v_dtype)
+            pairs[f'out {dtype_name(dtype)}/{dtype_name(v_dtype)}'] = (
+                la._cla_fwd_cuda(*ins), la._cla_fwd_plain(*ins, C))
         torch.cuda.synchronize()
         for name, (a, b) in pairs.items():
             expect(a.dtype == torch.float32 and a.shape == b.shape
                    and bool(torch.isfinite(a).all()),
                    f'causal_linear_attention {name} M={M} Dv={Dv} dtype/shape/finite')
         errs = {name: rel_err(a, b) for name, (a, b) in pairs.items()}
-        print(f'phase 2l kernels #6-#7 f32 B={B} H={N_HEAD} L={L} M={M} Dv={Dv}: '
-              f'rel err {", ".join(f"{n} {e:.2e}" for n, e in errs.items())} '
-              f'(tol {TOL_F32})')
+        print(f'phase 2l kernels #5-#7 B={B} H={N_HEAD} L={L} M={M} Dv={Dv} (the passes '
+              f'f32, out features/v): rel err '
+              f'{", ".join(f"{n} {e:.2e}" for n, e in errs.items())} (tol {TOL_F32})')
         expect(max(errs.values()) <= TOL_F32,
-               f'causal_linear_attention backward passes M={M} Dv={Dv}')
+               f'causal_linear_attention kernels M={M} Dv={Dv}')
+
+    # the op's forward on views one value off the allocator's boundary (f32
+    # phi_q, bf16 v), which it copies again, in their own dtype, for #5
+    from emo_disentanger_tpu_torch.ops import causal_linear_attention
+    q, k, v, _ = cla_inputs(gen, B, L, dev)
+    views = misaligned(q), k, misaligned(v.to(torch.bfloat16))
+    expect(views[0].data_ptr() % 16 and views[2].data_ptr() % 8,
+           'the views are off the boundaries #5 loads on')
+    got = causal_linear_attention(*(t.reshape(B, N_HEAD, L, -1) for t in views))
+    err = rel_err(got.reshape(v.shape), la._cla_fwd_plain(*views, C))
+    print(f'phase 2l causal_linear_attention forward on misaligned views (f32 phi_q, '
+          f'bf16 v) B={B} H={N_HEAD} L={L}: rel err {err:.2e} (tol {TOL_F32})')
+    expect(err <= TOL_F32, 'causal_linear_attention on misaligned views')
 
 
 def phase_kernel_b(dev, rec):
@@ -1454,7 +1497,7 @@ def phase_timing_cla(dev, rec, smi):
     times = {
         'cla_fwd': (time_ms(lambda: la._cla_fwd_cuda(q, k, v), iters=10),
                     time_ms(lambda: la._cla_fwd_plain(q, k, v, C), iters=3, warmup=1),
-                    cla_fwd_bound(BH, L, FAVOR, D_HEAD, 4)),
+                    cla_fwd_bound(BH, L, FAVOR, D_HEAD, 4, TF32_FLOP_PER_S, 3)),
         'cla_bwd_a': (time_ms(lambda: la._cla_bwd_a_cuda(q, k, v, g), iters=10, warmup=2),
                       time_ms(lambda: la._cla_bwd_a_plain(q, k, v, g, C),
                               iters=2, warmup=1),
@@ -1465,16 +1508,24 @@ def phase_timing_cla(dev, rec, smi):
                               iters=2, warmup=1),
                       cla_bwd_bound(BH, L, FAVOR, D_HEAD, False, TF32_FLOP_PER_S, 3)),
     }
+    f32_bound = {'cla_fwd': cla_fwd_bound(BH, L, FAVOR, D_HEAD, 4)[0],
+                 'cla_bwd_a': cla_bwd_bound(BH, L, FAVOR, D_HEAD, True)[0],
+                 'cla_bwd_b': cla_bwd_bound(BH, L, FAVOR, D_HEAD, False)[0]}
     for name, (t, p, (b, by)) in times.items():
-        # the passes' bounds count their products in 3xTF32, as they run
-        # them; the f32 figure (CUDA cores) and the 4x4 design's time beside
-        more = ('' if name not in SCALAR_CLA else
-                f' in 3xTF32, {cla_bwd_bound(BH, L, FAVOR, D_HEAD, name == "cla_bwd_a")[0]:.4f}'
-                f' in f32 on the CUDA cores; on 4x4 f32 tiles {SCALAR_CLA[name]:.4f}')
+        # the bounds count the products in 3xTF32, as the kernels run them;
+        # the f32 figure (CUDA cores) and the 4x4 design's time beside
+        before = {**SCALAR_CLA, **SCALAR_CLA_FWD}[name]
         print(f'phase 6l kernel {name} f32 B={B} H={N_HEAD} L={L} M={FAVOR} '
-              f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (plain {p:.4f}, bound {b:.4f} {by}{more})')
+              f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (plain {p:.4f}, bound {b:.4f} {by} '
+              f'in 3xTF32 ({b / t:.3f} of it), {f32_bound[name]:.4f} in f32 on the CUDA '
+              f'cores; on 4x4 f32 tiles {before:.4f})')
         rec[name].update(ms=t, plain_ms=p, bound_ms=b, bound_by=by)
-    del q, k, v, g, u, w
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    t = time_ms(lambda: la._cla_fwd_cuda(qb, kb, vb), iters=10)
+    b, by = cla_fwd_bound(BH, L, FAVOR, D_HEAD, 2, TF32_FLOP_PER_S, 3)
+    print(f'phase 6l kernel cla_fwd bf16 phi_q, phi_k, v B={B} H={N_HEAD} L={L} M={FAVOR} '
+          f'Dv={D_HEAD} [{smi}]: {t:.4f} ms (bound {b:.4f} {by} in 3xTF32, {b / t:.3f} of it)')
+    del q, k, v, g, u, w, qb, kb, vb
 
     omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
     x = qkv(gen, B, N_HEAD, L, torch.float32, dev)
@@ -1503,8 +1554,9 @@ def phase_timing_cla(dev, rec, smi):
     fmt = lambda ts: ' / '.join(f'{t:.4f}' for t in ts)
     print(f'phase 6l composed vs fused FAVOR+ attention f32 B={B} H={N_HEAD} '
           f'L={L} Dh={D_HEAD} M={FAVOR} [{smi}], two readings each (CUDA events): '
-          f'forward {fmt(res["fwd", "composed"])} ms composed, '
-          f'{fmt(res["fwd", "fused"])} ms fused; forward+backward '
+          f'forward {fmt(res["fwd", "composed"])} ms composed (on 4x4 f32 tiles '
+          f'{fmt(SCALAR_CLA_FWD["fwd composed"])}), {fmt(res["fwd", "fused"])} ms fused; '
+          f'forward+backward '
           f'{fmt(res["fwd+bwd", "composed"])} ms composed (on 4x4 f32 tiles '
           f'{fmt(SCALAR_CLA["fwd+bwd composed"])}), {fmt(res["fwd+bwd", "fused"])} ms fused')
 
@@ -1883,6 +1935,8 @@ def main():
                                replaces='emo_disentanger_tpu/ops/linear_attention.py:1027'),
         'favor_bwd_b_hl': dict(route='cuda', source=src + 'favor_bwd.cu',
                                replaces='emo_disentanger_tpu/ops/linear_attention.py:1099'),
+        # the composed op's three kernels: 3xTF32 mma.sync on tiles padded to
+        # 16, rows by vector loads (the forward's in each input's own type)
         'cla_fwd': dict(route='cuda', source=src + 'linear_attn.cu',
                         replaces='emo_disentanger_tpu/ops/linear_attention.py:152'),
         'cla_bwd_a': dict(route='cuda', source=src + 'linear_attn.cu',

@@ -1,7 +1,7 @@
 // Tensor-core helpers shared by the bf16 instantiations of the FAVOR+
 // kernels, the key max and the forward (favor_fwd.cu) and both backward
-// passes (favor_bwd.cu), and by the composed op's f32 backward passes
-// (linear_attn.cu).  Like favor_common.cuh, they live in an anonymous
+// passes (favor_bwd.cu), and by the composed op's forward and f32 backward
+// passes (linear_attn.cu).  Like favor_common.cuh, they live in an anonymous
 // namespace, so each library gets its own copy; ops/_build.py hashes every
 // header with each source, so an edit here rebuilds all three.
 //
@@ -9,7 +9,7 @@
 // mma.sync.m16n8k16 bf16 with f32 accumulation (tc_mma), which is exactly
 // what the TPU's bf16 dot with f32 accumulation computes; the omega
 // products, which the TPU keeps in f32, and every product of the composed
-// op's f32 backward run in 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32),
+// op, whose arithmetic is f32, run in 3xTF32 on mma.sync.m16n8k8 (tc_mma_f32),
 // f32-accurate to ~1e-6.  Each warp builds its fragments
 // from the kernels' f32 tiles in shared memory with scalar shared loads,
 // rounding two values into one register (__floats2bfloat162_rn, round to
@@ -26,9 +26,9 @@
 // share each product's 16 x 16 output groups (tc_groups: two 16x8 tiles,
 // one A fragment); tc_each runs an elementwise epilogue on the
 // accumulators, tc_each2 on each lane's pairs of adjacent columns (for
-// 8-byte stores).  The rows come in by 16-byte loads, four in flight a
-// thread (load_rows_tc for bf16; load_rows_f32_tc, two f32 tiles at once,
-// eight); ||x||^2 is a
+// 8-byte stores).  The rows come in by vector loads: 16 bytes of bf16, four
+// in flight a thread (load_rows_tc), or four values of f32 or bf16 widened
+// to f32, eight in flight for two tiles at once (load_rows4_tc); ||x||^2 is a
 // warp a row (row_sq_tc) and column sums four lanes a feature
 // (add_col_sums_tc, add_wcol_sums_tc weighted).
 
@@ -275,24 +275,63 @@ __device__ __forceinline__ void load_rows_tc(float* dst, const __nv_bfloat16* sr
   }
 }
 
-// d0[i][c] = s0[i * D + c] and d1[i][c] = s1[i * D + c] for rows i < n and
-// columns c < D, 0 for the ragged tail and the pad columns up to DP: two
-// tiles of C rows of f32 into rows DP + 1 apart (D and DP multiples of 4,
-// s0 and s1 16-byte aligned, as the wrappers check).  16-byte loads, eight
-// of them (four a tile) in flight a thread before any is stored.
-__device__ __forceinline__ void load_rows_f32_tc(float* d0, const float* s0, float* d1,
-                                                 const float* s1, int n, int D, int DP) {
+// Four consecutive values of T by one load, stored widened to f32: a 16-byte
+// float4 for f32, an 8-byte pair of bf16 pairs for bf16.
+template <class T> struct Vec4;
+template <> struct Vec4<float> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, Raw r) {
+    p[0] = r.x;
+    p[1] = r.y;
+    p[2] = r.z;
+    p[3] = r.w;
+  }
+};
+template <> struct Vec4<__nv_bfloat16> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw zero() { return make_uint2(0u, 0u); }
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, Raw r) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    p[0] = a.x;
+    p[1] = a.y;
+    p[2] = b.x;
+    p[3] = b.y;
+  }
+};
+
+// d0[i][c] = s0[i * D + c] (and, with TWO, d1[i][c] = s1[i * D + c]) widened
+// to f32 for rows i < n and columns c < D, 0 for the ragged tail and the pad
+// columns up to DP: C rows into rows DP + 1 apart (D and DP multiples of 4,
+// each source on a boundary of four of its values, as the wrappers check).
+// Four values a load, four loads a tile in flight a thread before any is
+// stored.
+template <bool TWO, class T0, class T1>
+__device__ __forceinline__ void load_tiles4(float* d0, const T0* s0, float* d1, const T1* s1,
+                                            int n, int D, int DP) {
   constexpr int U = 4;
   const int V = DP / 4, VD = D / 4;
   for (int base = threadIdx.x; base < C * V; base += U * blockDim.x) {
-    float4 raw[2][U];
+    // r1 is declared and zeroed before r0: the compiler numbers registers in
+    // this order, and this order gives the f32 passes (#6/#7) the SASS they
+    // had before the loader took the element type (kernel_ab.py --compare)
+    typename Vec4<T1>::Raw r1[U];
+    typename Vec4<T0>::Raw r0[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int idx = base + u * blockDim.x, i = idx / V, c = idx - i * V;
-      raw[0][u] = raw[1][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (TWO) r1[u] = Vec4<T1>::zero();
+      r0[u] = Vec4<T0>::zero();
       if (idx < C * V && i < n && c < VD) {
-        raw[0][u] = __ldg(reinterpret_cast<const float4*>(s0 + (size_t)i * D + c * 4));
-        raw[1][u] = __ldg(reinterpret_cast<const float4*>(s1 + (size_t)i * D + c * 4));
+        r0[u] = Vec4<T0>::load(s0 + (size_t)i * D + c * 4);
+        if constexpr (TWO) r1[u] = Vec4<T1>::load(s1 + (size_t)i * D + c * 4);
       }
     }
 #pragma unroll
@@ -300,17 +339,24 @@ __device__ __forceinline__ void load_rows_f32_tc(float* d0, const float* s0, flo
       const int idx = base + u * blockDim.x, i = idx / V;
       if (idx < C * V) {
         const int at = i * (DP + 1) + (idx - i * V) * 4;
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          float* p = (t ? d1 : d0) + at;
-          p[0] = raw[t][u].x;
-          p[1] = raw[t][u].y;
-          p[2] = raw[t][u].z;
-          p[3] = raw[t][u].w;
-        }
+        Vec4<T0>::store(d0 + at, r0[u]);
+        if constexpr (TWO) Vec4<T1>::store(d1 + at, r1[u]);
       }
     }
   }
+}
+
+// two tiles of a width at once, eight loads in flight a thread
+template <class T0, class T1>
+__device__ __forceinline__ void load_rows4_tc(float* d0, const T0* s0, float* d1, const T1* s1,
+                                              int n, int D, int DP) {
+  load_tiles4<true>(d0, s0, d1, s1, n, D, DP);
+}
+
+// one tile
+template <class T>
+__device__ __forceinline__ void load_rows4_tc(float* d, const T* s, int n, int D, int DP) {
+  load_tiles4<false>(d, s, d, s, n, D, DP);
 }
 
 // sq[i] = ||xs_i||^2 / 2, a warp a row (xs [C][D+1]); ends with __syncthreads()

@@ -22,55 +22,51 @@
 //     dv_j = sum_{i>=j} p_ij u_i + R_next^T phi_k_j,  p_ij = phi_q_i . phi_k_j
 //     dphi_k_j = sum_{i>=j} a_ij phi_q_i + R_next v_j + r_next
 // The forward reads phi_q, phi_k and v each in f32 or bf16, widened to f32 on
-// load as the TPU kernel widens each input, and writes f32.  The backward passes read f32 (the wrapper
-// casts first, as JAX does before _pallas_bwd) and write f32: dphi_q, u and
-// w [BH, L] (pass A), dphi_k and dv (pass B).  Rows past L, in the ragged
+// load as the TPU kernel widens each input, and writes f32.  The backward
+// passes read f32 (the wrapper casts first, as JAX does before _pallas_bwd)
+// and write f32: dphi_q, u and w [BH, L] (pass A), dphi_k and dv (pass B).  Rows past L, in the ragged
 // last chunk, load as zero: they add nothing to a state or a product, their
 // denominator is eps alone, and nothing is stored for them.
 //
-// Bound on the H100: at BH = 128, L = 3072, M = 128, Dv = 64 the forward moves
-// 604 MB and needs 13.1 GFLOP, each backward pass 907 MB and 19.5-19.7 GFLOP
-// (the per-position recurrence's products, counted by chip_smoke.py's
-// cla_fwd_bound / cla_bwd_bound; the chunk triangles below are this kernel's
-// overhead).  The forward, f32 at 67 TFLOP/s, is bounded by operations at
-// 0.195 ms.  The backward passes run their products in 3xTF32 (three TF32
-// passes at 495 TFLOP/s, 0.12 ms), so their 907 MB at 3.35 TB/s bound them:
-// 0.27 ms each (0.29 ms for the same products in f32 on the CUDA cores).
+// Bound on the H100: at BH = 128, L = 3072, M = 128, Dv = 64 the forward
+// moves (2 M + Dv) in_bytes + 4 Dv bytes a position, 604 MB in f32 (352 MB
+// with bf16 inputs), and needs 13.1 GFLOP; each backward pass moves 907 MB
+// and needs 19.5-19.7 GFLOP (the per-position recurrence's products,
+// counted by chip_smoke.py's cla_fwd_bound / cla_bwd_bound; the chunk
+// triangles below are this kernel's overhead).  All three run their
+// products in 3xTF32, three TF32 passes at 495 TFLOP/s: 0.079 ms forward,
+// 0.12 ms a pass, so bytes at 3.35 TB/s bound them: 0.180 ms forward (0.105
+// ms with bf16 inputs), 0.27 ms a pass.  The same products in f32 on the
+// CUDA cores (67 TFLOP/s) would bound the forward at 0.195 ms and a pass at
+// 0.29 ms.
 //
 // Design: one thread block per row loops over 64-row chunks, the TPU grid's
 // sequential chunk axis.  The carried state and the chunk's tiles live in
 // shared memory, rows padded +1 against bank conflicts: 130 KB forward, 163
-// KB pass A and 147 KB pass B at the shapes above.  The forward (simple
-// first, as the FAVOR+ kernels began) takes its rows by scalar loads and runs
-// its products as 4x4 register micro-tiles over shared memory (mma4x4 of
-// favor_common.cuh).  The backward passes run on the tensor cores with the
-// helpers of favor_tc.cuh, the fused passes' design (favor_bwd.cu) without
-// the feature maps and the chain rule: all five products of each pass
-// (pass A: the scores phi_q phi_k^T, the numerator sc v + phi_q S, the a
-// matrix u v^T, dphi_q = a phi_k + u S^T and the update S += phi_k^T v;
-// pass B: the scores, dv = p^T u + phi_k R, the a matrix, dphi_k = a^T phi_q
-// + v R^T and the update R += phi_q^T u) in 3xTF32 on mma.sync.m16n8k8, as
-// the inputs are f32 and one TF32 pass errs ~1e-3.  The causal products skip
-// the groups above the diagonal and run K only to the group's last row; pass
-// B's suffix products start K at the group's first row.  Rows come in by
-// 16-byte loads, the denominator and w are a warp a row, z and r four lanes
-// a feature, and the outputs leave as 8-byte pairs.  No TMA or pipelining
-// yet, and one block per row leaves SMs idle below BH = 132.
+// KB pass A and 147 KB pass B at the shapes above, so one block an SM, run
+// at 16 warps.  All three kernels run on the tensor cores with the helpers
+// of favor_tc.cuh, the fused kernels' design (favor_fwd.cu, favor_bwd.cu)
+// without the feature maps and the chain rule.  Every product (forward:
+// the scores phi_q phi_k^T, the numerator sc v + phi_q S and the update
+// S += phi_k^T v; pass A: those and the a matrix u v^T and dphi_q = a phi_k
+// + u S^T; pass B: the scores, dv = p^T u + phi_k R, the a matrix, dphi_k =
+// a^T phi_q + v R^T and the update R += phi_q^T u) runs in 3xTF32 on
+// mma.sync.m16n8k8, as the arithmetic is f32 and one TF32 pass errs ~1e-3;
+// bf16 inputs widen exactly and take the same path.  M and Dv are padded
+// to the next multiple of 16 in shared memory (pad16), with pad columns
+// loaded as zero and never stored.  The causal products skip the groups
+// above the diagonal and run K only to the group's last row; pass B's
+// suffix products start K at the group's first row.  Rows come in by
+// vector loads of four values in each input's type (load_rows4_tc: 16
+// bytes of f32, 8 of bf16), widened to f32 in shared memory; the
+// denominator and w are a warp a row, z and r four lanes a feature, and
+// the outputs leave as 8-byte pairs.  No TMA or pipelining yet, and one
+// block per row leaves SMs idle below BH = 132.
 
 #include "favor_common.cuh"
 #include "favor_tc.cuh"
 
 namespace {
-
-// dst[i][c] = src[i * W + c] widened to f32 for rows i < n and 0 beyond, dst
-// rows W + 1 apart
-template <class T>
-__device__ void load_rows(float* dst, const T* src, int n, int W) {
-  for (int idx = threadIdx.x; idx < C * W; idx += blockDim.x) {
-    const int i = idx / W, c = idx - i * W;
-    dst[i * (W + 1) + c] = i < n ? to_f<T>(src[(size_t)i * W + c]) : 0.f;
-  }
-}
 
 // the carried state [M][Dv+1] and its vector [M] to zero
 __device__ void zero_state(float* state, float* vec, int M, int Dv) {
@@ -78,124 +74,88 @@ __device__ void zero_state(float* state, float* vec, int M, int Dv) {
   for (int i = threadIdx.x; i < M; i += blockDim.x) vec[i] = 0.f;
 }
 
-// sc[i][j] = phi_q_i . phi_k_j for j <= i, else 0
-__device__ void causal_scores(float* sc, const float* pq, const float* pk, int M) {
-  const int MP = M + 1, CP = C + 1;
-  for (int t = threadIdx.x; t < (C / 4) * (C / 4); t += blockDim.x) {
-    const int it = t / (C / 4), jt = t - it * (C / 4);
-    float acc[4][4];
-    zero4x4(acc);
-    mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, pk, 1, MP, jt, C / 4, M);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = it + r * (C / 4), j = jt + c * (C / 4);
-        sc[i * CP + j] = j <= i ? acc[r][c] : 0.f;
-      }
-  }
-}
+// M and Dv are padded to the next multiple of 16 in shared memory, with pad
+// columns loaded as zero and never stored, so the rows stay odd-strided
+// (favor_tc.cuh's bank map) and every width the wrappers take (multiples of
+// 4) runs.
+__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
 
-// den[i] = sum_{j<=i} sc[i][j] + phi_q_i . z + eps, a warp per row
-__device__ void denominators(float* den, const float* sc, const float* pq, const float* z,
-                             int M, float eps) {
-  const int MP = M + 1, CP = C + 1, lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
-  for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
-    float s = 0.f;
-    for (int j = lane; j <= i; j += 32) s += sc[i * CP + j];
-    for (int m = lane; m < M; m += 32) s = fmaf(pq[i * MP + m], z[m], s);
-    s = warp_sum(s);
-    if (lane == 0) den[i] = s + eps;
-  }
-}
+// Their shared memory allows one block an SM, so the three kernels run 16
+// warps a block, not THREADS' 8: more mma.sync chains and row loads in
+// flight, the same bits (kernel_sections.py --cla times 8, 16 and 24 warps
+// in turns).
+constexpr int CLA_THREADS = 512;
 
-// state[m][d] += sum_{j<n} x[j][m] y[j][d] and vec[m] += sum_{j<n} x[j][m];
-// x [C][M+1], y [C][Dv+1], state [M][Dv+1]
-__device__ void add_state(float* state, float* vec, const float* x, const float* y, int n,
-                          int M, int Dv) {
-  const int MP = M + 1, DVP = Dv + 1;
-  for (int t = threadIdx.x; t < (M / 4) * (Dv / 4); t += blockDim.x) {
-    const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-    float acc[4][4];
-    zero4x4(acc);
-    mma4x4<float, false, false>(acc, x, 1, MP, it, M / 4, y, DVP, 1, jt, Dv / 4, n);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) state[(it + r * (M / 4)) * DVP + jt + c * (Dv / 4)] += acc[r][c];
-  }
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < n; ++j) s += x[j * MP + m];
-    vec[m] += s;
-  }
-}
-
+// The forward is pass A's first half: the scores, the denominator, the
+// numerator and the state update, each input read in its own type.
 template <class TQ, class TK, class TV>
 __global__ void cla_fwd_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                                const TV* __restrict__ v, float* __restrict__ out, int L, int M,
                                int Dv, float eps) {
   extern __shared__ float smem[];
-  const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
-  float* S = smem;                     // [M][Dv+1]   running sum phi_k v^T
-  float* z = S + M * DVP;              // [M]         running sum phi_k
-  float* pq = z + M;                   // [C][M+1]
-  float* pk = pq + C * MP;             // [C][M+1]
-  float* vv = pk + C * MP;             // [C][Dv+1]
-  float* sc = vv + C * DVP;            // [C][C+1]    masked intra-chunk scores
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const int MP = M16 + 1, DVP = D16 + 1, CP = C + 1;
+  float* S = smem;                     // [M16][D16+1] running sum phi_k v^T
+  float* z = S + M16 * DVP;            // [M16]        running sum phi_k
+  float* pq = z + M16;                 // [C][M16+1]
+  float* pk = pq + C * MP;             // [C][M16+1]
+  float* vv = pk + C * MP;             // [C][D16+1]
+  float* sc = vv + C * DVP;            // [C][C+1]     masked scores
   float* den = sc + C * CP;            // [C]
+  const int tid = threadIdx.x, lane = tid & 31, nwarp = blockDim.x >> 5;
   const size_t row = blockIdx.x;
   q += row * L * M;                    // this row's first position
   k += row * L * M;
   v += row * L * Dv;
   out += row * L * Dv;
-  zero_state(S, z, M, Dv);
+  zero_state(S, z, M16, D16);
 
   for (int r0 = 0; r0 < L; r0 += C) {
     const int n = min(C, L - r0);
-    load_rows<TQ>(pq, q + (size_t)r0 * M, n, M);
-    load_rows<TK>(pk, k + (size_t)r0 * M, n, M);
-    load_rows<TV>(vv, v + (size_t)r0 * Dv, n, Dv);
+
+    // this chunk's phi_q, phi_k and v rows, widened to f32
+    load_rows4_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
+    load_rows4_tc(vv, v + (size_t)r0 * Dv, n, Dv, D16);
     __syncthreads();
-    causal_scores(sc, pq, pk, M);
+
+    // sc = phi_q phi_k^T, masked to j <= i
+    tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
+      if (j0 <= i0) tc_mma_f32<2>(acc, pq, MP, 1, i0, pk, 1, MP, j0, M16);
+      tc_each<2>(acc, i0, j0, [&](int i, int j, float x) { sc[i * CP + j] = j <= i ? x : 0.f; });
+    });
     __syncthreads();
-    denominators(den, sc, pq, z, M, eps);
+
+    // den_i = sum_{j<=i} sc_ij + phi_q_i . z + eps, a warp per row
+    for (int i = tid >> 5; i < C; i += nwarp) {
+      float s = 0.f;
+      for (int j = lane; j < C; j += 32) s += sc[i * CP + j];
+      for (int m = lane; m < M16; m += 32) s = fmaf(pq[i * MP + m], z[m], s);
+      s = warp_sum(s);
+      if (lane == 0) den[i] = s + eps;
+    }
     __syncthreads();
 
     // out_i = (sc_i . v + phi_q_i . S) / den_i
-    for (int t = threadIdx.x; t < (C / 4) * (Dv / 4); t += blockDim.x) {
-      const int it = t / (Dv / 4), jt = t - it * (Dv / 4);
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, sc, CP, 1, it, C / 4, vv, DVP, 1, jt, Dv / 4, n);
-      mma4x4<float, false, false>(acc, pq, MP, 1, it, C / 4, S, DVP, 1, jt, Dv / 4, M);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * (C / 4);
-        if (i < n)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            out[(size_t)(r0 + i) * Dv + jt + c * (Dv / 4)] = acc[r][c] / den[i];
-      }
-    }
-    __syncthreads();
-    add_state(S, z, pk, vv, n, M, Dv);
+    tc_groups(C, D16, [&](float (*acc)[4], int i0, int d0) {
+      tc_mma_f32<2>(acc, sc, CP, 1, i0, vv, DVP, 1, d0, i0 + 16);
+      tc_mma_f32<2>(acc, pq, MP, 1, i0, S, DVP, 1, d0, M16);
+      tc_each2<2>(acc, i0, d0, [&](int i, int d, float x0, float x1) {
+        if (i < n && d < Dv)
+          *reinterpret_cast<float2*>(out + (size_t)(r0 + i) * Dv + d) =
+              make_float2(x0 / den[i], x1 / den[i]);
+      });
+    });
+    __syncthreads();                   // the products above read S
+
+    // S += phi_k^T v, z += sum_j phi_k_j
+    tc_groups(M16, D16, [&](float (*acc)[4], int m0, int d0) {
+      tc_mma_f32<2>(acc, pk, 1, MP, m0, vv, DVP, 1, d0, C);
+      tc_each<2>(acc, m0, d0, [&](int m, int d, float x) { S[m * DVP + d] += x; });
+    });
+    add_col_sums_tc(z, pk, M16);
     __syncthreads();
   }
 }
-
-// The backward passes run every product on the tensor cores in 3xTF32
-// (tc_mma_f32 of favor_tc.cuh), the fused passes' design without the maps
-// and the chain rule.  M and Dv are padded to the next multiple of 16 in
-// shared memory (pad16), with pad columns loaded as zero and never stored,
-// so the rows stay odd-strided (favor_tc.cuh's bank map) and every width
-// the wrappers take (multiples of 4) runs.
-__host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
-
-// Their shared memory allows one block an SM, so they run 16 warps a block,
-// not THREADS' 8: more mma.sync chains and row loads in flight, the same
-// bits (kernel_sections.py --cla times 8, 16 and 24 warps in turns).
-constexpr int BWD_THREADS = 512;
 
 __global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const float* __restrict__ g,
@@ -229,8 +189,8 @@ __global__ void cla_bwd_a_kernel(const float* __restrict__ q, const float* __res
     const int n = min(C, L - r0);
 
     // this chunk's phi_q, phi_k, v and g rows
-    load_rows_f32_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
-    load_rows_f32_tc(vv, v + (size_t)r0 * Dv, gu, g + (size_t)r0 * Dv, n, Dv, D16);
+    load_rows4_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
+    load_rows4_tc(vv, v + (size_t)r0 * Dv, gu, g + (size_t)r0 * Dv, n, Dv, D16);
     __syncthreads();
 
     // sc = phi_q phi_k^T, masked to j <= i
@@ -339,8 +299,8 @@ __global__ void cla_bwd_b_kernel(const float* __restrict__ q, const float* __res
     const int n = min(C, L - r0);
 
     // this chunk's phi_q, phi_k, v, u rows and w
-    load_rows_f32_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
-    load_rows_f32_tc(vv, v + (size_t)r0 * Dv, uu, u + (size_t)r0 * Dv, n, Dv, D16);
+    load_rows4_tc(pq, q + (size_t)r0 * M, pk, k + (size_t)r0 * M, n, M, M16);
+    load_rows4_tc(vv, v + (size_t)r0 * Dv, uu, u + (size_t)r0 * Dv, n, Dv, D16);
     for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? w[r0 + i] : 0.f;
     __syncthreads();
 
@@ -397,11 +357,12 @@ __global__ void cla_bwd_b_kernel(const float* __restrict__ q, const float* __res
 template <class TQ, class TK, class TV>
 int launch_fwd(const void* q, const void* k, const void* v, float* out, int BH, int L, int M,
                int Dv, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (M * (Dv + 1) + M + 2 * C * (M + 1) + C * (Dv + 1) +
-                                       C * (C + 1) + C);
+  const int M16 = pad16(M), D16 = pad16(Dv);
+  const size_t smem = sizeof(float) * (M16 * (D16 + 1) + M16 + 2 * C * (M16 + 1) +
+                                       C * (D16 + 1) + C * (C + 1) + C);
   cudaError_t err = allow_smem(cla_fwd_kernel<TQ, TK, TV>, smem);
   if (err != cudaSuccess) return (int)err;
-  cla_fwd_kernel<TQ, TK, TV><<<BH, THREADS, smem, stream>>>(
+  cla_fwd_kernel<TQ, TK, TV><<<BH, CLA_THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k), static_cast<const TV*>(v), out, L,
       M, Dv, eps);
   return (int)cudaGetLastError();
@@ -448,7 +409,7 @@ int cla_bwd_a(const float* q, const float* k, const float* v, const float* g, fl
                                        3 * C * (D16 + 1) + C * (C + 1) + 2 * C);
   cudaError_t err = allow_smem(cla_bwd_a_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cla_bwd_a_kernel<<<BH, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  cla_bwd_a_kernel<<<BH, CLA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, g, dq, u, w, L, M, Dv, eps);
   return (int)cudaGetLastError();
 }
@@ -462,7 +423,7 @@ int cla_bwd_b(const float* q, const float* k, const float* v, const float* u, co
                                        2 * C * (D16 + 1) + C * (C + 1) + C);
   cudaError_t err = allow_smem(cla_bwd_b_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cla_bwd_b_kernel<<<BH, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  cla_bwd_b_kernel<<<BH, CLA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, u, w, dk, dv, L, M, Dv);
   return (int)cudaGetLastError();
 }

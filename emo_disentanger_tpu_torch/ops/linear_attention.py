@@ -399,16 +399,22 @@ def _width_rule(tile) -> str:
     return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
 
 
-def _check_aligned(name, tensors, dtypes=(torch.bfloat16,)) -> None:
-    """Raise unless each tensor of a type in ``dtypes`` starts on a 16-byte
-    boundary: under bf16 the FAVOR+ key max, forward and both backward
-    passes load their rows 16 bytes at a time, and so do the composed op's
-    f32 backward passes (``dtypes=(torch.float32,)``)."""
+_BF16_ALIGN = {torch.bfloat16: 16}
+
+
+def _check_aligned(name, tensors, align=_BF16_ALIGN) -> None:
+    """Raise unless each tensor of a dtype in ``align`` starts on a boundary
+    of that many bytes: under bf16 the FAVOR+ key max, forward and both
+    backward passes load their rows 16 bytes at a time, and so do the
+    composed op's f32 backward passes (``{torch.float32: 16}``); its
+    forward loads four values at a time in each input's own type
+    (``_CLA_FWD_ALIGN``)."""
     for n, t in tensors:
-        if t.dtype in dtypes and t.data_ptr() % 16:
+        nbytes = align.get(t.dtype)
+        if nbytes and t.data_ptr() % nbytes:
             kind = 'bf16' if t.dtype == torch.bfloat16 else 'f32'
-            raise ValueError(f'{name}: {kind} {n} must start on a 16-byte '
-                             f'boundary (got an offset of {t.data_ptr() % 16})')
+            raise ValueError(f'{name}: {kind} {n} must start on a {nbytes}-byte '
+                             f'boundary (got an offset of {t.data_ptr() % nbytes})')
 
 
 def _check_kmax_inputs(k2, omega):
@@ -976,11 +982,30 @@ def _check_cla_inputs(name, q2, k2, v2, dtypes):
     return BH, L, M, Dv
 
 
+# the bytes each input's base must be a multiple of: the forward loads four
+# values of a row at a time in the input's own type (16 bytes of float32, 8
+# of bfloat16), the backward passes 16 bytes of float32
+_CLA_FWD_ALIGN = {torch.float32: 16, torch.bfloat16: 8}
+_CLA_BWD_ALIGN = {torch.float32: 16}
+
+
+def _check_cla_fwd_inputs(q2, k2, v2):
+    """(BH, L, M, Dv) for ``cla_fwd``: [BH, L, M] features and [BH, L, Dv]
+    v, contiguous CUDA tensors, each float32 or bfloat16 on its own, M and
+    Dv multiples of 4, each base on its dtype's boundary
+    (``_CLA_FWD_ALIGN``); raises otherwise."""
+    dims = _check_cla_inputs('cla_fwd', q2, k2, v2, (torch.float32, torch.bfloat16))
+    _check_aligned('cla_fwd', (('phi_q', q2), ('phi_k', k2), ('v', v2)), _CLA_FWD_ALIGN)
+    return dims
+
+
 def _cla_fwd_cuda(q2, k2, v2, eps=EPS) -> torch.Tensor:
     """Launch ``cla_fwd`` on [BH, L, M] features and [BH, L, Dv] v, each
-    float32 or bfloat16 (widened on load); returns [BH, L, Dv] float32."""
-    BH, L, M, Dv = _check_cla_inputs('cla_fwd', q2, k2, v2,
-                                     (torch.float32, torch.bfloat16))
+    float32 or bfloat16; returns [BH, L, Dv] float32.  The kernel loads
+    four values of a row at a time in each input's own type (16 bytes of
+    float32, 8 of bfloat16) and widens them to float32, so each input must
+    start on that boundary (``_check_cla_fwd_inputs``)."""
+    BH, L, M, Dv = _check_cla_fwd_inputs(q2, k2, v2)
     out = torch.empty(BH, L, Dv, dtype=torch.float32, device=q2.device)
     lib = _cla_lib()
     bf16 = [int(t.dtype == torch.bfloat16) for t in (q2, k2, v2)]
@@ -1002,7 +1027,7 @@ def _cla_bwd_a_cuda(q2, k2, v2, g2, eps=EPS):
     if g2.shape != v2.shape:
         raise ValueError(f'cla_bwd_a: g {tuple(g2.shape)} vs v {tuple(v2.shape)}')
     _check_aligned('cla_bwd_a', (('phi_q', q2), ('phi_k', k2), ('v', v2), ('g', g2)),
-                   (torch.float32,))
+                   _CLA_BWD_ALIGN)
     dq = torch.empty_like(q2)
     u = torch.empty_like(v2)
     w = torch.empty(BH, L, dtype=torch.float32, device=q2.device)
@@ -1027,7 +1052,7 @@ def _cla_bwd_b_cuda(q2, k2, v2, u, w):
         raise ValueError(f'cla_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} vs '
                          f'v {tuple(v2.shape)}')
     _check_aligned('cla_bwd_b', (('phi_q', q2), ('phi_k', k2), ('v', v2), ('u', u)),
-                   (torch.float32,))
+                   _CLA_BWD_ALIGN)
     dk = torch.empty_like(k2)
     dv = torch.empty_like(v2)
     lib = _cla_lib()
@@ -1039,12 +1064,24 @@ def _cla_bwd_b_cuda(q2, k2, v2, u, w):
     return dk, dv
 
 
+def _aligned(t: torch.Tensor, align) -> torch.Tensor:
+    """``t`` (contiguous) on the boundary ``align`` gives its dtype: a view
+    off it is copied again in its own dtype, which moves its address and
+    nothing else (values, device and shape stay); a dtype ``align`` does
+    not name is left for the kernel's check to refuse."""
+    return t.clone() if t.data_ptr() % align.get(t.dtype, 1) else t
+
+
 def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as a contiguous float32 tensor on a 16-byte boundary: a
-    misaligned view is copied again, which moves its address and nothing
-    else (values, device and shape stay)."""
-    t = t.to(torch.float32).contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+    """``t`` as a contiguous float32 tensor on a 16-byte boundary."""
+    return _aligned(t.to(torch.float32).contiguous(), _CLA_BWD_ALIGN)
+
+
+def _cla_fwd_aligned_cuda(q2, k2, v2, eps=EPS) -> torch.Tensor:
+    """The composed op's forward on the card: ``cla_fwd`` on the inputs in
+    their own dtypes, a view off the boundary its loads need
+    (``_CLA_FWD_ALIGN``) copied again first; returns out (float32)."""
+    return _cla_fwd_cuda(*(_aligned(t, _CLA_FWD_ALIGN) for t in (q2, k2, v2)), eps)
 
 
 def _cla_bwd_cuda(q2, k2, v2, g, eps=EPS):
@@ -1068,7 +1105,7 @@ class _CausalLinearAttention(torch.autograd.Function):
         if q2.device.type == 'cpu':
             out = _cla_fwd_plain(q2, k2, v2, chunk, eps)
         else:
-            out = _cla_fwd_cuda(q2, k2, v2, eps)
+            out = _cla_fwd_aligned_cuda(q2, k2, v2, eps)
         ctx.save_for_backward(q2, k2, v2)
         ctx.chunk, ctx.eps = chunk, eps
         return out
@@ -1097,11 +1134,14 @@ def causal_linear_attention(phi_q: torch.Tensor, phi_k: torch.Tensor,
     CPU tensors run the plain versions: the chunked scan (L zero-padded to
     a ``chunk`` multiple) forward, :func:`_cla_bwd_a_plain` and
     :func:`_cla_bwd_b_plain` backward.  CUDA tensors launch ``cla_fwd``
-    forward (each input float32 or bfloat16, widened on load) and,
-    on float32 casts of the inputs and the gradient, ``cla_bwd_a`` then
-    ``cla_bwd_b`` backward; the kernels take 64-row chunks whatever
-    ``chunk`` is, mask the ragged last chunk themselves, and raise on what
-    they cannot take."""
+    forward, which reads each input as float32 or bfloat16 in its own type,
+    four values of a row a load, and widens them to float32; and, on
+    float32 casts of the inputs and the gradient, ``cla_bwd_a`` then
+    ``cla_bwd_b`` backward, which load rows 16 bytes at a time.  A view
+    off the boundary its loads need is copied again first (in its own
+    dtype forward).  The kernels take 64-row chunks whatever ``chunk`` is,
+    M and Dv multiples of 4, mask the ragged last chunk themselves, and
+    raise on what they cannot take."""
     *lead, L, M = phi_q.shape
     Dv = v.shape[-1]
     bh = math.prod(lead)

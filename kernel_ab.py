@@ -30,17 +30,21 @@ the same seeded inputs, the outputs compared, and each kernel's time.
 * ``cla``: the composed op's kernels #5 ``cla_fwd``, #6 ``cla_bwd_a`` and
   #7 ``cla_bwd_b`` in f32 on FAVOR+ features (M=128, Dv=64) at BH=128
   L=3072 and at B=2 L=1000 (BH=16); pass B is fed a (u, w) drawn from the
-  seed, so its outputs do not depend on pass A.  #5's output is compared
-  bit for bit, the passes' by the largest relative difference.
+  seed, so its outputs do not depend on pass A.  All three are compared by
+  the largest relative difference (#5's 3xTF32 design changed its sums).
 
-It saves the outputs and times.  ``--compare`` reports, against the first
-file, which outputs differ (bitwise ones) or by how much (relative ones),
-and each time's ratio.  Run the two checkouts in turns in one call
+It saves the outputs, the times and each built kernel's SASS
+(``cuobjdump -sass``, by mangled name).  ``--compare`` reports, against
+the first file, which outputs differ (bitwise ones) or by how much
+(relative ones), each time's ratio, and which kernels' SASS differ.  Run the two checkouts in turns in one call
 (A, B, B, A), since cards and their power limits differ between calls.
 """
 
 import argparse
 import os
+import re
+import shutil
+import subprocess
 import sys
 
 import torch
@@ -203,7 +207,7 @@ def save_flash(dev, gen, outs, times):
 
 
 def save_cla(dev, gen, outs, times):
-    """#5-#7 in f32 at CLA_CASES; returns the passes' outputs, compared by
+    """#5-#7 in f32 at CLA_CASES; returns their outputs, compared by
     relative difference."""
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
@@ -217,6 +221,7 @@ def save_cla(dev, gen, outs, times):
         w = (0.5 * torch.randn(BH, L, generator=gen)).to(dev)
         tag = f'f32 BH={BH} L={L}'
         outs[f'cla_fwd out {tag}'] = la._cla_fwd_cuda(q, k, v)
+        relative.append(f'cla_fwd out {tag}')
         times[f'cla_fwd {tag}'] = time_ms(lambda: la._cla_fwd_cuda(q, k, v))
         dq, u_a, w_a = la._cla_bwd_a_cuda(q, k, v, g)
         dk, dv = la._cla_bwd_b_cuda(q, k, v, u, w)
@@ -234,10 +239,31 @@ SAVERS = {'favor': (('favor_fwd', 'favor_bwd'), save_favor),
           'cla': (('linear_attn',), save_cla)}
 
 
+def sass_by_kernel(lib):
+    """{mangled kernel name: its SASS} of the built library ``lib``; the
+    hash nvcc puts in an anonymous namespace's name, which follows the
+    source's path, is dropped so that two checkouts' names match."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    text = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    text = re.sub(r'_GLOBAL__N__[0-9a-f]{8}_', '_GLOBAL__N__', text)
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name and line.strip():
+            out[name].append(line.strip())
+    return {n: '\n'.join(lines) for n, lines in out.items()}
+
+
 def save(root, path, kernels):
     sys.path.insert(0, os.path.abspath(root))
     from emo_disentanger_tpu_torch.ops import _build
-    _build.build([src for k in kernels for src in SAVERS[k][0]])
+    sources = [src for k in kernels for src in SAVERS[k][0]]
+    _build.build(sources)
+    sass = {n: t for src in sources for n, t in sass_by_kernel(_build._target(src)).items()}
     dev = torch.device('cuda')
     outs, times, relative = {}, {}, []
     for k in kernels:
@@ -246,7 +272,7 @@ def save(root, path, kernels):
     torch.cuda.synchronize()
     torch.save({'root': os.path.abspath(root), 'device': torch.cuda.get_device_name(0),
                 'outs': {n: t.cpu() for n, t in outs.items()}, 'times': times,
-                'relative': relative}, path)
+                'relative': relative, 'sass': sass}, path)
     print(f'kernel_ab: {root}: ' + ', '.join(f'{n} {t:.4f}' for n, t in times.items()))
 
 
@@ -263,8 +289,11 @@ def compare(paths):
         ratios = ', '.join(f'{n} {run["times"][n] / t:.4f}'
                            for n, t in ref['times'].items() if n in run['times'])
         bitwise = 'all bitwise outputs equal' if not differ else 'differ: ' + str(differ)
+        sass = ref.get('sass', {})
+        other = [n for n, t in sass.items() if run.get('sass', {}).get(n) != t]
         print(f'kernel_ab: {p} vs {paths[0]}: {bitwise}; largest relative '
-              f'differences {diffs or "none"}; time ratios {ratios}')
+              f'differences {diffs or "none"}; time ratios {ratios}; SASS identical '
+              f'for {len(sass) - len(other)} of {len(sass)} kernels, differs for {other}')
     return 0
 
 

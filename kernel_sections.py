@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where the FAVOR+ forward's and backward passes' time goes inside a
-chunk, on the GPU; and the bf16 key max at each number of chunks a block.
+chunk, on the GPU, and the composed op's (``--cla``); and the bf16 key max
+at each number of chunks a block.
 
     python3 kernel_sections.py
     python3 kernel_sections.py --kmax
@@ -36,14 +37,15 @@ the same partial maxima bit for bit, and times each (CUDA events) in
 turns (1, 2, 4, 8, 8s, 8s, 8, 4, 2, 1) at B=16 L=3072 in both layouts,
 B=16 L=2048 and B=2 L=1024.
 
-``--cla`` does the same for the composed op's f32 backward passes, #6
-``cla_bwd_a`` and #7 ``cla_bwd_b`` of ``linear_attn.cu`` (its forward #5
-is not touched, and every added statement runs unconditionally, as the
-passes have no other instantiation): it builds the copy and runs both
-passes at the composed path's shape (BH=128, L=3072, M=128, Dv=64, f32;
-pass B on pass A's (u, w)), prints each section's cycles a chunk, then
-both kernels' SASS opcode counts; last, it builds copies of the source
-whose passes run 8, 16 or 24 warps a block (``BWD_THREADS``), checks
+``--cla`` does the same for the composed op's kernels in
+``linear_attn.cu``, the forward #5 ``cla_fwd`` and the backward passes #6
+``cla_bwd_a`` and #7 ``cla_bwd_b`` (every added statement runs
+unconditionally, in each of the forward's dtype instantiations too): it
+builds the copy and runs the three at the composed path's shape (BH=128,
+L=3072, M=128, Dv=64, f32; pass B on pass A's (u, w)), prints each
+section's cycles a chunk, then the kernels' SASS opcode counts (the
+forward's f32 instantiation); last, it builds copies of the source whose
+three kernels run 8, 16 or 24 warps a block (``CLA_THREADS``), checks
 that they give the same outputs bit for bit, and times them in turns.
 """
 
@@ -72,10 +74,11 @@ REVERSE = 'for (int r0 = ((L - 1) / C) * C; r0 >= 0; r0 -= C) {'
 KERNELS = {'favor_fwd.cu': {'favor_fwd': ('favor_fwd_kernel', IN_ORDER)},
            'favor_bwd.cu': {'favor_bwd_a': ('favor_bwd_a_kernel', IN_ORDER),
                             'favor_bwd_b': ('favor_bwd_b_kernel', REVERSE)},
-           'linear_attn.cu': {'cla_bwd_a': ('cla_bwd_a_kernel', IN_ORDER),
+           'linear_attn.cu': {'cla_fwd': ('cla_fwd_kernel', IN_ORDER),
+                              'cla_bwd_a': ('cla_bwd_a_kernel', IN_ORDER),
                               'cla_bwd_b': ('cla_bwd_b_kernel', REVERSE)}}
 # the condition each added statement runs under: the FAVOR+ kernels' bf16
-# (tensor-core) instantiation; the composed op's passes have only one
+# (tensor-core) instantiation; the composed op's kernels, all of them
 GUARD = {'favor_fwd.cu': 'TC', 'favor_bwd.cu': 'TC', 'linear_attn.cu': 'true'}
 
 
@@ -125,18 +128,21 @@ def instrument(source='favor_bwd.cu'):
     return src, ends
 
 
-# the backward passes' threads a block, BWD_THREADS in linear_attn.cu,
-# and the warps a block of the --cla copies timed against each other
-CLA_THREADS = 'constexpr int BWD_THREADS = 512;'
+# the composed op's threads a block, CLA_THREADS in linear_attn.cu, and
+# the warps a block of the --cla copies timed against each other
+CLA_THREADS = 'constexpr int CLA_THREADS = 512;'
 CLA_WARPS = (8, 16, 24)
+# the f32 instantiation of each --cla kernel in its mangled name
+CLA_F32 = {'cla_fwd': 'cla_fwd_kernelIfff', 'cla_bwd_a': 'cla_bwd_a_kernel',
+           'cla_bwd_b': 'cla_bwd_b_kernel'}
 
 
 def cla_variant(warps):
-    """``linear_attn.cu`` with the backward passes at ``warps`` a block."""
+    """``linear_attn.cu`` with its three kernels at ``warps`` a block."""
     src = (CSRC / 'linear_attn.cu').read_text()
     if src.count(CLA_THREADS) != 1:
-        raise RuntimeError("BWD_THREADS is not in linear_attn.cu as expected")
-    return src.replace(CLA_THREADS, f'constexpr int BWD_THREADS = {32 * warps};')
+        raise RuntimeError("CLA_THREADS is not in linear_attn.cu as expected")
+    return src.replace(CLA_THREADS, f'constexpr int CLA_THREADS = {32 * warps};')
 
 
 KMAX_RULE = 'while (TC && per < 8 && BH * nch / (2 * per) >= 512) per *= 2;'
@@ -261,7 +267,7 @@ def main():
     ap.add_argument('--kmax', action='store_true',
                     help='time the bf16 key max at 1, 2, 4 and 8 chunks a block')
     ap.add_argument('--cla', action='store_true',
-                    help="the composed op's f32 backward passes (linear_attn.cu)")
+                    help="the composed op's forward and backward passes (linear_attn.cu)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('kernel_sections: CUDA is not available', file=sys.stderr)
@@ -352,8 +358,9 @@ def read_cycles(source, name, rows, chunks):
 
 
 def time_cla_sections(ends, smi):
-    """The ``--cla`` run: both passes of the instrumented linear_attn.cu at
-    the composed path's shape, then their SASS."""
+    """The ``--cla`` run: the forward and both passes of the instrumented
+    linear_attn.cu at the composed path's shape, then their SASS, then the
+    copies at each warps a block."""
     from emo_disentanger_tpu_torch.ops import _build
     from emo_disentanger_tpu_torch.ops import linear_attention as la
     dev, BH, L, M, Dv = torch.device('cuda'), 128, 3072, 128, 64
@@ -364,17 +371,18 @@ def time_cla_sections(ends, smi):
     k = la.favor_features(x(64), omega, is_query=False)
     v, g = x(Dv), x(Dv)
     _, u, w_in = la._cla_bwd_a_cuda(q, k, v, g)
-    runs = {'cla_bwd_a': lambda: la._cla_bwd_a_cuda(q, k, v, g),
+    runs = {'cla_fwd': lambda: la._cla_fwd_cuda(q, k, v),
+            'cla_bwd_a': lambda: la._cla_bwd_a_cuda(q, k, v, g),
             'cla_bwd_b': lambda: la._cla_bwd_b_cuda(q, k, v, u, w_in)}
     for name, run in runs.items():
         ms = time_launch(run)
         per = read_cycles('linear_attn.cu', name, BH, -(-L // la.KERNEL_CHUNK))
         print_sections(f'{name} f32 BH={BH} L={L} M={M} Dv={Dv} [{smi}]', ms, per,
                        ends[name])
-    for kernel, _ in KERNELS['linear_attn.cu'].values():
-        print_sass(_build._target('linear_attn'), kernel, kernel, 'f32')
+    for name, (kernel, _) in KERNELS['linear_attn.cu'].items():
+        print_sass(_build._target('linear_attn'), kernel, CLA_F32[name], 'f32')
 
-    # the passes at 8, 16 and 24 warps a block, checked bitwise, in turns
+    # the three kernels at 8, 16 and 24 warps a block, checked bitwise, in turns
     built = build_variants('linear_attn.cu', {f'cla{w}': cla_variant(w) for w in CLA_WARPS},
                            la._cla_lib)
     outs, ms = {}, {w: {name: [] for name in runs} for w in CLA_WARPS}
@@ -382,9 +390,11 @@ def time_cla_sections(ends, smi):
         lib, text = built[f'cla{w}']
         _build._libs['linear_attn'] = lib
         if w not in outs:
-            print(f'kernel_sections --cla {w} warps ptxas: '
-                  + ' | '.join(l for l in ptxas_lines(text, 'cla_bwd') if 'registers' in l))
-            outs[w] = la._cla_bwd_a_cuda(q, k, v, g) + la._cla_bwd_b_cuda(q, k, v, u, w_in)
+            print(f'kernel_sections --cla {w} warps ptxas: ' + ' | '.join(
+                f'{name} {line}' for name, needle in CLA_F32.items()
+                for line in ptxas_lines(text, needle) if 'registers' in line))
+            outs[w] = ((la._cla_fwd_cuda(q, k, v),) + la._cla_bwd_a_cuda(q, k, v, g)
+                       + la._cla_bwd_b_cuda(q, k, v, u, w_in))
         for name, run in runs.items():
             ms[w][name].append(mean_ms(run, 20, 3))
     same = all(torch.equal(a, b) for w in CLA_WARPS for a, b in zip(outs[w], outs[CLA_WARPS[0]]))
@@ -393,7 +403,7 @@ def time_cla_sections(ends, smi):
                       for w in CLA_WARPS for name, t in ms[w].items())
           + f'; outputs {"bitwise equal" if same else "DIFFER"} across them')
     if not same:
-        raise RuntimeError("the backward passes depend on their warps a block")
+        raise RuntimeError("the composed op's kernels depend on their warps a block")
 
 
 def print_sass(lib, kernel, needle=None, label=None, hl=False):

@@ -1,7 +1,7 @@
 """The wrappers of kernels #12, #13, the FAVOR+ key max (#1, #8), forward
 (#2, #9) and the backward passes A (#3, #10) and B (#4, #11), and of the
-composed op's backward passes (#6, #7), refuse what their kernels do not
-take, before anything is built or launched.
+composed op's forward (#5) and backward passes (#6, #7), refuse what their
+kernels do not take, before anything is built or launched.
 
 ``_flash_attention_cuda``, ``_decode_layer_cuda``, the key max's
 ``_favor_kmax_cuda`` and ``_favor_kmax_hl_cuda``, the forward's
@@ -536,4 +536,133 @@ def test_cla_backward_of_a_device_tensor_never_runs_the_plain_passes(monkeypatch
     grads = la._CausalLinearAttention.backward(ctx, g)
     assert len(seen) == 1 and seen[0][3] is g and seen[0][4] == la.EPS
     assert [t.shape for t in grads[:3]] == [q.shape, k.shape, v.shape]
+    monkeypatch.undo()
+
+
+# the composed op's forward (#5 cla_fwd): each input f32 or bf16 on its own,
+# M and Dv multiples of 4 (padded to 16 in shared memory), rows loaded four
+# values at a time in the input's own type, so an f32 base on 16 bytes and
+# a bf16 base on 8
+
+FWD_DTYPES = {'f32': (torch.float32,) * 3, 'bf16': (torch.bfloat16,) * 3,
+              'f32 features, bf16 v': (torch.float32, torch.float32, torch.bfloat16),
+              'bf16 phi_q alone': (torch.bfloat16, torch.float32, torch.float32)}
+
+
+def _cla_fwd_inputs(dtypes, M=36, Dv=20):
+    return tuple(t.to(dt) for t, dt in zip(_cla(M, Dv)[:3], dtypes))
+
+
+def _shifted(t, elements):
+    """A contiguous copy of ``t`` starting ``elements`` values past a
+    16-byte boundary."""
+    base = torch.empty(t.numel() + 16, dtype=t.dtype)
+    start = (-base.data_ptr() % 16) // t.element_size() + elements
+    out = base[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == elements * t.element_size()
+    return out
+
+
+@pytest.mark.parametrize('mix', sorted(FWD_DTYPES))
+def test_cla_fwd_takes_widths_off_16_in_each_dtype(monkeypatch, mix):
+    """M, Dv = 36, 20 reach the forward in every mix of f32 and bf16, with
+    each input's dtype flag, and out f32 [BH, L, Dv]."""
+    calls = _fake_cla_lib(monkeypatch)
+    q, k, v = _cla_fwd_inputs(FWD_DTYPES[mix])
+    out = la._cla_fwd_cuda(q, k, v)
+    (kernel, args), = calls
+    assert kernel == 'cla_fwd' and _build.LAUNCHES == {'cla_fwd': 1}
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[4:8] == (3, 70, 36, 20)
+    assert args[8:11] == tuple(int(t.dtype == torch.bfloat16) for t in (q, k, v))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (3, 70, 20)
+    monkeypatch.undo()
+
+
+def test_cla_fwd_takes_a_bf16_base_on_8_bytes(monkeypatch):
+    """A bf16 input 8 bytes past a 16-byte boundary is on the boundary its
+    8-byte loads need, and launches as it is."""
+    calls = _fake_cla_lib(monkeypatch)
+    q, k, v = (_shifted(t, 4) for t in _cla_fwd_inputs(FWD_DTYPES['bf16']))
+    la._cla_fwd_cuda(q, k, v)
+    (kernel, args), = calls
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    monkeypatch.undo()
+
+
+def _cla_fwd_bad_cases():
+    q, k, v = _cla_fwd_inputs(FWD_DTYPES['f32'])
+    qb, kb, vb = _cla_fwd_inputs(FWD_DTYPES['bf16'])
+    return {
+        'M not a multiple of 4': (_cla_fwd_inputs(FWD_DTYPES['f32'], M=34),
+                                  'multiples of 4'),
+        'M not a multiple of 4 under bf16': (_cla_fwd_inputs(FWD_DTYPES['bf16'], M=34),
+                                             'multiples of 4'),
+        'float64': ((q.double(), k, v), 'phi_q has dtype'),
+        'misaligned f32 phi_q': ((_shifted(q, 2), k, v),
+                                 'f32 phi_q must start on a 16-byte boundary'),
+        'misaligned f32 v': ((q, k, _shifted(v, 1)), 'f32 v must start on a 16-byte boundary'),
+        'misaligned bf16 phi_k': ((qb, _shifted(kb, 1), vb),
+                                  'bf16 phi_k must start on an? 8-byte boundary'),
+        'misaligned bf16 v beside f32 features': ((q, k, _shifted(vb, 2)),
+                                                  'bf16 v must start on an? 8-byte boundary'),
+    }
+
+
+@pytest.mark.parametrize('case', sorted(_cla_fwd_bad_cases()))
+def test_cla_fwd_refuses(monkeypatch, case):
+    """M = 34 (in either dtype), float64, an f32 input off 16 bytes and a
+    bf16 input off 8 raise before the launch."""
+    calls = _fake_cla_lib(monkeypatch)
+    args, match = _cla_fwd_bad_cases()[case]
+    with pytest.raises(ValueError, match=match):
+        la._cla_fwd_cuda(*args)
+    assert calls == [] and not _build.LAUNCHES
+    monkeypatch.undo()
+
+
+@pytest.mark.parametrize('mix', sorted(FWD_DTYPES))
+def test_cla_forward_hands_the_kernel_aligned_copies_in_their_dtype(monkeypatch, mix):
+    """``_cla_fwd_aligned_cuda``, the forward's CUDA branch, copies a
+    misaligned input again in its own dtype (no cast: the kernel reads
+    bf16) and leaves an aligned one as it is, so the forward launches on
+    the same values and dtypes."""
+    calls = _fake_cla_lib(monkeypatch)
+    ins = _cla_fwd_inputs(FWD_DTYPES[mix])
+    views = [_shifted(ins[0], 1), ins[1], _shifted(ins[2], 3)]
+    for t in views:
+        copy = la._aligned(t, la._CLA_FWD_ALIGN)
+        assert copy.dtype == t.dtype and torch.equal(copy, t)
+        assert copy.data_ptr() % (16 if t.dtype == torch.float32 else 8) == 0
+    assert la._aligned(views[1], la._CLA_FWD_ALIGN) is views[1]
+    out = la._cla_fwd_aligned_cuda(*views)
+    (kernel, args), = calls
+    assert kernel == 'cla_fwd' and _build.LAUNCHES == {'cla_fwd': 1}
+    assert args[1] == views[1].data_ptr()
+    assert args[0] != views[0].data_ptr() and args[2] != views[2].data_ptr()
+    assert all(p % (16 if t.dtype == torch.float32 else 8) == 0
+               for p, t in zip(args[:3], views))
+    assert args[8:11] == tuple(int(t.dtype == torch.bfloat16) for t in views)
+    assert out.dtype == torch.float32 and out.shape == views[2].shape
+    monkeypatch.undo()
+
+
+def test_cla_forward_of_a_device_tensor_never_runs_the_plain_version(monkeypatch):
+    """A tensor off the CPU takes ``_cla_fwd_aligned_cuda`` (here on the
+    meta device, recorded) and never ``_cla_fwd_plain``."""
+    def plain(*args, **kwargs):
+        raise AssertionError('a device tensor reached the plain forward')
+    seen = []
+
+    def cuda(q2, k2, v2, eps):
+        seen.append((q2, k2, v2, eps))
+        return torch.empty(v2.shape, dtype=torch.float32, device=v2.device)
+    monkeypatch.setattr(la, '_cla_fwd_plain', plain)
+    monkeypatch.setattr(la, '_cla_fwd_aligned_cuda', cuda)
+    q, k, v = (t.to('meta') for t in _cla_fwd_inputs(FWD_DTYPES['f32 features, bf16 v']))
+    out = la.causal_linear_attention(q, k, v)
+    assert len(seen) == 1 and seen[0][3] == la.EPS
+    assert seen[0][2].dtype == torch.bfloat16
+    assert out.shape == v.shape and out.device.type == 'meta'
     monkeypatch.undo()

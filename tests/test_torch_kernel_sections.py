@@ -3,8 +3,9 @@ and of both backward passes and nothing else: the copies it builds on the
 card stamp each section of the forward's, pass A's and pass B's loop, every
 added statement runs only under bf16 (``TC``), and the f32 paths and the
 entry points are left as they are.  Its ``--kmax`` copies change only the
-bf16 key max's chunks a block.  On the CPU only the sources are made;
-nothing is built."""
+bf16 key max's chunks a block; its ``--cla`` copies stamp the composed
+op's three kernels, or change only their warps a block.  On the CPU only
+the sources are made; nothing is built."""
 
 import re
 
@@ -120,19 +121,19 @@ def _cla_kernel(text, name):
     return text[k0:text.index('\n}\n', k0) + 3]
 
 
-@pytest.mark.parametrize('name, n_sections', [('cla_bwd_a', 8), ('cla_bwd_b', 6)])
+@pytest.mark.parametrize('name, n_sections',
+                         [('cla_fwd', 5), ('cla_bwd_a', 8), ('cla_bwd_b', 6)])
 def test_instrument_stamps_each_section_of_the_cla_passes(name, n_sections):
-    """``--cla`` stamps every barrier of each backward pass's chunk loop
-    (loads, products, row reductions, the state update), each section's
-    line naming the repository's source, and leaves the forward alone."""
+    """``--cla`` stamps every barrier of the forward's and each backward
+    pass's chunk loop (loads, products, row reductions, the state update),
+    each section's line naming the repository's source: the forward's
+    loads, scores, denominator, numerator and state update."""
     src, ends = ks.instrument('linear_attn.cu')
-    assert list(ends) == ['cla_bwd_b', 'cla_bwd_a']
+    assert list(ends) == ['cla_bwd_b', 'cla_bwd_a', 'cla_fwd']
     body = _cla_kernel(src, f'{name}_kernel')
     assert _stamps(body) == list(range(n_sections)) == list(range(len(ends[name])))
     p = list(ks.KERNELS['linear_attn.cu']).index(name)
     assert f'g_sections[{p}][blockIdx.x][i] = sec_[i]' in body
-    assert 'sec_' not in src[src.index('__global__ void cla_fwd_kernel'):
-                             src.index('__global__ void cla_bwd_a_kernel')]
     lines = (ks.CSRC / 'linear_attn.cu').read_text().split('\n')
     for end in ends[name]:
         no, text = re.match(r'linear_attn\.cu:(\d+) (.{1,24}) \(', end).groups()
@@ -156,12 +157,12 @@ def test_instrument_leaves_cla_source_and_entry_points_alone():
 @pytest.mark.parametrize('warps', ks.CLA_WARPS)
 def test_cla_variant_changes_only_the_warps_a_block(warps):
     """A ``--cla`` timing copy differs from ``linear_attn.cu`` only in the
-    backward passes' threads a block, and the source launches both passes
-    with that constant."""
+    composed op's threads a block, and the source launches the forward and
+    both passes with that constant."""
     original = (ks.CSRC / 'linear_attn.cu').read_text()
     src = ks.cla_variant(warps).split('\n')
     diff = [(a.strip(), b.strip()) for a, b in zip(original.split('\n'), src) if a != b]
     want = [] if 32 * warps == 512 else [
-        (ks.CLA_THREADS, f'constexpr int BWD_THREADS = {32 * warps};')]
+        (ks.CLA_THREADS, f'constexpr int CLA_THREADS = {32 * warps};')]
     assert len(src) == len(original.split('\n')) and diff == want
-    assert original.count('<<<BH, BWD_THREADS, smem') == 2
+    assert original.count('<<<BH, CLA_THREADS, smem') == 3
