@@ -44,13 +44,29 @@ H=8, L=3072, Dh=64, M=128, f32) through kernels #5-#7 of
 ``csrc/linear_attn.cu``, and holds its output and gradients against the
 fused ``favor_causal_attention``.
 
+Two run the stage-1 Transformer-XL of ``configs/stage1/emopia_finetune.yaml``
+(12 layers, 8 heads, d_model 512, d_ff 2048) over a synthetic functional
+lead-sheet vocabulary.  No TPU kernel lies on them: their attention is
+einsums in the JAX package too, and so in the port.
+
+* stage1_serving: the f32 forward at B=4, L=512, the f32 decode of the same
+  tokens through the chunked and the whole-cache attention against it, the
+  per-element-clock decode against the whole-cache one; then, with bf16
+  weights in ``infer/run_stage1.py``'s lead_sheet mode, the lockstep
+  ``Stage1BatchGenerator.generate`` at B=16 through the 768 -> 1536 cache
+  ladder, ``serve`` of 24 jobs in 16 slots and one ``Stage1Generator``
+  song, every song held to the key-mode and beat rules;
+* stage1_training: full-model f32 gradients, ``train_stage1.run`` at the
+  config's values (f32, B=4, L=512) for 3 steps, a fixed batch whose loss
+  must fall, and a segmented step with 512 memories over two segments.
+
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
 ``scaled_dot_product_attention`` as a yardstick the port never calls, with
 its error; for the decode layer, the profiler's device time beside the CUDA
 events, which at its speed also time the wrapper's host work),
 profiles where a serving step's and a training step's time goes (a
-training step in both attention layouts), and prints
+training step in both attention layouts, a stage-1 serving step), and prints
 one JSON line of kernel records, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is non-zero; without CUDA, or
@@ -104,6 +120,26 @@ GPT2_TIERS, GPT2_TIER_EVENTS = (1024, 2048), 1200
 GPT2_HOST_CACHE = GPT2_WINDOW + GPT2_BAR_TOKENS + 2
 GPT2_HOST_EVENTS = 2400
 GPT2_DECODE_STEPS = 64
+# stage 1: configs/stage1/emopia_finetune.yaml (tgt_len 512, batch_size 4)
+# and infer/run_stage1.py's lead_sheet mode (temp 1.2, top_p 0.97,
+# max_events 512; reject_slack 1024 and fast_slack 256, the generator
+# defaults: the ladder 768 -> 1536; MAX_BARS 128), served at B=16
+S1_B, S1_L = 4, 512
+S1_TEMP, S1_TOP_P, S1_EVENTS, S1_MAX_BARS = 1.2, 0.97, 512, 128
+S1_REJECT_SLACK, S1_FAST_SLACK = 1024, 256
+S1_SERVE_B, S1_JOBS = 16, 24
+# random weights give near-uniform logits, under which songs end at an EOS
+# after ~150 events and a song needs ~1.07 iterations a token, so none
+# outgrows the 768-row tier.  For serving, the head's EOS logit is lowered
+# by S1_EOS_BIAS (songs run to max_events) and its Beat logits raised by
+# S1_BEAT_BIAS (about half of the draws are beats, most of them rejected by
+# the beat rule), so songs spill into the 1536-row tier
+S1_BEAT_BIAS, S1_EOS_BIAS = 2.5, -30.0
+# the serving profile: short songs (max_events 64) in a 1536-row cache,
+# profiled over S1_PROFILE_STEPS steps after S1_PROFILE_SKIP
+S1_PROFILE_EVENTS, S1_PROFILE_SKIP, S1_PROFILE_STEPS = 64, 16, 32
+# the training corpus: 32-bar lead sheets of ~675 events (a sample fills L)
+S1_CORPUS_PIECES, S1_CORPUS_BARS = 16, 32
 # flash attention: the re-anchor shape and the smallest the dispatch sends
 # (H = N_HEAD, Dh = D_HEAD), inputs at std FLASH_STD so softmax rows peak
 FLASH_CASES = ((WINDOW_B, WINDOW_L), (2, 512))
@@ -1898,6 +1934,374 @@ def phase_profile_gpt2(model, vocab, dev, smi):
           f'of busy); device ms/step by kernel: {top}')
 
 
+# ---------------------------------------------------------------------------
+# stage 1
+# ---------------------------------------------------------------------------
+
+S1_DEGREES = ['I', 'II', 'III', 'IV', 'V', 'VI', 'VII']
+
+
+def s1_dictionary():
+    """(event2word, word2event) of a functional stage-1 lead-sheet
+    vocabulary, as ``tests/helpers.py`` builds one (two emotions, no
+    velocity, no tempo): 215 events and PAD."""
+    from emo_disentanger_tpu_torch.core.vocab import (
+        MAJOR_KEY, MINOR_KEY, events_to_dictionary)
+    corpus = (['Bar_None', 'EOS_None'] + [f'Beat_{b}' for b in range(16)]
+              + [f'Key_{k}' for k in list(MAJOR_KEY) + list(MINOR_KEY)])
+    return events_to_dictionary([corpus], add_velocity=False, add_tempo=False,
+                                num_emotion=2, relative=True)
+
+
+def build_txl(vocab, dev, **kw):
+    from emo_disentanger_tpu_torch.models import PlainTransformer
+    return PlainTransformer(vocab.size, d_embed=D_MODEL, n_layer=N_LAYER,
+                            n_head=N_HEAD, d_model=D_MODEL, d_ff=D_FF,
+                            pad_id=vocab.pad_id, device=dev,
+                            generator=torch.Generator().manual_seed(3), **kw)
+
+
+@torch.no_grad()
+def phase_s1_model(vocab, dev, smi):
+    """The f32 forward at B=4, L=512; the f32 decode of the same tokens
+    through the chunked (two chunks of 256) and the whole-cache attention
+    against it; the per-element-clock decode at a uniform clock against the
+    whole-cache decode; the bf16 forward against the f32 one.  Returns the
+    model with bf16 weights."""
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    model = build_txl(vocab, dev).eval()
+    gen = torch.Generator().manual_seed(19)
+    tokens = torch.randint(0, vocab.size - 1, (S1_B, S1_L), generator=gen).to(dev)
+    ref, _ = model(tokens)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model(tokens)
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) * 1e3
+    dec, ms = {}, {}
+    for path in ('flash', 'full', 'pe'):
+        cache = model.init_decode_cache(S1_B, S1_L)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i in range(S1_L):
+            if path == 'pe':
+                t = torch.full((S1_B,), i, dtype=torch.long, device=dev)
+                steps.append(model.decode_step_pe(tokens[:, i], t, cache)[0])
+            else:
+                steps.append(model.decode_step(tokens[:, i], i, cache,
+                                               full_attention=path == 'full')[0])
+        torch.cuda.synchronize()
+        ms[path] = (time.time() - t0) * 1e3 / S1_L
+        dec[path] = torch.stack(steps, 1)
+    e_flash, e_full = rel_err(dec['flash'], ref), rel_err(dec['full'], ref)
+    same = bool((dec['pe'].argmax(-1) == dec['full'].argmax(-1)).all())
+    d_pe = max_abs(dec['pe'], dec['full'])
+    cast_params(model)
+    out, _ = model(tokens)
+    e_bf = rel_err(out, ref)
+    print(f'phase 4s stage-1 TXL {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/{D_FF}ff V={vocab.size} '
+          f'[{smi}]: f32 forward B={S1_B} L={S1_L} {fwd_ms:.1f} ms; f32 decode of '
+          f'{S1_L} tokens vs the forward: chunked rel err {e_flash:.2e} '
+          f'({ms["flash"]:.2f} ms a step), whole-cache {e_full:.2e} '
+          f'({ms["full"]:.2f} ms a step) (tol {TOL_DECODE_VS_FORWARD}); '
+          f'per-element clock vs whole-cache max abs {d_pe:.2e}, argmax stream '
+          f'{"equal" if same else "DIFFERS"} ({ms["pe"]:.2f} ms a step); bf16 '
+          f'forward rel err vs f32 {e_bf:.2e} (tol {TOL_BF16_MODEL})')
+    expect(bool(torch.isfinite(ref).all()) and tuple(ref.shape) == (S1_B, S1_L, vocab.size),
+           'stage-1 forward finite, shape')
+    expect(e_flash <= TOL_DECODE_VS_FORWARD and e_full <= TOL_DECODE_VS_FORWARD,
+           'stage-1 f32 decode matches the forward through both attentions')
+    expect(same, 'the per-element-clock decode gives the whole-cache stream')
+    expect(bool(torch.isfinite(out).all()) and e_bf <= TOL_BF16_MODEL,
+           'stage-1 bf16 forward agrees with f32')
+    return model
+
+
+def s1_check_songs(songs, emotions, vocab, what):
+    """Each song that is not stuck (None) opens with its Emotion token and a
+    Key of its valence's mode, holds no PAD, and its beats never decrease
+    within a bar.  Returns the number of stuck songs."""
+    from emo_disentanger_tpu_torch.core.vocab import MAJOR_KEY
+    from emo_disentanger_tpu_torch.infer.rules import emotion_wants_major
+    stuck = 0
+    for j, (song, emotion) in enumerate(zip(songs, emotions)):
+        if song is None:
+            stuck += 1
+            continue
+        key = song[1] if len(song) > 1 else ''
+        expect(song[0] == f'Emotion_{emotion}' and key.startswith('Key_')
+               and (key.split('_')[1] in MAJOR_KEY) == emotion_wants_major(emotion),
+               f'{what} song {j} opens with its emotion and a key of its mode')
+        expect('PAD_None' not in song, f'{what} song {j} holds no PAD')
+        cur = 0
+        for ev in song[2:]:
+            if ev == 'Bar_None':
+                cur = 0
+            elif ev.startswith('Beat_'):
+                expect(int(ev.split('_')[1]) >= cur,
+                       f'{what} song {j}: beats never decrease within a bar')
+                cur = int(ev.split('_')[1])
+    return stuck
+
+
+def s1_line(stats, secs, steps, emotions):
+    events = sum(stats['events'])
+    rejects = sum(stats['rejects'])
+    sampled = events - len(emotions)
+    return (f'{events} events in {secs:.2f} s = {events / secs:.1f} events/s, '
+            f'{steps} steps ({secs * 1e3 / steps:.3f} ms each), rejects per '
+            f'sampled token {rejects / max(sampled, 1):.3f}, statuses '
+            f'{sorted(collections.Counter(stats["status"]).items())}')
+
+
+def phase_s1_serve(model, vocab, dev, smi):
+    """The stage-1 serving path with bf16 weights in the lead_sheet mode:
+    the lockstep generate at B=16 through the 768 -> 1536 ladder, serve of
+    24 jobs in 16 slots, one Stage1Generator song; every song held to the
+    rules.  The head's Beat and EOS logits are moved first (S1_BEAT_BIAS,
+    S1_EOS_BIAS)."""
+    from emo_disentanger_tpu_torch.infer.stage1 import (
+        STATUS_RUNNING, Stage1Generator)
+    from emo_disentanger_tpu_torch.infer.stage1_batch import Stage1BatchGenerator
+    beats = [vocab.event2idx[f'Beat_{b}'] for b in range(16)]
+    with torch.no_grad():
+        model.dec_out_proj.bias[beats] += S1_BEAT_BIAS
+        model.dec_out_proj.bias[vocab.eos_id] += S1_EOS_BIAS
+    kw = dict(temp=S1_TEMP, top_p=S1_TOP_P, max_events=S1_EVENTS,
+              max_bars=S1_MAX_BARS, reject_slack=S1_REJECT_SLACK, device=dev)
+    gen = Stage1BatchGenerator(model, vocab, batch=S1_SERVE_B,
+                               fast_slack=S1_FAST_SLACK, **kw)
+    emotions = ['Positive', 'Negative'] * (S1_SERVE_B // 2)
+    songs, st = gen.generate(emotions, seed=21)
+    stuck = s1_check_songs(songs, emotions, vocab, 'generate')
+    print(f'phase 5s stage-1 generate bf16 B={S1_SERVE_B} ladder {gen.klens} '
+          f'[{smi}]: {s1_line(st, st["seconds"], st["iters"], emotions)}, '
+          f'{st["resumed"]} songs resumed in the {gen.klens[-1]}-row tier, '
+          f'{stuck} stuck, bars {sorted(set(st["bars"]))}')
+    if st['resumed'] == 0:
+        print(f'phase 5s: no ladder resume: the loop ended after {st["iters"]} '
+              f'steps, before the clock reached row {gen.klens[0] - 1}')
+    jobs = ['Positive', 'Negative'] * (S1_JOBS // 2)
+    ssongs, sst = gen.serve(jobs, seed=22)
+    sstuck = s1_check_songs(ssongs, jobs, vocab, 'serve')
+    print(f'phase 5t stage-1 serve bf16 {len(jobs)} jobs in {S1_SERVE_B} slots, '
+          f'cache {gen.full_klen} [{smi}]: '
+          f'{s1_line(sst, sst["seconds"], sst["steps"], jobs)}, {sst["chunks"]} '
+          f'chunks, {sstuck} stuck')
+    expect(all(st != STATUS_RUNNING or b >= S1_MAX_BARS
+               for st, b in zip(sst['status'], sst['bars'])),
+           'every stage-1 job has a final status')
+    single = Stage1Generator(model, vocab, **kw)
+    song, hst = single.generate('Negative', 23)
+    s1_check_songs([song], ['Negative'], vocab, 'Stage1Generator')
+    print(f'phase 5u stage-1 Stage1Generator (chunked attention, cache '
+          f'{single.max_klen}): {hst["n_events"]} events in {hst["seconds"]:.2f} s, '
+          f'status {hst["status"]}, bars {hst["bars"]}')
+    return gen
+
+
+def phase_profile_s1(model, vocab, dev, smi):
+    """Where a stage-1 serving step's time goes: serve() of 16 short jobs
+    (max_events S1_PROFILE_EVENTS, the serving phase's head) in a cache of
+    the lead_sheet mode's full 1536 rows on the host clock (the second of
+    two runs), then the same run with torch.profiler recording
+    S1_PROFILE_STEPS of its steps, all slots busy.  The decode attention's products run as aten::einsum;
+    their device time (layout copies included) is read from the profiler's
+    operator events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from emo_disentanger_tpu_torch.infer.stage1_batch import Stage1BatchGenerator
+    klen = S1_EVENTS + S1_REJECT_SLACK
+    gen = Stage1BatchGenerator(model, vocab, batch=S1_SERVE_B, temp=S1_TEMP,
+                               top_p=S1_TOP_P, max_events=S1_PROFILE_EVENTS,
+                               reject_slack=klen - S1_PROFILE_EVENTS, device=dev)
+    jobs = ['Positive', 'Negative'] * (S1_SERVE_B // 2)
+    gen.serve(jobs, seed=24)                                # warm
+    _, stats = gen.serve(jobs, seed=24)
+    torch.cuda.synchronize()
+    real_step = gen._step
+
+    def step(*args, **kw):
+        real_step(*args, **kw)
+        prof.step()
+    gen._step = step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=S1_PROFILE_SKIP - 2, warmup=2,
+                                   active=S1_PROFILE_STEPS, repeat=1)) as prof:
+        _, pstats = gen.serve(jobs, seed=24)
+        torch.cuda.synchronize()
+    expect(pstats['steps'] == stats['steps']
+           and stats['steps'] >= S1_PROFILE_SKIP + S1_PROFILE_STEPS,
+           'the profiled run repeats the run, past the profiled steps')
+    wall = stats['seconds'] * 1e3 / stats['steps']
+    busy, top = kernel_breakdown(prof, S1_PROFILE_STEPS)
+    if busy == 0:
+        print('phase 7s profile: device time not measured (the profiler saw '
+              'no device events)')
+        return
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    einsum = sum(e.device_time_total for e in events
+                 if e.key == 'aten::einsum') / 1e3 / S1_PROFILE_STEPS
+    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, 'is_user_annotation', False))
+    print(f'phase 7s profile stage-1 serve B={S1_SERVE_B} cache {klen}, steps '
+          f'{S1_PROFILE_SKIP}-{S1_PROFILE_SKIP + S1_PROFILE_STEPS} of '
+          f'{stats["steps"]} [{smi}]: wall {wall:.3f} ms/step (the whole '
+          f'warm run), device busy {busy:.3f} ms/step (idle share '
+          f'{1 - busy / wall:.3f}), {kernels / S1_PROFILE_STEPS:.0f} device '
+          f'kernels a step; decode attention products (aten::einsum) '
+          f'{einsum:.3f} ms/step ({einsum / busy:.3f} of busy); device ms/step '
+          f'by kernel: {top}')
+
+
+def s1_write_corpus(root, rng):
+    """A synthetic stage-1 corpus in the pipeline's pickle format under
+    ``root`` (``events/<piece>.pkl`` = (bar_pos, events), the dictionary,
+    train/valid splits): S1_CORPUS_BARS-bar lead sheets, four beats a bar
+    of chord and melody; and a training config with the values of
+    ``configs/stage1/emopia_finetune.yaml`` (checkpoint and log every
+    epoch)."""
+    e2w, w2e = s1_dictionary()
+    deg = lambda: S1_DEGREES[rng.randint(7)]  # noqa: E731
+    events_dir = os.path.join(root, 'events')
+    os.makedirs(events_dir)
+    names = []
+    for p in range(S1_CORPUS_PIECES):
+        evs = ['Emotion_Positive' if p % 2 == 0 else 'Emotion_Negative',
+               'Key_C' if p % 2 == 0 else 'Key_a']
+        bar_pos = []
+        for _ in range(S1_CORPUS_BARS):
+            bar_pos.append(len(evs))
+            evs.append('Bar_None')
+            for beat in range(0, 16, 4):
+                evs += [f'Beat_{beat}', f'Chord_{deg()}_M',
+                        f'Note_Octave_{rng.randint(4, 6)}',
+                        f'Note_Degree_{deg()}', 'Note_Duration_480']
+        evs.append('EOS_None')
+        names.append(f'piece{p}.pkl')
+        with open(os.path.join(events_dir, names[-1]), 'wb') as f:
+            pickle.dump((bar_pos, evs), f)
+    paths = {k: os.path.join(root, f'{k}.pkl')
+             for k in ('dictionary', 'train', 'valid')}
+    for key, obj in (('dictionary', (e2w, w2e)), ('train', names[:-4]),
+                     ('valid', names[-4:])):
+        with open(paths[key], 'wb') as f:
+            pickle.dump(obj, f)
+    return {
+        'pretrained_param_path': None, 'pretrained_optim_path': None,
+        'model': {'d_word_embed': D_MODEL, 'pre_lnorm': True,
+                  'decoder': {'n_layer': N_LAYER, 'n_head': N_HEAD,
+                              'd_model': D_MODEL, 'd_ff': D_FF,
+                              'dropout': 0.1, 'mem_len': 0, 'tgt_len': S1_L}},
+        'data': {'data_dir': events_dir, 'train_split': paths['train'],
+                 'val_split': paths['valid'], 'vocab_path': paths['dictionary'],
+                 'batch_size': S1_B, 'max_n_seg': 1},
+        'training': {'trained_steps': 0, 'trained_epochs': 0,
+                     'warmup_steps': 200, 'lr_decay_steps': 500000,
+                     'max_lr': 1e-5, 'min_lr': 1e-6, 'max_epoch': 1,
+                     'val_interval': 1, 'log_interval': 1},
+        'output': {'ckpt_dir': os.path.join(root, 'ckpt_s1_{}'),
+                   'ckpt_interval': 1},
+    }
+
+
+def phase_s1_train(dev, smi):
+    """The stage-1 training path: full-model f32 gradients (dropout off),
+    ``train_stage1.run`` at emopia_finetune.yaml's values (f32, B=4, L=512)
+    for 3 steps and the validation, a fixed batch whose loss must fall over
+    8 steps, and one segmented step per segment over two segments with 512
+    memories."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.data.datasets import Stage1Dataset
+    from emo_disentanger_tpu_torch.train import train_stage1
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer,
+        make_segmented_train_step, make_train_step, stage1_loss_fn)
+    from emo_disentanger_tpu_torch.utils.io import pickle_load
+    gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30  # noqa: E731
+    with tempfile.TemporaryDirectory() as root:
+        config = s1_write_corpus(root, np.random.RandomState(25))
+        dconf = config['data']
+        vocab = Vocab.load(dconf['vocab_path'])
+        data = lambda split, **kw: Stage1Dataset(  # noqa: E731
+            dconf['data_dir'], vocab, pieces=pickle_load(dconf[split]),
+            model_dec_seqlen=S1_L, **kw)
+        batch = batch_to_device(next(data('train_split').batches(
+            S1_B, shuffle=False)), dev)
+        segs = next(data('train_split', max_n_seg=2).segment_batches(
+            S1_B, shuffle=False))
+
+        model = build_txl(vocab, dev, dropout=0.0).eval()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = stage1_loss_fn(model, vocab.pad_id)(batch, {})
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads])))
+        print(f'phase 8s-g stage-1 f32 full-model gradients B={S1_B} L={S1_L} '
+              f'(dropout off): loss {loss.item():.5f}, global grad norm '
+              f'{norm:.4f}, {sum(bool((g != 0).any()) for g in grads)}/'
+              f'{len(grads)} parameters with a nonzero gradient, peak {gib():.2f} GiB')
+        expect(all(bool(torch.isfinite(g).all()) for g in grads)
+               and all(bool((g != 0).any()) for g in grads),
+               'every stage-1 gradient finite and nonzero')
+        del model, grads
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = train_stage1.run(config, 'functional', device=dev)
+        wall = time.time() - t0
+        ckpt = out['ckpt_dir']
+        files = sorted(os.listdir(os.path.join(ckpt, 'params')))
+        val = open(os.path.join(ckpt, 'valloss.txt')).read().splitlines()
+        secs = out['step_seconds']
+        print(f'phase 8s train_stage1.run f32 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d/'
+              f'{D_FF}ff B={S1_B} L={S1_L} [{smi}]: {out["steps"]} steps, losses '
+              f'{[round(x, 5) for x in out["step_losses"]]}, step seconds '
+              f'{[round(x, 4) for x in secs]} ({S1_B * S1_L / min(secs):.0f} '
+              f'tokens/s at the fastest step), run {wall:.1f} s, peak '
+              f'{gib():.2f} GiB; wrote {files}; valloss.txt: {val}')
+        expect(out['steps'] == -(-(S1_CORPUS_PIECES - 4) // S1_B)
+               and all(np.isfinite(out['step_losses'])), 'stage-1 losses finite')
+        expect(any(f.endswith('_params.pt') for f in files) and len(val) == 1,
+               'a stage-1 checkpoint and the valloss line were written')
+
+        model = train_stage1.build_model_and_params(config, vocab, device=dev)
+        loss_fn = stage1_loss_fn(model, vocab.pad_id)
+        fixed = make_train_step(loss_fn, model, make_optimizer(
+            model.parameters(), OptimizerConfig(max_lr=1e-4, min_lr=1e-5,
+                                                warmup_steps=2,
+                                                lr_decay_steps=100)))
+        falls = [float(fixed(batch, {})[0]) for _ in range(8)]
+        print(f'phase 8s-c one stage-1 f32 batch, 8 steps, warmup 2, lr 1e-4: '
+              f'losses {[round(x, 4) for x in falls]}')
+        expect(np.mean(falls[-2:]) < np.mean(falls[:2]), 'the stage-1 loss falls')
+
+        config['model']['decoder']['mem_len'] = S1_L
+        model = train_stage1.build_model_and_params(config, vocab, device=dev)
+        step = make_segmented_train_step(model, vocab.pad_id, make_optimizer(
+            model.parameters(), OptimizerConfig()))
+        mems = torch.zeros(N_LAYER + 1, S1_B, S1_L, D_MODEL, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seg_ms, seg_losses = [], []
+        for si in range(2):
+            seg = batch_to_device({k: v[:, si] for k, v in segs.items()}, dev)
+            t0 = time.time()
+            mems, loss, _ = step(seg, mems)
+            seg_losses.append(float(loss))
+            seg_ms.append((time.time() - t0) * 1e3)
+        print(f'phase 8s-m segmented step, mem_len {S1_L}, two segments of '
+              f'{S1_L} (lengths {segs["seg_len"].tolist()}): losses '
+              f'{[round(x, 5) for x in seg_losses]}, ms '
+              f'{[round(x, 1) for x in seg_ms]} (host clock, the loss read '
+              f'waits), peak {gib():.2f} GiB')
+        expect(all(np.isfinite(seg_losses)) and bool(torch.isfinite(mems).all())
+               and bool((mems[:, :, -1] != 0).any()),
+               'the segmented steps ran and carried memories')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -1950,7 +2354,10 @@ def main():
              'heads_last_training': HEADS_LAST,
              'gpt2_serving': ('flash_attention_fwd',),
              'gpt2_training': ('flash_attention_fwd',),
-             'composed_attention': COMPOSED}
+             'composed_attention': COMPOSED,
+             # stage 1 runs none of the kernels: its attention is einsums
+             'stage1_serving': (),
+             'stage1_training': ()}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -2014,6 +2421,22 @@ def main():
     expect(launches['gpt2_training'] == {'flash_attention_fwd': N_LAYER * n_val},
            'GPT-2 training launched flash_attention_fwd in validation only')
     launches['composed_attention'] = phase_composed(dev)
+
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    s1_vocab = Vocab(*s1_dictionary())
+    t_s1 = time.time()
+    _build.LAUNCHES.clear()                  # the stage-1 serving path starts here
+    s1_model = phase_s1_model(s1_vocab, dev, smi)
+    phase_s1_serve(s1_model, s1_vocab, dev, smi)
+    torch.cuda.synchronize()
+    launches['stage1_serving'] = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()                  # the stage-1 training path starts here
+    phase_s1_train(dev, smi)
+    torch.cuda.synchronize()
+    launches['stage1_training'] = dict(_build.LAUNCHES)
+    print(f'stage-1 paths took {time.time() - t_s1:.0f} s')
+    expect(not launches['stage1_serving'] and not launches['stage1_training'],
+           'the stage-1 paths launched no kernel')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -2029,6 +2452,7 @@ def main():
     phase_profile_train(hl_step, hl_batch, hl_extras, hl_step_s * 1e3, smi,
                         label='phase 7h', layout='heads-last')
     phase_profile_gpt2(gpt2_model, vocab, dev, smi)
+    phase_profile_s1(s1_model, s1_vocab, dev, smi)
     print(f'chip_smoke: all phases passed in {time.time() - t_start:.0f} s')
     kernels = [dict(name=name, **{'library_ms': None, **r})
                for name, r in rec.items()]

@@ -9,15 +9,19 @@ Subpackages
 -----------
 core      vocabulary construction (copied constants and ``Vocab``)
 ops       FAVOR+ attention (forward and backward), the Performer decode
-          layer, nucleus sampling; hand-written Hopper kernels under
-          ``csrc/`` built by ``ops._build``
-models    ``nn.Module`` Performer (training forward with dropout, loss,
-          O(1)-state decode)
-data      the stage-2 training dataset
+          layer, flash attention, the KV-cache decode attentions, nucleus
+          sampling; hand-written Hopper kernels under ``csrc/`` built by
+          ``ops._build``
+models    ``nn.Module`` stage-1 Transformer-XL (``PlainTransformer``) and
+          stage-2 Performer and GPT-2 (training forward with dropout, loss,
+          decode)
+data      the stage-1 and stage-2 training datasets
 train     schedule, optimizer and train/eval steps, checkpoints, the
-          stage-2 driver ``train_stage2.run``
-infer     rule tables and the batched stage-2 generator / server
-cli       ``python -m emo_disentanger_tpu_torch.cli.train_stage2``
+          drivers ``train_stage1.run`` and ``train_stage2.run``
+infer     rule tables, the stage-1 and stage-2 generators and servers, the
+          reference-exact replays
+cli       ``python -m emo_disentanger_tpu_torch.cli.train_stage1`` /
+          ``train_stage2``
 utils     device resolution, serving precision, logs, file IO
 
 Entry points run on the GPU (``device='cuda'``) unless the caller passes

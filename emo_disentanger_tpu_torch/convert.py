@@ -1,8 +1,8 @@
-"""Weight bridge: flax stage-2 parameters -> this port's state dicts.
+"""Weight bridge: flax parameters -> this port's state dicts.
 
-The inverses of ``convert_performer_pt`` and ``convert_gpt2_pt`` in the JAX
-package (``train/convert_pt.py:31-42,72-118``), under the reference
-checkpoints' names: a ``LayerNorm_0`` ``scale`` / ``bias`` pair becomes
+The inverses of ``convert_stage1_pt``, ``convert_performer_pt`` and
+``convert_gpt2_pt`` in the JAX package (``train/convert_pt.py:31-118``),
+under the reference checkpoints' names: a ``LayerNorm_0`` ``scale`` / ``bias`` pair becomes
 ``weight`` / ``bias``; a flax Dense ``kernel`` [in, out] becomes a torch
 ``nn.Linear`` ``weight`` [out, in], except in the GPT-2 blocks, whose HF
 ``Conv1D`` weights keep the [in, out] layout.
@@ -89,4 +89,37 @@ def flax_gpt2_to_torch(params: Dict[str, Any], n_layer: int
             sd[f'{dst}.{torch_name}.bias'] = _t(src[flax_name]['bias'])
         for norm in ('ln_1', 'ln_2'):
             _layer_norm(sd, f'{dst}.{norm}', src[norm])
+    return sd
+
+
+def flax_txl_to_torch(params: Dict[str, Any], n_layer: int
+                      ) -> Dict[str, torch.Tensor]:
+    """Like :func:`flax_performer_to_torch`, for the stage-1
+    ``PlainTransformer`` (the inverse of ``convert_stage1_pt``,
+    ``train/convert_pt.py:45-69``): the shared r_w / r_r biases go to
+    ``decoder.r_w_bias`` / ``decoder.r_r_bias``, each layer's attention to
+    ``decoder.layers.{i}.dec_attn`` and its feed-forward to
+    ``decoder.layers.{i}.pos_ff`` (``CoreNet.0`` / ``CoreNet.3``)."""
+    p = params['params']
+    sd = {'word_emb.emb_lookup.weight': _t(p['word_emb']['embedding']),
+          'decoder.r_w_bias': _t(p['r_w_bias']),
+          'decoder.r_r_bias': _t(p['r_r_bias']),
+          'dec_out_proj.weight': _t(p['out_proj']['kernel']).T.contiguous(),
+          'dec_out_proj.bias': _t(p['out_proj']['bias'])}
+    if 'proj' in p['word_emb']:
+        sd['word_emb.proj.weight'] = _t(
+            p['word_emb']['proj']['kernel']).T.contiguous()
+    for i in range(n_layer):
+        src = p[f'layer_{i}']
+        dst = f'decoder.layers.{i}'
+        for name in ('qkv_net', 'r_net', 'o_net'):
+            sd[f'{dst}.dec_attn.{name}.weight'] = _t(
+                src['attn'][name]['kernel']).T.contiguous()
+        _layer_norm(sd, f'{dst}.dec_attn.layer_norm', src['attn']['layer_norm'])
+        for flax_name, idx in (('fc1', 0), ('fc2', 3)):
+            dense = src['ff'][flax_name]
+            sd[f'{dst}.pos_ff.CoreNet.{idx}.weight'] = _t(
+                dense['kernel']).T.contiguous()
+            sd[f'{dst}.pos_ff.CoreNet.{idx}.bias'] = _t(dense['bias'])
+        _layer_norm(sd, f'{dst}.pos_ff.layer_norm', src['ff']['layer_norm'])
     return sd

@@ -1,1 +1,1 @@
-from .datasets import Stage2Dataset, Stage2Sample
+from .datasets import Stage1Dataset, Stage1Sample, Stage2Dataset, Stage2Sample

@@ -1,18 +1,26 @@
-"""Reference-exact host-side stage-2 decoding, for stream-parity validation.
+"""Reference-exact host-side decoding, for stream-parity validation.
 
-Port of the stage-2 part of ``emo_disentanger_tpu/infer/reference_exact.py``:
-it replays the reference's ``generate_conditional``
-(``stage2_accompaniment/inference.py:229-327``) on the port's GPT-2.  The
-logits come from the KV-cache decode while the stream fits the window and
-from the full window re-forward once it outgrows it (the reference
-renumbers positions every step there); that forward runs the
-flash-attention kernel on the card when the window qualifies.  Sampling uses
-the reference's exact numpy arithmetic and its global-RNG
+Port of ``emo_disentanger_tpu/infer/reference_exact.py``.  Two replays:
+
+* stage 1: the reference's ``generate_plain_xl``
+  (``stage1_compose/inference_utils.py:51-135``) on the port's
+  ``PlainTransformer``, whose KV-cache decode gives the logits (the
+  reference recomputes them from its XL memories; the function is the
+  same);
+* stage 2: the reference's ``generate_conditional``
+  (``stage2_accompaniment/inference.py:229-327``) on the port's GPT-2.  The
+  logits come from the KV-cache decode while the stream fits the window and
+  from the full window re-forward once it outgrows it (the reference
+  renumbers positions every step there); that forward runs the
+  flash-attention kernel on the card when the window qualifies.
+
+Sampling uses the reference's exact numpy arithmetic (the unstabilized
+softmax with its extended-precision retry) and its global-RNG
 ``np.random.choice`` draw, so seeding ``np.random`` alike on two sides
 gives the same stream wherever their logits agree.
 
 This module is a validation tool; production decoding uses
-:mod:`.stage2_batch`.
+:mod:`.stage1_batch` and :mod:`.stage2_batch`.
 """
 
 from __future__ import annotations
@@ -22,8 +30,25 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.vocab import Vocab
+from ..core.vocab import MAJOR_KEY, Vocab
 from ..models.gpt2 import MusicGPT2
+from ..models.txl import PlainTransformer
+
+
+def _temperature_exact(logits: np.ndarray, temperature: float) -> np.ndarray:
+    """Reference stage-1 ``temperature`` (``inference_utils.py:14-24``):
+    unstabilized softmax, retried in extended precision (stabilized) on
+    overflow."""
+    try:
+        probs = np.exp(logits / temperature) / np.sum(np.exp(logits / temperature))
+        assert np.count_nonzero(np.isnan(probs)) == 0
+        return probs
+    except (AssertionError, FloatingPointError):
+        logits = logits.astype(np.longdouble)
+        x = logits / temperature
+        probs = np.exp(x - np.max(x))
+        probs = probs / probs.sum()
+        return probs.astype(float)
 
 
 def _temperature_exact_s2(logits: np.ndarray, temperature: float,
@@ -59,6 +84,88 @@ def _nucleus_exact(probs: np.ndarray, p: float) -> int:
     candi_probs = np.array([probs[i] for i in candi_index], dtype=np.float64)
     candi_probs /= sum(candi_probs)
     return int(np.random.choice(candi_index, size=1, p=candi_probs)[0])
+
+
+@torch.no_grad()
+def generate_stage1_reference_exact(
+    model: PlainTransformer, vocab: Vocab, *,
+    primer_events: List[str], max_bars: int = 128, max_events: int = 512,
+    temp: float = 1.2, top_p: float = 0.97,
+    prompt_bars: Optional[int] = None, max_klen: Optional[int] = None,
+) -> Tuple[Optional[List[int]], int]:
+    """Token-for-token replay of the reference's ``generate_plain_xl`` on
+    the port's ``PlainTransformer`` (``reference_exact.py:213-292``), on the
+    model's device, one token a step through ``decode_step`` (the chunked
+    live-prefix attention at B=1).  All primer tokens but the last are
+    prefilled.  The replay is of the functional representation with the
+    reference's 'rule' key determination: the key step (the second token)
+    samples at 1.1 / 0.97 and redraws while the key's mode does not match
+    the emotion's valence; the cache still grows by one entry for each
+    draw.
+    The caller seeds ``np.random``.  Returns (token ids including the final
+    token the reference later drops, accepted samples), or (None, _) when
+    256 consecutive beat rejections mark the song stuck."""
+    dev = model.device
+    generated = vocab.encode(primer_events)
+    target_bars = max_bars
+    generated_bars = prompt_bars or 0
+
+    cache = model.init_decode_cache(1, max_klen or (max_events + 2048))
+    step = lambda tok, t: model.decode_step(  # noqa: E731
+        torch.tensor([tok], device=dev), t, cache)[0]
+
+    t = 0
+    for tok in generated[:-1]:
+        step(tok, t)
+        t += 1
+
+    steps = 0
+    cur_pos = 0
+    failed_cnt = 0
+    while generated_bars < target_bars:
+        # float32, as the reference's numpy softmax runs in the tensor's dtype
+        logits = step(generated[-1], t)[0].float().cpu().numpy()
+        t += 1
+
+        if len(generated) == 1:
+            word = _nucleus_exact(_temperature_exact(logits, 1.1), 0.97)
+            emotion_label = vocab.idx2event[generated[0]].split('_')[1]
+            key_event = vocab.idx2event[word]
+            if key_event.split('_')[0] != 'Key':
+                raise ValueError('[info] key generation failed')
+            positive = emotion_label in ('Q1', 'Q4', 'Positive')
+            if positive != (key_event.split('_')[1] in MAJOR_KEY):
+                continue
+            word_event = vocab.idx2event[word]
+        else:
+            word = _nucleus_exact(_temperature_exact(logits, temp), top_p)
+            word_event = vocab.idx2event[word]
+
+        if 'Beat' in word_event:
+            event_pos = int(word_event.split('_')[-1])
+            if not event_pos >= cur_pos:
+                failed_cnt += 1
+                if failed_cnt >= 256:
+                    return None, steps
+                continue
+            cur_pos = event_pos
+            failed_cnt = 0
+
+        if 'Bar' in word_event:
+            generated_bars += 1
+            cur_pos = 0
+        if word_event == 'PAD_None':
+            continue
+
+        generated.append(word)
+        steps += 1
+
+        if len(generated) > max_events:
+            break
+        if word_event == 'EOS_None':
+            break
+
+    return generated, steps
 
 
 @torch.no_grad()

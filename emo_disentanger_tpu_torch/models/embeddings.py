@@ -7,10 +7,16 @@ Port of ``emo_disentanger_tpu/models/embeddings.py``:
   checkpoint (``emb_lookup.weight``).
 * ``LayerNorm`` is ``nn.LayerNorm`` with eps 1e-5, in the input's dtype.
 * ``sinusoid_position_encoding`` interleaves sin (even features) and cos
-  (odd features), the stage-2 convention.
+  (odd features), the stage-2 convention; ``txl_positional_embedding``
+  concatenates [sin | cos] halves, the Transformer-XL convention
+  (``optimus_txl_decoder.py:8-24``).
+* With ``pad_id`` the embedding of a PAD token is zero, as the stage-1
+  model's is (the reference's ``padding_idx``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,15 +37,18 @@ class LayerNorm(nn.LayerNorm):
 
 class TokenEmbedding(nn.Module):
     def __init__(self, n_token: int, d_embed: int, d_proj: int, *,
-                 device=None):
+                 pad_id: Optional[int] = None, device=None):
         super().__init__()
         self.emb_lookup = nn.Embedding(n_token, d_embed, device=device)
         self.proj = (nn.Linear(d_embed, d_proj, bias=False, device=device)
                      if d_proj != d_embed else None)
         self.emb_scale = d_proj ** 0.5
+        self.pad_id = pad_id
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         emb = self.emb_lookup(tokens)
+        if self.pad_id is not None:
+            emb = torch.where((tokens == self.pad_id)[..., None], 0.0, emb)
         if self.proj is not None:
             emb = self.proj(emb)
         return emb * self.emb_scale
@@ -58,3 +67,11 @@ def sinusoid_position_encoding(n_pos: int, d_model: int, offset: int = 0,
     pe[:, 0::2] = torch.sin(position * div)
     pe[:, 1::2] = torch.cos(position * div)
     return pe
+
+
+def txl_positional_embedding(pos_seq: torch.Tensor, d_model: int) -> torch.Tensor:
+    """[K] positions -> [K, d_model] float32 with [sin | cos] halves."""
+    inv_freq = 1.0 / (10000 ** (torch.arange(0.0, d_model, 2.0,
+                                             device=pos_seq.device) / d_model))
+    ang = pos_seq.float()[:, None] * inv_freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -14,7 +14,7 @@ the most probable token, so the draw is the argmax whatever the generator.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -23,17 +23,26 @@ import torch
 NEG_INF = -1e30
 
 
-def nucleus_sample(logits: torch.Tensor, temperature: float, top_p: float,
+def nucleus_sample(logits: torch.Tensor,
+                   temperature: Union[float, torch.Tensor],
+                   top_p: Union[float, torch.Tensor],
                    generator: torch.Generator,
                    forbid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample one token id per row of ``logits`` [B, V] -> [B] int64.
-    ``generator`` must live on the logits' device.  ``forbid``: optional
-    bool mask [V] on that device; its True entries get ``NEG_INF`` before
-    the softmax, as the JAX sampler does (the reference subtracts inf from
-    inadmissible tempo logits, ``stage2_accompaniment/inference.py:71-73``)."""
+    ``temperature`` and ``top_p`` are floats, or tensors [B] of per-row
+    values on the logits' device (stage 1's key step samples some rows at
+    its own settings, all rows from one sort).  ``generator`` must live on
+    the logits' device.  ``forbid``: optional bool mask [V] on that device;
+    its True entries get ``NEG_INF`` before the softmax, as the JAX sampler
+    does (the reference subtracts inf from inadmissible tempo logits,
+    ``stage2_accompaniment/inference.py:71-73``)."""
     logits = logits.float()
     if forbid is not None:
         logits = torch.where(forbid, NEG_INF, logits)
+    if isinstance(temperature, torch.Tensor):
+        temperature = temperature.float()[:, None]
+    if isinstance(top_p, torch.Tensor):
+        top_p = top_p.float()[:, None]
     probs = torch.softmax(logits / temperature, dim=-1)
     sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     after = sorted_probs.cumsum(-1) > top_p

@@ -5,5 +5,6 @@ from .checkpoint import (
 from .schedule import warmup_cosine
 from .trainer import (
     Optimizer, OptimizerConfig, accuracy_sums, finalize_accuracy,
-    make_eval_step, make_optimizer, make_train_step, stage2_performer_loss_fn,
+    make_eval_step, make_optimizer, make_segmented_train_step,
+    make_train_step, stage1_loss_fn, stage2_performer_loss_fn,
 )

@@ -1,4 +1,4 @@
-"""Single-device trainer for stage 2 (port of
+"""Single-device trainer for both stages (port of
 ``emo_disentanger_tpu/train/trainer.py``).
 
 Adam with the warmup + cosine LR schedule behind a global-norm clip at 0.5,
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.txl import masked_cross_entropy
+from ..models.txl import masked_cross_entropy, update_mems_varlen
 from .schedule import warmup_cosine
 
 
@@ -148,6 +148,46 @@ def make_eval_step(loss_fn: Callable, model: nn.Module):
     return step
 
 
+def stage1_loss_fn(model: nn.Module, pad_id: int):
+    """The stage-1 loss (``trainer.py:164-174`` of the JAX package): masked
+    cross-entropy and the accuracy sums on the chord and melody masks; no
+    side inputs."""
+    def loss_fn(batch, extras):
+        del extras
+        logits, _ = model(batch['dec_inp'])
+        loss = masked_cross_entropy(logits, batch['dec_tgt'], pad_id)
+        aux = accuracy_sums(logits, batch['dec_tgt'], batch['inp_chord'],
+                            batch['inp_melody'], pad_id)
+        return loss, aux
+    return loss_fn
+
+
+def make_segmented_train_step(model: nn.Module, pad_id: int,
+                              optimizer: Optimizer):
+    """Stage-1 multi-segment train step with XL memory recurrence
+    (``trainer.py:177-214``; reference ``stage1_compose/train.py:27-74``):
+    ``step(seg_batch, mems) -> (new_mems, loss, aux)`` runs one segment's
+    forward over the carried memories and takes one optimizer step.
+    ``seg_batch`` holds [B, L] tensors and ``seg_len`` [B]; ``mems`` is
+    [n_layer + 1, B, mlen, D].  The new memories come from this forward's
+    hidden states by the per-sample variable-length update, detached."""
+    def step(seg_batch, mems):
+        model.train()
+        logits, _, hids = model(seg_batch['dec_inp'], list(mems),
+                                return_hiddens=True)
+        loss = masked_cross_entropy(logits, seg_batch['dec_tgt'], pad_id)
+        aux = accuracy_sums(logits, seg_batch['dec_tgt'],
+                            seg_batch['inp_chord'], seg_batch['inp_melody'],
+                            pad_id)
+        loss.backward()
+        optimizer.step()
+        new_mems = torch.stack([
+            update_mems_varlen(m, h.detach(), seg_batch['seg_len'])
+            for m, h in zip(mems, hids)])
+        return new_mems, loss.detach(), aux
+    return step
+
+
 def stage2_performer_loss_fn(model: nn.Module, pad_id: int):
     def loss_fn(batch, extras):
         logits = model(batch['dec_inp'], extras['omegas'], batch['track_mask'])
@@ -173,8 +213,8 @@ def stage2_gpt2_loss_fn(model: nn.Module, pad_id: int):
 
 def neutralize_pad_rows(batch: dict, batch_size: int, pad_id: int) -> dict:
     """Pad a short batch to full size with rows whose targets are all PAD
-    (zero loss/metric weight).  A copy of the JAX package's stage-1 helper
-    (``train/train_stage1.py:37-53``), kept here until stage 1 is ported."""
+    (zero loss/metric weight; ``train/train_stage1.py:37-53`` of the JAX
+    package)."""
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)

@@ -107,3 +107,40 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         cli.main(['-m', 'performer', '-c', 'pop1k7_pretrain.yaml',
                   '-r', 'functional'])
+
+
+def test_stage1_entry_points_default_to_cuda(monkeypatch):
+    """PlainTransformer, its builder and both stage-1 generators raise
+    without CUDA unless asked for the CPU."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer.stage1 import Stage1Generator
+    from emo_disentanger_tpu_torch.infer.stage1_batch import Stage1BatchGenerator
+    from emo_disentanger_tpu_torch.models import PlainTransformer
+    from emo_disentanger_tpu_torch.train.train_stage1 import build_model_and_params
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    small = dict(n_layer=1, n_head=2, d_model=16, d_ff=32, d_embed=16)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        PlainTransformer(12, **small)
+    config = {'model': {'d_word_embed': 16, 'pre_lnorm': True,
+                        'decoder': {'n_layer': 1, 'n_head': 2, 'd_model': 16,
+                                    'd_ff': 32, 'dropout': 0.1, 'mem_len': 0}}}
+    vocab = Vocab({'Bar_None': 0}, {0: 'Bar_None'})
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_model_and_params(config, vocab)
+    model = build_model_and_params(config, vocab, device='cpu')
+    for gen in (Stage1Generator, Stage1BatchGenerator):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            gen(model, vocab)
+        gen(model, vocab, device='cpu')
+
+
+def test_stage1_training_entry_points_default_to_cuda(monkeypatch):
+    """``train_stage1.run`` and its CLI raise without CUDA unless asked for
+    the CPU, before they read any file."""
+    from emo_disentanger_tpu_torch.cli import train_stage1 as cli
+    from emo_disentanger_tpu_torch.train import train_stage1
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        train_stage1.run({}, 'functional')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        cli.main(['-c', 'emopia_finetune.yaml', '-r', 'functional'])
