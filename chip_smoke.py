@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives six paths at full width with random weights from a seed.  Three run
+drives nine paths at full width with random weights from a seed.  Three run
 the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
 128 FAVOR+ features):
 
@@ -60,6 +60,13 @@ einsums in the JAX package too, and so in the port.
   config's values (f32, B=4, L=512) for 3 steps, a fixed batch whose loss
   must fall, and a segmented step with 512 memories over two segments.
 
+The ninth, two_stage_generation, runs the user's commands end to end over
+YAML copies of both stages' ``emopia_finetune.yaml``: ``infer-stage1``
+writes 16 lead sheets (``.mid``, ``.txt``, ``_roman.txt``), ``infer-stage2
+-m performer`` renders each into two quadrants (32 ``_full.mid``, cut to 8
+bars a job) through the decode-layer kernel, and ``evaluate`` scores them;
+every file is checked, and a second ``infer-stage1`` must render nothing.
+
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
 ``scaled_dot_product_attention`` as a yardstick the port never calls, with
@@ -78,6 +85,7 @@ import contextlib
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -138,6 +146,37 @@ S1_BEAT_BIAS, S1_EOS_BIAS = 2.5, -30.0
 # the serving profile: short songs (max_events 64) in a 1536-row cache,
 # profiled over S1_PROFILE_STEPS steps after S1_PROFILE_SKIP
 S1_PROFILE_EVENTS, S1_PROFILE_SKIP, S1_PROFILE_STEPS = 64, 16, 32
+# two-stage generation: configs/stage1/emopia_finetune.yaml and
+# configs/stage2/emopia_finetune.yaml at their values (f32), infer-stage1 in
+# the lead_sheet mode for 8 groups (16 songs) and infer-stage2 -m performer
+# over their 16 lead sheets (32 jobs), both --batch 16 --serve; stage 2 cut
+# to 8 bars a job
+TWO_STAGE_GROUPS, TWO_STAGE_BATCH, TWO_STAGE_BARS = 8, 16, 8
+# the stage-1 head moved as in phase 5s, and its Bar_None logit raised so a
+# lead sheet has bars of ~20 events (stage 2 injects at most 255 a bar); its
+# Emotion_Positive / Emotion_Negative logits lowered, as a trained head never
+# draws them after the first token and the stage-2 vocabulary lacks them
+TWO_STAGE_BAR_BIAS, TWO_STAGE_EMOTION_BIAS = 3.0, -30.0
+# a random Performer's head is nearly uniform over 327 events, and its
+# hidden state follows the position more than the token (the embeddings are
+# N(0, 0.01) under sinusoids of norm 16): a full-track note, Octave, Degree,
+# Duration and Velocity in a row, would come up about once in 60 jobs, so no
+# rendered performance would hold a note.  The path's Performer keeps its
+# random layers; its token embeddings are rescaled to S2_EMB_OVER_PE times
+# the sinusoids' norm and its head reads the current token through
+# S2_GRAMMAR (the next events each event allows), at a logit of about
+# S2_GRAMMAR_LOGIT for an allowed event and about 0 for the others
+S2_EMB_OVER_PE, S2_GRAMMAR_LOGIT = 8.0, 10.0
+S2_GRAMMAR = {
+    'Track_Full': ['Beat_0'],
+    **{f'Beat_{b}': ['Note_Octave_5'] for b in (0, 4, 8, 12)},
+    'Note_Octave_5': [f'Note_Degree_{d}' for d in ('I', 'II', 'III', 'IV', 'V', 'VI', 'VII')],
+    **{f'Note_Degree_{d}': ['Note_Duration_480']
+       for d in ('I', 'II', 'III', 'IV', 'V', 'VI', 'VII')},
+    'Note_Duration_480': ['Note_Velocity_64'],
+    'Note_Velocity_64': ['Note_Octave_5', 'Beat_4', 'Beat_8', 'Beat_12',
+                         'Track_LeadSheet'],
+}
 # the training corpus: 32-bar lead sheets of ~675 events (a sample fills L)
 S1_CORPUS_PIECES, S1_CORPUS_BARS = 16, 32
 # flash attention: the re-anchor shape and the smallest the dispatch sends
@@ -2302,6 +2341,189 @@ def phase_s1_train(dev, smi):
                'the segmented steps ran and carried memories')
 
 
+# ---------------------------------------------------------------------------
+# two-stage generation
+# ---------------------------------------------------------------------------
+
+def two_stage_configs(root):
+    """The stage-1 (215 events and PAD) and stage-2 (327 events) dictionaries
+    as ``dictionary.pkl`` files, and YAML copies of both stages'
+    ``emopia_finetune.yaml`` with only ``vocab_path`` repointed; returns the
+    two config paths."""
+    import yaml
+    from emo_disentanger_tpu_torch.utils.io import load_yaml
+    conf_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'emo_disentanger_tpu', 'configs')
+    paths = {}
+    for stage, section, dictionary in (('stage1', 'data', s1_dictionary()),
+                                       ('stage2', 'data_loader',
+                                        synthetic_dictionary())):
+        os.makedirs(os.path.join(root, f'{stage}_functional'))
+        with open(os.path.join(root, f'{stage}_functional', 'dictionary.pkl'),
+                  'wb') as f:
+            pickle.dump(dictionary, f)
+        config = load_yaml(os.path.join(conf_dir, stage, 'emopia_finetune.yaml'))
+        config[section]['vocab_path'] = os.path.join(root, stage + '_{}',
+                                                     'dictionary.pkl')
+        paths[stage] = os.path.join(root, f'{stage}.yaml')
+        with open(paths[stage], 'w') as f:
+            yaml.safe_dump(config, f)
+    return paths
+
+
+@torch.no_grad()
+def note_grammar(model, vocab):
+    """Give a stage-2 Performer the S2_GRAMMAR head: token embeddings
+    rescaled to S2_EMB_OVER_PE times the sinusoids' norm, the head's row of
+    each event the sum of the unit (mean-free) embeddings of the events that
+    allow it, scaled so an allowed event's logit is ~S2_GRAMMAR_LOGIT."""
+    e = vocab.event2idx
+    w = model.token_emb.emb_lookup.weight
+    target = S2_EMB_OVER_PE * (model.d_model / 2) ** 0.5
+    w.mul_(target / (w.norm(dim=1, keepdim=True) * model.token_emb.emb_scale))
+    unit = w.float() - w.float().mean(1, keepdim=True)
+    unit = unit / unit.norm(dim=1, keepdim=True)
+    head = torch.zeros_like(model.dec_out_proj.weight)
+    gain = S2_GRAMMAR_LOGIT / model.d_model ** 0.5
+    for src, allowed in S2_GRAMMAR.items():
+        for ev in allowed:
+            head[e[ev]] += gain * unit[e[src]].to(head.dtype)
+    model.dec_out_proj.weight.copy_(head)
+    model.dec_out_proj.bias.zero_()
+
+
+def midi_notes(path):
+    """(notes, tracks in the header) of a MIDI file parsed by the port."""
+    from emo_disentanger_tpu_torch.data.midi_io import MidiFile
+    with open(path, 'rb') as f:
+        data = f.read()
+    midi = MidiFile.parse_bytes(data)
+    return sum(len(i.notes) for i in midi.instruments), int.from_bytes(data[10:12], 'big')
+
+
+def phase_two_stage(dev, smi):
+    """The two-stage generation path through the user's commands: stage-1
+    and stage-2 checkpoints written from seeds, ``infer-stage1`` (lead_sheet,
+    --batch 16 --serve) through its CLI's ``main``, ``run_stage2.run``
+    (Performer, --batch 16 --serve; the CLI has no bar cut) over the 16
+    ``_roman.txt`` files, ``evaluate`` through its CLI, then a second
+    ``infer-stage1`` over the same directory, which must render nothing.
+    Returns the kernel launches of stage 1 and of stage 2."""
+    import io
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.train import train_stage1, train_stage2
+    from emo_disentanger_tpu_torch.train.checkpoint import save_checkpoint
+    from emo_disentanger_tpu_torch.utils.io import load_yaml
+    root = tempfile.mkdtemp(prefix='two_stage_')
+    paths = two_stage_configs(root)
+    v1 = Vocab(*s1_dictionary())
+    v2 = Vocab(*synthetic_dictionary())
+    s1 = train_stage1.build_model_and_params(load_yaml(paths['stage1']), v1, 5,
+                                             device=dev)
+    with torch.no_grad():
+        s1.dec_out_proj.bias[[v1.event2idx[f'Beat_{b}'] for b in range(16)]] += S1_BEAT_BIAS
+        s1.dec_out_proj.bias[v1.eos_id] += S1_EOS_BIAS
+        s1.dec_out_proj.bias[v1.bar_id] += TWO_STAGE_BAR_BIAS
+        s1.dec_out_proj.bias[[v1.event2idx['Emotion_Positive'],
+                              v1.event2idx['Emotion_Negative']]] += TWO_STAGE_EMOTION_BIAS
+    s2, _ = train_stage2.build_model_and_params(load_yaml(paths['stage2']), v2,
+                                                'performer', 6, device=dev)
+    note_grammar(s2, v2)
+    ck1 = save_checkpoint(os.path.join(root, 'w1'), 1, 0.0, s1)
+    ck2 = save_checkpoint(os.path.join(root, 'w2'), 1, 0.0, s2)
+    del s1, s2
+    out = os.path.join(root, 'generation')
+    stage1 = ['-c', paths['stage1'], '-r', 'functional', '-m', 'lead_sheet',
+              '-i', ck1, '-o', out, '-n', str(TWO_STAGE_GROUPS),
+              '--batch', str(TWO_STAGE_BATCH), '--serve', '--device', str(dev)]
+    log = io.StringIO()
+    quiet = contextlib.redirect_stdout(log)
+    try:
+        return _two_stage_run(dev, smi, paths, ck1, ck2, out, stage1, quiet)
+    except Exception:
+        print(log.getvalue()[-4000:])          # the drivers' own messages
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _two_stage_run(dev, smi, paths, ck1, ck2, out, stage1, quiet):
+    """Phase 10's runs and checks, the drivers' messages sent to
+    ``quiet``."""
+    from emo_disentanger_tpu_torch.cli import evaluate, inference_stage1
+    from emo_disentanger_tpu_torch.infer import run_stage2
+    from emo_disentanger_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()                  # stage 1 starts here
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with quiet:
+        sum1 = inference_stage1.main(stage1)
+    torch.cuda.synchronize()
+    s1_secs = time.time() - t0
+    launches1 = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()                  # stage 2 starts here
+    t0 = time.time()
+    with quiet:
+        sum2 = run_stage2.run(paths['stage2'], 'functional', 'performer',
+                              inference_params=ck2, output_dir=out,
+                              batch_size=TWO_STAGE_BATCH, serve=True,
+                              max_bars_override=TWO_STAGE_BARS, device=dev)
+    torch.cuda.synchronize()
+    s2_secs = time.time() - t0
+    launches2 = dict(_build.LAUNCHES)
+    with quiet:
+        report = evaluate.main(['-o', out])
+    n_songs = 2 * TWO_STAGE_GROUPS
+    names = sorted(os.listdir(out))
+    songs = [f'samp_{g:02d}_{v}' for g in range(TWO_STAGE_GROUPS)
+             for v in ('Positive', 'Negative')]
+    want = ([s + x for s in songs for x in ('.mid', '.txt', '_roman.txt')]
+            + [s[:7] + f'_{q}_full.mid' for s in songs
+               for q in (('Q1', 'Q4') if 'Positive' in s else ('Q2', 'Q3'))])
+    expect(sum1['pieces'] == n_songs and set(want) <= set(names),
+           f'infer-stage1 wrote {n_songs} .mid/.txt/_roman.txt sets and '
+           f'infer-stage2 {2 * n_songs} _full.mid files')
+    expect(sum2['pieces'] == 2 * n_songs, 'stage 2 rendered every job')
+    notes = {}
+    for name in want:
+        if name.endswith('.mid'):
+            notes[name], tracks = midi_notes(os.path.join(out, name))
+            expect(notes[name] > 0, f'{name} parses back and holds notes')
+            if not name.endswith('_full.mid'):
+                expect(tracks == 3, f'{name} has its chord track')
+    bars = []
+    for s in songs:
+        with open(os.path.join(out, s + '_roman.txt')) as f:
+            bars.append(sum(ev == 'Bar_None' for ev in f.read().split()))
+    expect({k: v['n_pieces'] for k, v in report.items()}
+           == {'Positive': TWO_STAGE_GROUPS, 'Negative': TWO_STAGE_GROUPS},
+           'evaluate reports Positive and Negative groups of 8 pieces')
+    with quiet:
+        again = inference_stage1.main(stage1)
+    expect(again['pieces'] == 0 and sorted(os.listdir(out)) == names,
+           'a second infer-stage1 over the directory renders nothing')
+    expect(not launches1, 'stage 1 launched no kernel')
+    expect(launches2.get('performer_decode_layer', 0) > 0,
+           'performer_decode_layer launched in stage 2')
+    full = [n for n in want if n.endswith('_full.mid')]
+    print(f'phase 10 two-stage generation [{smi}]: infer-stage1 lead_sheet '
+          f'{n_songs} songs --batch {TWO_STAGE_BATCH} --serve in {s1_secs:.1f} s '
+          f'(bars a lead sheet {min(bars)}-{max(bars)}); infer-stage2 performer '
+          f'{2 * n_songs} jobs --batch {TWO_STAGE_BATCH} --serve, cut to '
+          f'{TWO_STAGE_BARS} bars a job (max_bars_override), in {s2_secs:.1f} s; '
+          f'{n_songs / (s1_secs + s2_secs) * 60:.1f} songs a minute through both '
+          f'stages; notes a lead sheet {min(notes[s + ".mid"] for s in songs)}-'
+          f'{max(notes[s + ".mid"] for s in songs)}, a performance '
+          f'{min(notes[n] for n in full)}-{max(notes[n] for n in full)}; '
+          f'evaluate: ' + ', '.join(
+              f'{k} {v["n_pieces"]} pieces, {v["note_density"]:.2f} notes a bar'
+              for k, v in report.items()))
+    print('phase 10: readings of random heads (stage 1 with EOS lowered, Beat '
+          'and Bar raised; stage 2 with its note grammar), not a lead-sheet '
+          'throughput; stage-2 launches ' + str(launches2))
+    return launches1, launches2
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2357,7 +2579,9 @@ def main():
              'composed_attention': COMPOSED,
              # stage 1 runs none of the kernels: its attention is einsums
              'stage1_serving': (),
-             'stage1_training': ()}
+             'stage1_training': (),
+             # stage 1 runs no kernel; stage 2's Performer serving runs #12
+             'two_stage_generation': ('performer_decode_layer',)}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -2437,6 +2661,9 @@ def main():
     print(f'stage-1 paths took {time.time() - t_s1:.0f} s')
     expect(not launches['stage1_serving'] and not launches['stage1_training'],
            'the stage-1 paths launched no kernel')
+    t_two = time.time()
+    _, launches['two_stage_generation'] = phase_two_stage(dev, smi)
+    print(f'two-stage path took {time.time() - t_two:.0f} s')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:

@@ -3,9 +3,9 @@
 The dictionary is the sorted union of every event string observed in a
 corpus and a synthetic full vocabulary covering all emotions, chords, notes,
 durations, velocities and tempos.  ``Vocab`` adds the trailing PAD token the
-dataloaders append at runtime.  The constants this needs from the JAX
-package's ``core/theory.py``, ``core/quantize.py`` and ``core/events.py``
-are copied here so the port stays independent of that package.
+dataloaders append at runtime.  Its constants come from the port's own
+``core/theory.py``, ``core/quantize.py`` and ``core/events.py``
+(``MAJOR_KEY`` and ``MINOR_KEY`` stay importable from here).
 """
 
 from __future__ import annotations
@@ -13,24 +13,13 @@ from __future__ import annotations
 import os
 import pickle
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Tuple, Union
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
-# core/theory.py
-MAJOR_KEY = np.array(['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B'])
-MINOR_KEY = np.array(['c', 'c#', 'd', 'd#', 'e', 'f', 'f#', 'g', 'g#', 'a', 'a#', 'b'])
-KEY_TO_IDX: Dict[str, int] = {k: i for i, k in enumerate(MAJOR_KEY.tolist())}
-MAJOR_DEGREE_TO_ROMAN: Dict[int, str] = {
-    0: 'I', 1: 'I#', 2: 'II', 3: 'II#', 4: 'III', 5: 'IV',
-    6: 'IV#', 7: 'V', 8: 'V#', 9: 'VI', 10: 'VI#', 11: 'VII',
-}
-
-# core/quantize.py: one 16th (120 ticks) .. one bar (1920 ticks)
-_TICK_RESOL = 120
-_BAR_RESOL = 1920
-VOCAB_DURATION_VALUES = np.arange(_TICK_RESOL, _BAR_RESOL + _TICK_RESOL,
-                                  _TICK_RESOL)
+from .events import event_str
+from .quantize import VOCAB_DURATION_VALUES
+from .theory import KEY_TO_IDX, MAJOR_DEGREE_TO_ROMAN, MAJOR_KEY, MINOR_KEY  # noqa: F401
 
 DEFAULT_SCALE = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
 STANDARD_QUALITIES = ['M', 'm', 'o', '+', '7', 'M7', 'm7', 'o7', '/o7', 'sus2', 'sus4']
@@ -38,13 +27,6 @@ STANDARD_QUALITIES = ['M', 'm', 'o', '+', '7', 'M7', 'm7', 'o7', '/o7', 'sus2', 
 PAD_EVENT = 'PAD_None'
 BAR_EVENT = 'Bar_None'
 EOS_EVENT = 'EOS_None'
-
-
-def event_str(event: Union[Dict[str, Any], str]) -> str:
-    """Serialize an event to its vocabulary string form (core/events.py)."""
-    if isinstance(event, str):
-        return event
-    return '{}_{}'.format(event['name'], event['value'])
 
 
 def build_full_vocab(add_velocity: bool = True, add_emotion: bool = True,

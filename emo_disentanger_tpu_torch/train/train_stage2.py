@@ -36,7 +36,9 @@ from ..models.performer import MusicPerformer
 from ..utils.device import resolve_device
 from ..utils.io import load_yaml, pickle_load
 from ..utils.logging import EpochLogger, write_valloss_line
-from .checkpoint import gc_checkpoints, load_optimizer, load_params, save_checkpoint
+from .checkpoint import (
+    PARAMS, gc_checkpoints, load_optimizer, load_params, save_checkpoint,
+)
 from .trainer import (
     OptimizerConfig, batch_to_device, finalize_accuracy, make_eval_step,
     make_optimizer, make_train_step, neutralize_pad_rows,
@@ -69,6 +71,24 @@ def build_model_and_params(config: dict, vocab: Vocab, model_type: str = 'perfor
     model = MusicPerformer(favor_dims=mconf['feature_map']['n_dims'], **common)
     omegas = model.draw_omegas(torch.Generator().manual_seed(seed + 7))
     return model, omegas
+
+
+def load_pretrained_params(model: torch.nn.Module, path: str) -> None:
+    """Load a reference state dict of either backbone (``.pt``) or a port
+    checkpoint (its ``_params.pt`` or stem) into ``model`` by name, as
+    ``train_stage1.load_pretrained_params`` does for stage 1.  Entries the
+    model has no place for are dropped, as the JAX converters drop them
+    (``train/convert_pt.py:9,28``: the reference Performer keeps its
+    feature matrices as ``feature_map.omega`` buffers, which the port draws
+    as an input); every entry of the model must be in the file."""
+    file = path if path.endswith('.pt') else path + PARAMS
+    state = torch.load(file, map_location='cpu', weights_only=True)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    if missing:
+        raise KeyError(f'{file} lacks {len(missing)} of the model\'s entries, '
+                       f'e.g. {missing[:3]}')
+    model.load_state_dict({k: state[k] for k in own})
 
 
 def run(config: Union[str, dict], representation: str,

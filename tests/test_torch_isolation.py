@@ -144,3 +144,24 @@ def test_stage1_training_entry_points_default_to_cuda(monkeypatch):
         train_stage1.run({}, 'functional')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         cli.main(['-c', 'emopia_finetune.yaml', '-r', 'functional'])
+
+
+def test_inference_entry_points_default_to_cuda(monkeypatch):
+    """``run_stage1.run``, ``run_stage2.run`` and the two inference CLIs
+    raise without CUDA unless asked for the CPU, before they read any
+    file."""
+    from emo_disentanger_tpu_torch.cli import inference_stage1, inference_stage2
+    from emo_disentanger_tpu_torch.infer import run_stage1, run_stage2
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        run_stage1.run('none.yaml', 'functional', 'lead_sheet',
+                       inference_params='none.pt', output_dir='none')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        run_stage2.run('none.yaml', 'functional', 'performer',
+                       inference_params='none.pt', output_dir='none')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        inference_stage1.main(['-c', 'emopia_finetune.yaml', '-r', 'functional',
+                               '-m', 'lead_sheet'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        inference_stage2.main(['-m', 'performer', '-c', 'emopia_finetune.yaml',
+                               '-r', 'functional'])
