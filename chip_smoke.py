@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives nine paths at full width with random weights from a seed.  Three run
+drives eleven paths at full width with random weights from a seed.  Three run
 the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
 128 FAVOR+ features):
 
@@ -67,6 +67,19 @@ writes 16 lead sheets (``.mid``, ``.txt``, ``_roman.txt``), ``infer-stage2
 bars a job) through the decode-layer kernel, and ``evaluate`` scores them;
 every file is checked, and a second ``infer-stage1`` must render nothing.
 
+The tenth, tokenized_training, tokenizes synthetic datasets made from a
+seed (an EMOPIA+ tree of 16 clips of 24 bars, a HookTheory dump of 32
+clips with unusable ones among them, 8 Pop1K7 songs) through
+``midi2events`` in both representations and every event type,
+``events2words`` and ``data-splits``, then takes one ``train_stage1.run``
+step over the tokenized lead sheets and one ``train_stage2.run`` Performer
+step over the tokenized lead2full events (the FAVOR+ kernels #1-#4), at
+the ``emopia_finetune.yaml`` values.  The eleventh, remi_generation, runs
+the REMI representation over those vocabularies: ``infer-stage1 -r remi -m
+lead_sheet``, the Performer's stage 2 over the ``.txt`` lead sheets (the
+decode-layer kernel) and the one-stage ``full_song`` baseline; every file
+is checked, and stage 1 launches no kernel.
+
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
 ``scaled_dot_product_attention`` as a yardstick the port never calls, with
@@ -82,7 +95,9 @@ without the package beside it, it exits non-zero and prints no result.
 
 import collections
 import contextlib
+import io
 import json
+import math
 import os
 import pickle
 import shutil
@@ -177,6 +192,39 @@ S2_GRAMMAR = {
     'Note_Velocity_64': ['Note_Octave_5', 'Beat_4', 'Beat_8', 'Beat_12',
                          'Track_LeadSheet'],
 }
+# the same note grammar over REMI's absolute pitches: Pitch, Duration, Velocity
+S2_REMI_PITCHES = [f'Note_Pitch_{p}' for p in (60, 62, 64, 65, 67, 69, 71)]
+S2_REMI_GRAMMAR = {
+    'Track_Full': ['Beat_0'],
+    **{f'Beat_{b}': S2_REMI_PITCHES for b in (0, 4, 8, 12)},
+    **{p: ['Note_Duration_480'] for p in S2_REMI_PITCHES},
+    'Note_Duration_480': ['Note_Velocity_64'],
+    'Note_Velocity_64': S2_REMI_PITCHES + ['Beat_4', 'Beat_8', 'Beat_12',
+                                           'Track_LeadSheet'],
+}
+# a random one-stage (full_song) head draws a whole REMI note, Pitch, Duration
+# and Velocity in a row, about once a song; its Transformer-XL is given a
+# grammar for the note's last two events only, the rest of the head random
+S1_REMI_GRAMMAR = {**{f'Note_Pitch_{p}': ['Note_Duration_480'] for p in range(21, 109)},
+                   'Note_Duration_480': ['Note_Velocity_64']}
+# tokenized_training: synthetic dataset inputs made from a seed.  An EMOPIA+
+# tree of TOK_CLIPS clips (Q1-Q4 alike) of TOK_BARS bars at 480 PPQN with
+# three instruments, keyed by TOK_KEYS; a HookTheory dump of TOK_HT_CLIPS
+# clips, TOK_HT_UNUSABLE of each unusable kind; TOK_POP_SONGS Pop1K7 pickles
+# of TOK_POP_BARS bars.  The tokenized lead sheets feed one train_stage1.run
+# step and the lead2full events one train_stage2.run step, at the YAMLs'
+# values (configs/stage{1,2}/emopia_finetune.yaml)
+TOK_CLIPS, TOK_BARS = 16, 24
+TOK_KEYS = ('C', 'a', 'G', 'e', 'F#', 'c#', 'A#', 'g')
+TOK_HT_CLIPS, TOK_HT_UNUSABLE = 32, 2
+TOK_POP_SONGS, TOK_POP_BARS = 8, 16
+# remi_generation over the REMI vocabularies tokenized_training wrote:
+# infer-stage1 lead_sheet for REMI_GROUPS groups (--batch REMI_BATCH --serve),
+# run_stage2 performer over their .txt files cut to TWO_STAGE_BARS bars a job,
+# and the one-stage baseline (full_song, REMI_FULL_GROUPS groups of Q1-Q4,
+# REMI_FULL_EVENTS events a song; the CLI has no event cut)
+REMI_GROUPS, REMI_BATCH = 4, 8
+REMI_FULL_GROUPS, REMI_FULL_EVENTS = 2, 512
 # the training corpus: 32-bar lead sheets of ~675 events (a sample fills L)
 S1_CORPUS_PIECES, S1_CORPUS_BARS = 16, 32
 # flash attention: the re-anchor shape and the smallest the dispatch sends
@@ -2372,20 +2420,27 @@ def two_stage_configs(root):
 
 
 @torch.no_grad()
-def note_grammar(model, vocab):
-    """Give a stage-2 Performer the S2_GRAMMAR head: token embeddings
-    rescaled to S2_EMB_OVER_PE times the sinusoids' norm, the head's row of
-    each event the sum of the unit (mean-free) embeddings of the events that
-    allow it, scaled so an allowed event's logit is ~S2_GRAMMAR_LOGIT."""
+def note_grammar(model, vocab, grammar=S2_GRAMMAR):
+    """Give a stage-2 Performer (or a stage-1 Transformer-XL) a head that
+    follows ``grammar`` (``S2_GRAMMAR``; ``S2_REMI_GRAMMAR``,
+    ``S1_REMI_GRAMMAR`` for REMI): token embeddings rescaled to
+    S2_EMB_OVER_PE times the sinusoids' norm, the head's row of each event
+    the sum of the unit (mean-free) embeddings of the events that allow it,
+    scaled so an allowed event's logit is ~S2_GRAMMAR_LOGIT, every other
+    row zero.  The Performer's head reads a post-norm hidden state of norm
+    ~sqrt(d_model); the pre-norm Transformer-XL's reads the residual
+    stream, which the rescaled embedding dominates."""
     e = vocab.event2idx
-    w = model.token_emb.emb_lookup.weight
+    txl = hasattr(model, 'word_emb')
+    emb = model.word_emb if txl else model.token_emb
+    w = emb.emb_lookup.weight
     target = S2_EMB_OVER_PE * (model.d_model / 2) ** 0.5
-    w.mul_(target / (w.norm(dim=1, keepdim=True) * model.token_emb.emb_scale))
+    w.mul_(target / (w.norm(dim=1, keepdim=True) * emb.emb_scale))
     unit = w.float() - w.float().mean(1, keepdim=True)
     unit = unit / unit.norm(dim=1, keepdim=True)
     head = torch.zeros_like(model.dec_out_proj.weight)
-    gain = S2_GRAMMAR_LOGIT / model.d_model ** 0.5
-    for src, allowed in S2_GRAMMAR.items():
+    gain = S2_GRAMMAR_LOGIT / (target if txl else model.d_model ** 0.5)
+    for src, allowed in grammar.items():
         for ev in allowed:
             head[e[ev]] += gain * unit[e[src]].to(head.dtype)
     model.dec_out_proj.weight.copy_(head)
@@ -2409,7 +2464,6 @@ def phase_two_stage(dev, smi):
     ``_roman.txt`` files, ``evaluate`` through its CLI, then a second
     ``infer-stage1`` over the same directory, which must render nothing.
     Returns the kernel launches of stage 1 and of stage 2."""
-    import io
     from emo_disentanger_tpu_torch.core.vocab import Vocab
     from emo_disentanger_tpu_torch.train import train_stage1, train_stage2
     from emo_disentanger_tpu_torch.train.checkpoint import save_checkpoint
@@ -2524,6 +2578,451 @@ def _two_stage_run(dev, smi, paths, ck1, ck2, out, stage1, quiet):
     return launches1, launches2
 
 
+# ---------------------------------------------------------------------------
+# tokenized training and REMI generation
+# ---------------------------------------------------------------------------
+
+PITCH_CLASSES = ('C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B')
+CHORD_QUALITIES = ('maj', 'min', 'aug', 'dim', 'sus4', 'sus2', '7', 'maj7',
+                   'min7', 'dim7', 'hdim7')
+
+
+def emopia_clip(rng, n_bars, mio, lead_in=0):
+    """A synthetic EMOPIA+ clip built from ``mio``'s classes (the port's
+    ``data/midi_io``; the CPU tests pass the JAX package's for its side):
+    ``lead_in`` empty bars, then ``n_bars`` bars of a melody (onsets off the
+    16th grid, starts and durations at half a grid step, overlaps, notes
+    sharing an onset, notes past a bar, zero-length and too-short notes), an
+    accompaniment and a bass; chord markers of every quality a beat or two
+    apart, off the beat by up to 40 ticks, with None chords and
+    ``Boundary`` / ``global`` markers among them; tempo changes on and off
+    the beat, some exactly between two bpm bins."""
+    beat, bar = 480, 1920
+    t0, end = lead_in * bar, (lead_in + n_bars) * bar
+    midi = mio.MidiFile(ticks_per_beat=beat)
+    midi.time_signature_changes.append(mio.TimeSignature(4, 4, 0))
+    midi.tempo_changes.append(mio.TempoChange(
+        tempo=float(rng.randint(60, 180)), time=0))
+    for _ in range(rng.randint(2, 6)):
+        t = t0 + int(rng.randint(n_bars * 4)) * beat
+        if rng.rand() < 0.4:
+            t += int(rng.randint(1, beat))
+        tempo = (float(rng.choice([33.5, 96.5, 120.25])) if rng.rand() < 0.4
+                 else float(rng.randint(50, 200)))
+        midi.tempo_changes.append(mio.TempoChange(tempo=tempo, time=t))
+    midi.tempo_changes.sort(key=lambda x: x.time)
+
+    b = 0
+    while b < n_bars * 4:
+        t = max(0, t0 + b * beat + int(rng.randint(-40, 41)))
+        if rng.rand() < 0.1:
+            text = 'None_None_None'
+        else:
+            root, bass = (PITCH_CLASSES[i] for i in rng.randint(12, size=2))
+            text = f'{root}_{CHORD_QUALITIES[rng.randint(11)]}_{bass}'
+        midi.markers.append(mio.Marker(text=text, time=t))
+        if b % 16 == 0:
+            midi.markers.append(mio.Marker(text='Boundary', time=t0 + b * beat))
+        b += int(rng.randint(1, 3))
+    midi.markers.append(mio.Marker(text='global_bpm_100', time=0))
+
+    def part(name, lo, hi, gap, longest):
+        inst = mio.Instrument(program=0, name=name)
+        t = t0 + int(rng.randint(0, 4)) * 60
+        while t < end - 120:
+            r = rng.rand()
+            dur = (0 if r < 0.05 else int(rng.randint(1, 60)) if r < 0.1
+                   else 60 + 120 * int(rng.randint(8)) if r < 0.25
+                   else int(rng.randint(bar, 2 * bar)) if r < 0.3
+                   else int(rng.randint(60, longest)))
+            inst.notes.append(mio.Note(velocity=int(rng.randint(1, 128)),
+                                       pitch=int(rng.randint(lo, hi)),
+                                       start=t, end=t + dur))
+            r = rng.rand()
+            t += (0 if r < 0.05 else 60 if r < 0.15
+                  else int(rng.randint(30, gap)))
+        return inst
+
+    midi.instruments += [part('melody', 55, 90, 600, 900),
+                         part('texture', 45, 80, 350, 700),
+                         part('bass', 24, 55, 900, 1800)]
+    midi.max_tick = max(n.end for inst in midi.instruments for n in inst.notes)
+    return midi
+
+
+def hooktheory_clip(rng, kind='usable'):
+    """A synthetic HookTheory annotation: 4 to 8 bars (3 for
+    ``kind='short'``, too few to keep) in a major or minor key (dorian for
+    ``'mode'``; a meter change for ``'meter'``), melody onsets in quarters,
+    eighths, sixteenths and thirds of a beat, one zero-length note, chords
+    a beat or two apart (some onsets at half a beat) over triads, sevenths,
+    extended stacks, inversions and an irreducible stack."""
+    n_bars = 3 if kind == 'short' else int(rng.randint(4, 9))
+    intervals = ([2, 1, 2, 2, 2, 1] if kind == 'mode' else
+                 [2, 1, 2, 2, 1, 2] if rng.randint(2) else [2, 2, 1, 2, 2, 2])
+    melody, harmony = [], []
+    t = float(rng.choice([0.0, 0.5, 1.0]))
+    while t < n_bars * 4 - 1:
+        dur = float(rng.choice([0.25, 0.5, 1.0, 1.5, 2.0, 1 / 3]))
+        melody.append({'onset': t, 'offset': t + dur,
+                       'pitch_class': int(rng.randint(12)),
+                       'octave': int(rng.randint(-1, 2))})
+        t += dur
+    melody.append({'onset': 2.0, 'offset': 2.0, 'pitch_class': 0, 'octave': 0})
+    stacks = [[4, 3], [3, 4], [3, 3], [4, 4], [2, 5], [5, 2], [4, 3, 3],
+              [4, 3, 4], [3, 4, 3], [3, 3, 3], [3, 3, 4], [4, 3, 3, 4],
+              [3, 4, 5], [5, 4], [4, 5], [1, 1, 1]]
+    b = 0.0
+    while b < n_bars * 4:
+        step = float(rng.choice([1.0, 2.0, 1.5]))
+        harmony.append({'onset': b, 'offset': b + step,
+                        'root_pitch_class': int(rng.randint(12)),
+                        'root_position_intervals': stacks[rng.randint(len(stacks))]})
+        b += step
+    tags = ['MELODY', 'HARMONY'] + (['METER_CHANGES'] if kind == 'meter' else [])
+    return {'tags': tags, 'annotations': {
+        'meters': [{'beats_per_bar': 4, 'beat_unit': 4}],
+        'keys': [{'tonic_pitch_class': int(rng.randint(12)),
+                  'scale_degree_intervals': intervals}],
+        'melody': melody, 'harmony': harmony}}
+
+
+def pop1k7_song(rng, n_bars):
+    """A synthetic Compose & Embellish ``(skyline_pos, midi_pos, events)``
+    triple as Pop1K7's pickles hold it: a Tempo, then per bar a Skyline
+    track (beats with chords, None chords and notes) and a Midi track
+    (Tempo, Conti tempos, chords and Conti chords on the quarter beats;
+    notes with velocities)."""
+    qualities = ['M', 'm', '7', 'M7', 'm7', 'o', 'sus4', '+', 'sus2']
+    chord = lambda: f'{rng.randint(12)}_{qualities[rng.randint(len(qualities))]}'  # noqa: E731
+    events = [{'name': 'Tempo', 'value': int(rng.choice([80, 110, 140]))}]
+    skyline_pos, midi_pos = [], []
+
+    def note(velocity):
+        out = [{'name': 'Note_Pitch', 'value': int(rng.randint(30, 95))},
+               {'name': 'Note_Duration', 'value': int(rng.choice([120, 240, 480, 960]))}]
+        if velocity:
+            out.append({'name': 'Note_Velocity', 'value': int(rng.randint(40, 120))})
+        return out
+
+    for _ in range(n_bars):
+        sky = len(events)
+        events += [{'name': 'Track', 'value': 'Skyline'}, {'name': 'Bar', 'value': None}]
+        for b in sorted(rng.choice(16, size=rng.randint(1, 6), replace=False)):
+            events.append({'name': 'Beat', 'value': int(b)})
+            has_chord = rng.rand() < 0.6
+            if has_chord:
+                events.append({'name': 'Chord', 'value':
+                               'None_None' if rng.rand() < 0.15 else chord()})
+            if rng.rand() < 0.8 or not has_chord:
+                events += note(False)
+        mid = len(events)
+        events += [{'name': 'Track', 'value': 'Midi'}, {'name': 'Bar', 'value': None}]
+        for b in sorted(rng.choice(16, size=rng.randint(2, 8), replace=False)):
+            events.append({'name': 'Beat', 'value': int(b)})
+            quarter, emitted = b in (0, 4, 8, 12), 0
+            if quarter and rng.rand() < 0.6:
+                events.append({'name': 'Tempo', 'value': 'Conti' if rng.rand() < 0.3
+                               else int(rng.choice([80, 110, 140]))})
+                emitted += 1
+            if quarter and rng.rand() < 0.5:
+                events.append({'name': 'Chord', 'value':
+                               'Conti_Conti' if rng.rand() < 0.2 else chord()})
+                emitted += 1
+            for _ in range(int(rng.randint(0 if emitted else 1, 3))):
+                events += note(True)
+        skyline_pos.append((sky, mid))
+        midi_pos.append((mid, len(events)))
+    return skyline_pos, midi_pos, events
+
+
+def write_tokenizer_inputs(root, rng):
+    """The three datasets' inputs in the layouts ``midi2events`` reads:
+    ``EMOPIA+/`` (``midis/*.mid``, a file that is not a MIDI,
+    ``adjust_keyname.json``, ``split/{train,val,test}_clip.csv``),
+    ``HookTheory/Hooktheory.json.gz`` and ``Pop1K7-emo/``
+    (``pop1k7_leedsheet2midi/*.pkl``, ``pop1k7_keyname.json``).  Returns the
+    data homes and the names of the unusable HookTheory clips."""
+    import gzip
+    from emo_disentanger_tpu_torch.data import midi_io
+    homes = {d: os.path.join(root, d) for d in ('EMOPIA+', 'HookTheory', 'Pop1K7-emo')}
+    midis = os.path.join(homes['EMOPIA+'], 'midis')
+    os.makedirs(midis)
+    os.makedirs(os.path.join(homes['EMOPIA+'], 'split'))
+    names = [f'Q{1 + i % 4}_clip{i:02d}_0' for i in range(TOK_CLIPS)]
+    for i, name in enumerate(names):
+        emopia_clip(rng, TOK_BARS, midi_io, lead_in=int(i % 3 == 0)).dump(
+            os.path.join(midis, name + '.mid'))
+    with open(os.path.join(midis, 'README.txt'), 'w') as f:
+        f.write('not a MIDI file\n')
+    with open(os.path.join(homes['EMOPIA+'], 'adjust_keyname.json'), 'w') as f:
+        json.dump({n: TOK_KEYS[i % len(TOK_KEYS)] for i, n in enumerate(names)}, f)
+    n_test = TOK_CLIPS // 4
+    for split, part in (('train', names[:-n_test - 2]), ('val', names[-n_test - 2:-n_test]),
+                        ('test', names[-n_test:])):
+        with open(os.path.join(homes['EMOPIA+'], 'split', f'{split}_clip.csv'), 'w') as f:
+            f.write(',clip_name\n' + ''.join(f'{i},{n}.mid\n' for i, n in enumerate(part)))
+
+    kinds = (['meter', 'mode', 'short'] * TOK_HT_UNUSABLE
+             + ['usable'] * (TOK_HT_CLIPS - 3 * TOK_HT_UNUSABLE))
+    clips = {f'ht{i:02d}': hooktheory_clip(rng, k) for i, k in enumerate(kinds)}
+    os.makedirs(homes['HookTheory'])
+    with gzip.open(os.path.join(homes['HookTheory'], 'Hooktheory.json.gz'), 'wt') as f:
+        json.dump(clips, f)
+
+    pops = os.path.join(homes['Pop1K7-emo'], 'pop1k7_leedsheet2midi')
+    os.makedirs(pops)
+    keys = {}
+    for i in range(TOK_POP_SONGS):
+        keys[f'pop{i:02d}'] = TOK_KEYS[(3 * i) % len(TOK_KEYS)]
+        with open(os.path.join(pops, f'pop{i:02d}.pkl'), 'wb') as f:
+            pickle.dump(pop1k7_song(rng, TOK_POP_BARS), f)
+    with open(os.path.join(homes['Pop1K7-emo'], 'pop1k7_keyname.json'), 'w') as f:
+        json.dump(keys, f)
+    return homes, sorted(n for n, k in zip(clips, kinds) if k != 'usable')
+
+
+# midi2events runs: (dataset, data home, event type, the corpus it writes)
+TOKENIZE_RUNS = (
+    ('emopia', 'EMOPIA+', 'lead', 'stage1/emopia_events/lead_sheet_chord11_{}'),
+    ('emopia', 'EMOPIA+', 'lead2full', 'stage2/emopia_events/full_song_chord11_{}'),
+    ('emopia', 'EMOPIA+', 'full', 'stage1/emopia_events/full_song_chord11_{}'),
+    ('hooktheory', 'HookTheory', 'lead', 'stage1/hooktheory_events/lead_sheet_chord11_{}'),
+    ('pop1k7', 'Pop1K7-emo', 'lead2full', 'stage2/pop1k7_events/full_song_chorder_{}'),
+    ('pop1k7', 'Pop1K7-emo', 'full', 'stage1/pop1k7_events/full_song_chorder_{}'),
+)
+
+
+def user_config(root, stage, **changes):
+    """``configs/<stage>/emopia_finetune.yaml`` with its relative paths moved
+    under ``root``, its checkpoints and logs every epoch, and ``changes``
+    set in the sections they name (section -> dict)."""
+    from emo_disentanger_tpu_torch.utils.io import load_yaml
+    conf_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'emo_disentanger_tpu', 'configs')
+    config = load_yaml(os.path.join(conf_dir, stage, 'emopia_finetune.yaml'))
+    for section in config.values():
+        if isinstance(section, dict):
+            for k, v in section.items():
+                if isinstance(v, str) and v.startswith(('events/', 'ckpt/')):
+                    section[k] = os.path.join(root, v)
+    for section, values in changes.items():
+        config[section].update(values)
+    return config
+
+
+def phase_tokenized(dev, smi, root, quiet):
+    """The tokenized_training path through the user's commands on synthetic
+    inputs under ``root``: ``midi2events`` for every dataset, both
+    representations and every event type, ``events2words`` for both
+    representations, ``data-splits``; every corpus checked (one pickle a
+    clip, the unusable HookTheory clips skipped, events2words' dictionaries
+    cover every event).  Then one ``train_stage1.run`` step over the
+    tokenized functional EMOPIA+ lead sheets and one ``train_stage2.run``
+    Performer step over the tokenized functional lead2full events, at the
+    YAMLs' values."""
+    from emo_disentanger_tpu_torch.__main__ import main as port_main
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.train import train_stage1, train_stage2
+    homes, unusable = write_tokenizer_inputs(root, np.random.RandomState(31))
+    events = os.path.join(root, 'events')
+    secs, per_song = {}, {}
+    for rep in ('functional', 'remi'):
+        for dataset, home, etype, corpus in TOKENIZE_RUNS:
+            t0 = time.time()
+            with quiet:
+                rc = port_main(['midi2events', '-d', dataset, '-r', rep, '-e', etype,
+                                '--data_home', homes[home], '--out_root', events])
+            secs[dataset] = secs.get(dataset, 0.0) + time.time() - t0
+            expect(rc == 0, f'midi2events -d {dataset} -r {rep} -e {etype} ran')
+        with quiet:
+            expect(port_main(['events2words', '-r', rep, '--root', root]) == 0,
+                   f'events2words -r {rep} ran')
+        for dataset, home, etype, corpus in TOKENIZE_RUNS:
+            cdir = os.path.join(events, corpus.format(rep))
+            names = sorted(os.listdir(os.path.join(cdir, 'events')))
+            want = {'emopia': TOK_CLIPS, 'pop1k7': TOK_POP_SONGS,
+                    'hooktheory': TOK_HT_CLIPS - len(unusable)}[dataset]
+            expect(len(names) == want, f'{corpus.format(rep)}: {want} pickles')
+            if dataset == 'hooktheory':
+                expect(not {n[:-4] for n in names} & set(unusable),
+                       'the unusable HookTheory clips were skipped')
+            vocab = Vocab.load(os.path.join(cdir, 'dictionary.pkl'))
+            lengths = []
+            for name in names:
+                with open(os.path.join(cdir, 'events', name), 'rb') as f:
+                    evs = pickle.load(f)[-1]
+                vocab.encode(evs)             # raises on an event it lacks
+                lengths.append(len(evs))
+            per_song[(dataset, etype, rep)] = (min(lengths), max(lengths))
+    t0 = time.time()
+    with quiet:
+        rc = port_main(['data-splits', '--emopia_split_dir',
+                        os.path.join(homes['EMOPIA+'], 'split'),
+                        '--hooktheory_events_dir', os.path.join(
+                            events, 'stage1/hooktheory_events/'
+                            'lead_sheet_chord11_functional/events'),
+                        '--root', root])
+    split_s = time.time() - t0
+    splits = {}
+    for stage in ('stage1/emopia_events', 'stage2/emopia_events',
+                  'stage1/hooktheory_events'):
+        with open(os.path.join(events, stage, 'data_splits', 'valid.pkl'), 'rb') as f:
+            splits[stage] = len(pickle.load(f))
+    n_ht = math.ceil(0.1 * (TOK_HT_CLIPS - len(unusable)))  # sklearn's count
+    expect(rc == 0 and splits == {'stage1/emopia_events': TOK_CLIPS // 4,
+                                  'stage2/emopia_events': TOK_CLIPS // 4,
+                                  'stage1/hooktheory_events': n_ht},
+           'data-splits wrote both EMOPIA+ splits and HookTheory 90/10')
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s1 = train_stage1.run(user_config(root, 'stage1', training={'max_epoch': 1},
+                                      output={'ckpt_interval': 1}),
+                          'functional', max_batches_per_epoch=1, device=dev)
+    s1_wall = time.time() - t0
+    t0 = time.time()
+    s2 = train_stage2.run(user_config(root, 'stage2', training={
+        'num_epochs': 1, 'ckpt_interval': 1, 'log_interval': 1}),
+        'functional', 'performer', max_batches_per_epoch=1, device=dev)
+    s2_wall = time.time() - t0
+    expect(s1['steps'] == 1 and np.isfinite(s1['step_losses']).all(),
+           'the stage-1 step on tokenized lead sheets has a finite loss')
+    expect(s2['steps'] == 1 and np.isfinite(s2['step_losses']).all(),
+           'the stage-2 step on tokenized lead2full events has a finite loss')
+    print(f'phase 11a tokenized training [{smi}]: midi2events seconds a dataset '
+          f'(both representations, every event type) '
+          + ', '.join(f'{k} {v:.2f}' for k, v in secs.items())
+          + f'; data-splits {split_s:.2f} s; events a song '
+          + ', '.join(f'{d} {e} {r} {lo}-{hi}' for (d, e, r), (lo, hi)
+                      in per_song.items())
+          + f'; train_stage1.run f32 B=4 L=512 step {s1["step_seconds"][0]:.3f} s '
+          f'(loss {s1["step_losses"][0]:.4f}, run {s1_wall:.1f} s); '
+          f'train_stage2.run performer f32 B=4 L=3072 step '
+          f'{s2["step_seconds"][0]:.3f} s (loss {s2["step_losses"][0]:.4f}, run '
+          f'{s2_wall:.1f} s); HookTheory kept {TOK_HT_CLIPS - len(unusable)} of '
+          f'{TOK_HT_CLIPS}')
+
+
+def phase_remi(dev, smi, root, quiet):
+    """The remi_generation path over the REMI vocabularies that
+    tokenized_training wrote under ``root``: random stage-1 checkpoints
+    (lead-sheet and full-song vocabularies; EOS lowered, Beat and Bar
+    raised, every Emotion token after the first lowered) and a flagship
+    Performer with the REMI note grammar; ``infer-stage1 -r remi -m
+    lead_sheet`` through its CLI, ``run_stage2.run`` REMI Performer over the
+    ``.txt`` lead sheets, and the one-stage baseline ``run_stage1.run`` REMI
+    full_song.  Every file is checked.  Returns the launches of stage 1 (both
+    modes) and of stage 2."""
+    import yaml
+    from emo_disentanger_tpu_torch.cli import inference_stage1
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer import run_stage1, run_stage2
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.train import train_stage1, train_stage2
+    from emo_disentanger_tpu_torch.train.checkpoint import save_checkpoint
+    configs = {'lead': user_config(root, 'stage1'),
+               'full': user_config(root, 'stage1', data={'vocab_path': os.path.join(
+                   root, 'events/stage1/emopia_events/full_song_chord11_{}/dictionary.pkl')}),
+               'stage2': user_config(root, 'stage2')}
+    paths, ckpts = {}, {}
+    for name, config in configs.items():
+        paths[name] = os.path.join(root, f'remi_{name}.yaml')
+        with open(paths[name], 'w') as f:
+            yaml.safe_dump(config, f)
+        section = config['data_loader' if name == 'stage2' else 'data']
+        vocab = Vocab.load(section['vocab_path'].format('remi'))
+        if name == 'stage2':
+            model, _ = train_stage2.build_model_and_params(config, vocab, 'performer',
+                                                           6, device=dev)
+            note_grammar(model, vocab, S2_REMI_GRAMMAR)
+        else:
+            model = train_stage1.build_model_and_params(config, vocab, 5, device=dev)
+            if name == 'full':
+                note_grammar(model, vocab, S1_REMI_GRAMMAR)
+            ev = vocab.event2idx
+            with torch.no_grad():
+                bias = model.dec_out_proj.bias
+                bias[[ev[f'Beat_{b}'] for b in range(16)]] += S1_BEAT_BIAS
+                bias[vocab.eos_id] += S1_EOS_BIAS
+                bias[vocab.bar_id] += TWO_STAGE_BAR_BIAS
+                bias[[i for e, i in ev.items() if e.startswith('Emotion_')]] += \
+                    TWO_STAGE_EMOTION_BIAS
+        ckpts[name] = save_checkpoint(os.path.join(root, f'w_{name}'), 1, 0.0, model)
+        del model
+    lead_out, full_out = os.path.join(root, 'remi_gen'), os.path.join(root, 'remi_full')
+    launches, secs = {}, {}
+    runs = (
+        ('stage 1 lead_sheet', lambda: inference_stage1.main(
+            ['-c', paths['lead'], '-r', 'remi', '-m', 'lead_sheet', '-i', ckpts['lead'],
+             '-o', lead_out, '-n', str(REMI_GROUPS), '--batch', str(REMI_BATCH),
+             '--serve', '--device', str(dev)])),
+        ('stage 2', lambda: run_stage2.run(
+            paths['stage2'], 'remi', 'performer', inference_params=ckpts['stage2'],
+            output_dir=lead_out, batch_size=2 * REMI_BATCH, serve=True,
+            max_bars_override=TWO_STAGE_BARS, device=dev)),
+        ('stage 1 full_song', lambda: run_stage1.run(
+            paths['full'], 'remi', 'full_song', inference_params=ckpts['full'],
+            output_dir=full_out, n_groups=REMI_FULL_GROUPS,
+            max_events_override=REMI_FULL_EVENTS, batch_size=REMI_BATCH,
+            serve=True, device=dev)))
+    summaries = {}
+    for what, fn in runs:
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with quiet:
+            summaries[what] = fn()
+        torch.cuda.synchronize()
+        secs[what] = time.time() - t0
+        launches[what] = dict(_build.LAUNCHES)
+
+    leads = [f'samp_{g:02d}_{v}' for g in range(REMI_GROUPS) for v in ('Positive', 'Negative')]
+    fulls = [f'samp_{g:02d}_Q{q}' for g in range(REMI_FULL_GROUPS) for q in range(1, 5)]
+    want = {lead_out: [s + x for s in leads for x in ('.mid', '.txt')]
+            + [s[:7] + f'_{q}_full.mid' for s in leads
+               for q in (('Q1', 'Q4') if 'Positive' in s else ('Q2', 'Q3'))],
+            full_out: [s + x for s in fulls for x in ('.mid', '.txt')]}
+    notes = {}
+    for out, names in want.items():
+        have = set(os.listdir(out))
+        expect(set(names) <= have and not any(n.endswith('_roman.txt') for n in have),
+               f'{out}: every REMI .mid and .txt, and no _roman.txt')
+        for name in names:
+            if name.endswith('.mid'):
+                notes[name], _ = midi_notes(os.path.join(out, name))
+                expect(notes[name] > 0, f'{name} parses back and holds notes')
+    expect(summaries['stage 1 lead_sheet']['pieces'] == len(leads)
+           and summaries['stage 2']['pieces'] == 2 * len(leads)
+           and summaries['stage 1 full_song']['pieces'] == len(fulls),
+           'every REMI job rendered')
+    expect(not launches['stage 1 lead_sheet'] and not launches['stage 1 full_song'],
+           'REMI stage 1 launched no kernel')
+    expect(launches['stage 2'].get('performer_decode_layer', 0) > 0,
+           'performer_decode_layer launched in REMI stage 2')
+    events = {}
+    for s in leads + fulls:
+        out = lead_out if s in leads else full_out
+        with open(os.path.join(out, s + '.txt')) as f:
+            events[s] = len(f.read().split())
+    rng_of = lambda names: f'{min(names)}-{max(names)}'  # noqa: E731
+    print(f'phase 11b remi generation [{smi}]: infer-stage1 -r remi lead_sheet '
+          f'{len(leads)} songs --batch {REMI_BATCH} --serve in '
+          f'{secs["stage 1 lead_sheet"]:.1f} s (events a song '
+          f'{rng_of([events[s] for s in leads])}); run_stage2 remi performer '
+          f'{2 * len(leads)} jobs --batch {2 * REMI_BATCH} --serve, {TWO_STAGE_BARS} '
+          f'bars a job, in {secs["stage 2"]:.1f} s; one-stage full_song '
+          f'{len(fulls)} songs of up to {REMI_FULL_EVENTS} events --batch '
+          f'{REMI_BATCH} --serve in {secs["stage 1 full_song"]:.1f} s (events a '
+          f'song {rng_of([events[s] for s in fulls])}); notes a lead sheet '
+          f'{rng_of([notes[s + ".mid"] for s in leads])}, a performance '
+          f'{rng_of([n for k, n in notes.items() if k.endswith("_full.mid")])}, a '
+          f'full song {rng_of([notes[s + ".mid"] for s in fulls])}; stage-2 '
+          f'launches {launches["stage 2"]}; random heads, not a lead-sheet '
+          f'throughput')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2581,7 +3080,10 @@ def main():
              'stage1_serving': (),
              'stage1_training': (),
              # stage 1 runs no kernel; stage 2's Performer serving runs #12
-             'two_stage_generation': ('performer_decode_layer',)}
+             'two_stage_generation': ('performer_decode_layer',),
+             # tokenizing is host work; the stage-2 train step runs #1-#4
+             'tokenized_training': HEAD_MAJOR,
+             'remi_generation': ('performer_decode_layer',)}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -2664,6 +3166,27 @@ def main():
     t_two = time.time()
     _, launches['two_stage_generation'] = phase_two_stage(dev, smi)
     print(f'two-stage path took {time.time() - t_two:.0f} s')
+    t_tok = time.time()
+    tok_root = tempfile.mkdtemp(prefix='tokenized_')
+    log = io.StringIO()
+    quiet = contextlib.redirect_stdout(log)
+    try:
+        _build.LAUNCHES.clear()              # the tokenized training path starts here
+        phase_tokenized(dev, smi, tok_root, quiet)
+        torch.cuda.synchronize()
+        launches['tokenized_training'] = dict(_build.LAUNCHES)
+        t_remi = time.time()
+        launches['remi_generation'] = dict(sum(
+            (collections.Counter(n) for n in phase_remi(dev, smi, tok_root,
+                                                        quiet).values()),
+            collections.Counter()))
+    except Exception:
+        print(log.getvalue()[-4000:])          # the commands' own messages
+        raise
+    finally:
+        shutil.rmtree(tok_root, ignore_errors=True)
+    print(f'tokenized training path took {t_remi - t_tok:.0f} s, REMI generation '
+          f'{time.time() - t_remi:.0f} s')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:

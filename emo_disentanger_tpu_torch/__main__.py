@@ -1,6 +1,5 @@
 """Master CLI dispatch: ``python -m emo_disentanger_tpu_torch <command> ...``
-(port of ``emo_disentanger_tpu/__main__.py``, with the commands the port
-has)."""
+(port of ``emo_disentanger_tpu/__main__.py``)."""
 
 import sys
 
@@ -9,7 +8,9 @@ COMMANDS = {
     'train-stage2': ('emo_disentanger_tpu_torch.cli.train_stage2', 'stage-2 training'),
     'infer-stage1': ('emo_disentanger_tpu_torch.cli.inference_stage1', 'stage-1 generation'),
     'infer-stage2': ('emo_disentanger_tpu_torch.cli.inference_stage2', 'stage-2 generation'),
+    'midi2events': ('emo_disentanger_tpu_torch.cli.midi2events', 'dataset tokenization'),
     'events2words': ('emo_disentanger_tpu_torch.cli.events2words', 'vocabulary build'),
+    'data-splits': ('emo_disentanger_tpu_torch.cli.data_splits', 'train/valid splits'),
     'evaluate': ('emo_disentanger_tpu_torch.cli.evaluate', 'objective generation metrics'),
 }
 

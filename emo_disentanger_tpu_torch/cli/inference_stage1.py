@@ -6,6 +6,11 @@ reference ``stage1_compose/inference.py:86-114``): ``-c``, ``-r``,
     python -m emo_disentanger_tpu_torch infer-stage1 -c emopia_finetune.yaml \\
         -r functional -m lead_sheet --batch 16 --serve
 
+``-r functional`` writes ``.mid``, ``.txt`` and the ``_roman.txt`` that
+stage 2 reads; ``-r remi`` (no key step) writes ``.mid`` and ``.txt``, and
+stage 2 reads the ``.txt``.  ``-r remi -m full_song`` is the one-stage
+baseline.
+
 A bare config name is looked up among the JAX package's stage-1 YAMLs,
 read by path (this package imports nothing of it).
 """

@@ -39,3 +39,28 @@ def quantize_tick(tick: float, resol: int = TICK_RESOL) -> int:
     """Round a tick time to the grid (banker's rounding via np.round, matching
     the reference's ``int(np.round(t / r) * r)``)."""
     return int(np.round(tick / resol) * resol)
+
+
+def quantize_notes(starts: np.ndarray, ends: np.ndarray, velocities: np.ndarray,
+                   shift_ticks: int, tick_resol: int, bar_resol: int,
+                   vel_bins: np.ndarray, shift_bins: np.ndarray):
+    """Per-note quantization: (grid time, duration or -1 to drop, velocity
+    bin, onset-shift bin), each an int64 array.  Port of
+    ``emo_disentanger_tpu/native/__init__.py:63-95`` (numpy branch), which
+    matches ``csrc/emodis_native.cpp:45-64``: starts and durations round half
+    to even (``np.round`` as ``std::nearbyint``), bins break ties toward the
+    lower bin (``np.argmin``'s first match), durations cap at ``bar_resol``
+    and one that rounds to zero is flagged -1."""
+    starts = np.asarray(starts, dtype=np.int64)
+    ends = np.asarray(ends, dtype=np.int64)
+    velocities = np.asarray(velocities, dtype=np.int64)
+    vel_bins = np.asarray(vel_bins, dtype=np.int64)
+    shift_bins = np.asarray(shift_bins, dtype=np.int64)
+    s = starts - shift_ticks
+    qt = (np.round(s / tick_resol) * tick_resol).astype(np.int64)
+    vel = vel_bins[np.argmin(np.abs(vel_bins[None, :] - velocities[:, None]), axis=1)]
+    shift = shift_bins[np.argmin(np.abs(shift_bins[None, :] - (s - qt)[:, None]), axis=1)]
+    dur = np.minimum(ends - starts, bar_resol)
+    dur = (np.round(dur / tick_resol) * tick_resol).astype(np.int64)
+    dur = np.where(dur == 0, -1, dur)
+    return qt, dur, vel, shift

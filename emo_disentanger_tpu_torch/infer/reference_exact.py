@@ -91,17 +91,18 @@ def generate_stage1_reference_exact(
     model: PlainTransformer, vocab: Vocab, *,
     primer_events: List[str], max_bars: int = 128, max_events: int = 512,
     temp: float = 1.2, top_p: float = 0.97,
+    representation: str = 'functional', key_determine: str = 'rule',
     prompt_bars: Optional[int] = None, max_klen: Optional[int] = None,
 ) -> Tuple[Optional[List[int]], int]:
     """Token-for-token replay of the reference's ``generate_plain_xl`` on
     the port's ``PlainTransformer`` (``reference_exact.py:213-292``), on the
     model's device, one token a step through ``decode_step`` (the chunked
     live-prefix attention at B=1).  All primer tokens but the last are
-    prefilled.  The replay is of the functional representation with the
-    reference's 'rule' key determination: the key step (the second token)
-    samples at 1.1 / 0.97 and redraws while the key's mode does not match
-    the emotion's valence; the cache still grows by one entry for each
-    draw.
+    prefilled.  In the functional (or 'key') representation the key step
+    (the second token) samples at 1.1 / 0.97; with ``key_determine='rule'``
+    it must be a ``Key_*`` token and redraws while the key's mode does not
+    match the emotion's valence, the cache growing by one entry for each
+    draw.  REMI has no key step.
     The caller seeds ``np.random``.  Returns (token ids including the final
     token the reference later drops, accepted samples), or (None, _) when
     256 consecutive beat rejections mark the song stuck."""
@@ -127,15 +128,16 @@ def generate_stage1_reference_exact(
         logits = step(generated[-1], t)[0].float().cpu().numpy()
         t += 1
 
-        if len(generated) == 1:
+        if representation in ('functional', 'key') and len(generated) == 1:
             word = _nucleus_exact(_temperature_exact(logits, 1.1), 0.97)
-            emotion_label = vocab.idx2event[generated[0]].split('_')[1]
-            key_event = vocab.idx2event[word]
-            if key_event.split('_')[0] != 'Key':
-                raise ValueError('[info] key generation failed')
-            positive = emotion_label in ('Q1', 'Q4', 'Positive')
-            if positive != (key_event.split('_')[1] in MAJOR_KEY):
-                continue
+            if key_determine == 'rule':
+                emotion_label = vocab.idx2event[generated[0]].split('_')[1]
+                key_event = vocab.idx2event[word]
+                if key_event.split('_')[0] != 'Key':
+                    raise ValueError('[info] key generation failed')
+                positive = emotion_label in ('Q1', 'Q4', 'Positive')
+                if positive != (key_event.split('_')[1] in MAJOR_KEY):
+                    continue
             word_event = vocab.idx2event[word]
         else:
             word = _nucleus_exact(_temperature_exact(logits, temp), top_p)

@@ -4,10 +4,10 @@ reference ``stage1_compose/inference.py``).
 Generates ``n_groups`` pieces per emotion (Positive/Negative for lead sheets,
 Q1..Q4 for one-stage full songs), skipping outputs that already exist
 (idempotent re-runs, reference ``inference.py:204-206``), writing ``.mid``,
-``.txt`` and the ``_roman.txt`` that stage 2 reads (the stage-1 -> stage-2
-contract).  The port's stage-1 generators decode the functional
-representation only (the second token is the key), so ``representation``
-must be ``'functional'``.
+``.txt`` and, for the functional representation, the ``_roman.txt`` that
+stage 2 reads (the stage-1 -> stage-2 contract).  Functional songs hold
+Roman numerals and are converted to absolute pitches for ``.mid`` and
+``.txt``; REMI songs are absolute already and stage 2 reads their ``.txt``.
 """
 
 from __future__ import annotations
@@ -75,12 +75,9 @@ def run(config_path: str, representation: str, mode: str, *,
     :class:`Stage1Generator` song at a time.  Runs on CUDA unless
     ``device='cpu'`` is given."""
     dev = resolve_device(device)
-    if representation != 'functional':
-        raise NotImplementedError(
-            "the port's stage-1 generators decode the functional "
-            'representation only')
     config = load_yaml(config_path)
     params_cfg = MODE_PARAMS[mode]
+    functional = representation == 'functional'
 
     os.makedirs(output_dir, exist_ok=True)
     shutil.copy(config_path, os.path.join(
@@ -94,7 +91,8 @@ def run(config_path: str, representation: str, mode: str, *,
     max_events = max_events_override or params_cfg['max_dec_len']
     max_bars = max_bars_override or MAX_BARS
     sampling = dict(temp=params_cfg['temp'], top_p=params_cfg['top_p'],
-                    max_events=max_events, max_bars=max_bars, device=dev)
+                    max_events=max_events, max_bars=max_bars,
+                    functional=functional, device=dev)
 
     # collect the pending (group, emotion) jobs (idempotent skip)
     jobs = []
@@ -156,8 +154,8 @@ def run(config_path: str, representation: str, mode: str, *,
         for ev in events:
             if 'Key' in ev:
                 key = ev
-        events_roman = events[1:]
-        events_abs = roman_events_to_absolute(key, events)[1:]
+        events_abs = (roman_events_to_absolute(key, events)
+                      if functional else events)[1:]
 
         if mode == 'lead_sheet':
             events_to_midi(key, events_abs, mode,
@@ -167,8 +165,9 @@ def run(config_path: str, representation: str, mode: str, *,
         else:
             events_to_midi(key, events_abs, mode, output_midi_path=midi_path)
         events_to_txt(events_abs, os.path.join(output_dir, out_name + '.txt'))
-        events_to_txt(events_roman,
-                      os.path.join(output_dir, out_name + '_roman.txt'))
+        if functional:
+            events_to_txt(events[1:],
+                          os.path.join(output_dir, out_name + '_roman.txt'))
         if play_midi:
             from .audio import midi_to_wav
             midi_to_wav(midi_path,

@@ -5,10 +5,11 @@ Port of ``emo_disentanger_tpu/infer/stage1.py`` (reference
 ``generate_plain_xl``, ``stage1_compose/inference_utils.py:51-135``).  The
 rules, as ``_make_song_loop`` (``stage1.py:42-152``) applies them:
 
-* the key step (the second token; the port generates the functional
-  representation, whose second token is the key) samples at temperature
-  1.1 / top-p 0.97 and must draw a ``Key_*`` token whose mode matches the
-  emotion's valence (``rules.emotion_wants_major``);
+* in the functional representation (``functional=True``) the key step
+  (the second token) samples at temperature 1.1 / top-p 0.97 and must draw
+  a ``Key_*`` token whose mode matches the emotion's valence
+  (``rules.emotion_wants_major``); REMI (``functional=False``) has no key
+  token, and its second token samples as any other;
 * Beat positions must not decrease within a bar; 256 consecutive
   violations mark the song STUCK, and it returns None;
 * PAD is skipped; ``Bar_None`` counts bars; EOS or the bar or event budget
@@ -59,7 +60,7 @@ class SongLoop:
 
     def __init__(self, model: PlainTransformer, vocab: Vocab, *, batch: int,
                  temp: float, top_p: float, max_events: int, max_bars: int,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], functional: bool = True):
         self.device = resolve_device(device)
         if not isinstance(model, PlainTransformer):
             raise TypeError(f'expected PlainTransformer, got '
@@ -73,6 +74,7 @@ class SongLoop:
         self.top_p = top_p
         self.max_events = max_events
         self.max_bars = max_bars
+        self.functional = functional
         self.max_iters = max_events * 2 + 2048
         tb = build_rule_tables(vocab)
         on_dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
@@ -169,7 +171,7 @@ class SongLoop:
         in_primer = s['fed'] < s['primer_len']
         prim_next = s['primer'].gather(1, s['fed'].clamp(
             max=s['primer'].shape[1] - 1)[:, None])[:, 0]
-        key_step = (s['out_len'] == 1) & ~in_primer
+        key_step = (s['out_len'] == 1) & ~in_primer & self.functional
         # one batched sort: the key step's settings are chosen per row
         sampled_tok = nucleus_sample(
             logits, torch.where(key_step, KEY_TEMP, self.temp),
@@ -243,11 +245,11 @@ class Stage1Generator(SongLoop):
     def __init__(self, model: PlainTransformer, vocab: Vocab, *,
                  temp: float = 1.2, top_p: float = 0.97,
                  max_events: int = 512, max_bars: int = 128,
-                 reject_slack: int = 1024,
+                 functional: bool = True, reject_slack: int = 1024,
                  device: Union[str, torch.device] = 'cuda'):
         super().__init__(model, vocab, batch=1, temp=temp, top_p=top_p,
                          max_events=max_events, max_bars=max_bars,
-                         device=device)
+                         device=device, functional=functional)
         self.max_klen = max_events + reject_slack
 
     @torch.no_grad()

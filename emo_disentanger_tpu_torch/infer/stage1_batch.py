@@ -51,7 +51,7 @@ class Stage1BatchGenerator(SongLoop):
     def __init__(self, model: PlainTransformer, vocab: Vocab, *,
                  batch: int = 8, temp: float = 1.2, top_p: float = 0.97,
                  max_events: int = 512, max_bars: int = 128,
-                 reject_slack: int = 1024,
+                 functional: bool = True, reject_slack: int = 1024,
                  fast_slack: Optional[int] = 256,
                  tiers: Optional[Sequence[int]] = None, mesh=None,
                  device: Union[str, torch.device] = 'cuda'):
@@ -60,7 +60,7 @@ class Stage1BatchGenerator(SongLoop):
         explicit intermediate sizes (values below max_events are legal: a
         song that spills mid-primer continues in the next tier).  ``mesh``:
         multi-device serving is not ported; a mesh of more than one device
-        is refused."""
+        is refused.  ``functional=False`` decodes REMI: no key step."""
         if mesh is not None:
             size = mesh.size() if callable(getattr(mesh, 'size', None)) \
                 else getattr(mesh, 'size', 1)
@@ -70,7 +70,7 @@ class Stage1BatchGenerator(SongLoop):
                     'not ported')
         super().__init__(model, vocab, batch=batch, temp=temp, top_p=top_p,
                          max_events=max_events, max_bars=max_bars,
-                         device=device)
+                         device=device, functional=functional)
         self.full_klen = max_events + reject_slack
         if tiers is None:
             tiers = ([max_events + fast_slack]

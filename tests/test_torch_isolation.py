@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``emo_disentanger_tpu_torch`` nor
 ``chip_smoke.py`` (nor the chip tools ``kernel_ab.py`` and
-``kernel_sections.py``) imports JAX, flax or the JAX package, and its entry
-points refuse to fall back to the CPU silently."""
+``kernel_sections.py``) imports JAX, flax, the JAX package or sklearn, and
+its entry points refuse to fall back to the CPU silently."""
 
 import ast
 from pathlib import Path
@@ -26,6 +26,14 @@ def _imported(path):
 @pytest.mark.parametrize('path', SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imported(path) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, f'{path.name} imports {bad}'
+
+
+@pytest.mark.parametrize('path', SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_imports(path):
+    """The card's machine has no sklearn: the HookTheory split is written in
+    numpy (``data/splits.py``), and no module of the port imports it."""
+    bad = [m for m in _imported(path) if m.split('.')[0] == 'sklearn']
     assert not bad, f'{path.name} imports {bad}'
 
 

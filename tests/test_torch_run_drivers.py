@@ -14,7 +14,8 @@ config copies too; the summaries' piece counts must agree.  A
 cross-framework near-tie could flip a greedy token, so every sampling
 row's top-2 logit gap on the port's side must exceed ten times LOGIT_TOL,
 the two frameworks' logit agreement on these models
-(``test_torch_serve.py``, ``test_torch_stage1_serve.py``)."""
+(``test_torch_serve.py``, ``test_torch_stage1_serve.py``).  The REMI
+representation's drivers are held the same way in ``test_torch_remi.py``."""
 
 import json
 import os
@@ -197,12 +198,6 @@ def test_leadsheet_prompt_matches_jax(tmp_path):
         for n_bars in range(3):
             assert run_stage1.get_leadsheet_prompt(events_dir, name, n_bars) == \
                 jax_run1.get_leadsheet_prompt(events_dir, name, n_bars)
-
-
-def test_run_stage1_refuses_remi():
-    with pytest.raises(NotImplementedError, match='functional'):
-        run_stage1.run('none.yaml', 'remi', 'lead_sheet', inference_params='x',
-                       output_dir='none', device='cpu')
 
 
 # ---------------------------------------------------------------- stage 2
@@ -432,10 +427,10 @@ def test_main_dispatch(capsys):
     assert port_main(['--help']) == 0
     listed = [line.split()[0] for line in capsys.readouterr().out.splitlines()[2:]]
     assert listed == ['train-stage1', 'train-stage2', 'infer-stage1',
-                      'infer-stage2', 'events2words', 'evaluate']
-    for cmd in ('midi2events', 'data-splits', 'nope'):
-        assert port_main([cmd]) == 1
-        assert 'unknown command' in capsys.readouterr().out
+                      'infer-stage2', 'midi2events', 'events2words',
+                      'data-splits', 'evaluate']
+    assert port_main(['nope']) == 1
+    assert 'unknown command' in capsys.readouterr().out
     run = subprocess.run([sys.executable, '-m', 'emo_disentanger_tpu_torch',
                           '--help'], capture_output=True, text=True,
                          cwd=os.path.dirname(os.path.dirname(__file__)))
