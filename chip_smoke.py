@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives eleven paths at full width with random weights from a seed.  Three run
+drives twelve paths at full width with random weights from a seed.  Three run
 the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
 128 FAVOR+ features):
 
@@ -79,6 +79,16 @@ the REMI representation over those vocabularies: ``infer-stage1 -r remi -m
 lead_sheet``, the Performer's stage 2 over the ``.txt`` lead sheets (the
 decode-layer kernel) and the one-stage ``full_song`` baseline; every file
 is checked, and stage 1 launches no kernel.
+
+The twelfth, multi_device, runs the port's mesh (``parallel/``) with two
+ranks that share the one card over gloo: two bf16 Performer train steps at
+B=16 L=3072 data-parallel (8 rows a rank) and tensor-parallel (4 heads a
+rank), each against one rank on the whole batch, whose PAD rows fall on
+one rank only; the Performer's ``serve`` of 32 jobs in 16 slots (8 a rank,
+the decode-layer kernel) and stage 1's at two layers, whose streams must
+equal one rank's bit for bit; then ``train_stage2.run`` through the mesh
+path over a NCCL world of one.  Sharing a card halves nothing, so its walls
+are not scaling numbers.
 
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
@@ -225,6 +235,29 @@ TOK_POP_SONGS, TOK_POP_BARS = 8, 16
 # REMI_FULL_EVENTS events a song; the CLI has no event cut)
 REMI_GROUPS, REMI_BATCH = 4, 8
 REMI_FULL_GROUPS, REMI_FULL_EVENTS = 2, 512
+# multi_device: two ranks share the one card over gloo (a card a rank is
+# what NCCL needs; sharing a card halves nothing, so its walls are not
+# scaling numbers).  Two bf16 Performer train steps at B=MD_B (MD_B / 2 a
+# rank), L=TRAIN_L, dropout 0, Adam at MD_LR from the first step, with the
+# batch's last MD_PAD_ROWS rows all PAD so the ranks' non-PAD counts differ;
+# the dp=2 and tp=2 runs against one rank on the whole batch.  The loss is
+# held to MD_TOL_LOSS (relative: a mean over ~40k targets of bf16 products
+# taken over other batch shapes).  The first step's reduced gradient is held
+# to MD_TOL_GRAD, relative by norm over all parameters: the repo's bf16
+# operand-rounding tolerance (tp rounds each rank's partial product before
+# the sum), where a reduction that missed a rank's share is off by ~0.6.  (One parameter's own relative error is no
+# measure: the key projection's bias has a gradient near zero.)  The
+# parameters after MD_STEPS steps are held to MD_TOL_PARAM,
+# since Adam moves an element by at most about MD_LR a step: a sanity
+# bound, which gradients of opposite signs still meet.  Serving: the Performer's serve of
+# MD_JOBS jobs in SERVE_B slots and stage 1's of MD_S1_JOBS jobs in
+# S1_SERVE_B slots at MD_S1_LAYERS layers (full width), both bf16, streams
+# equal to one rank's bit for bit.  Then train_stage2.run over a NCCL world
+# of one
+MD_B, MD_STEPS, MD_LR, MD_PAD_ROWS = BF16_B, 2, 1e-4, 3
+MD_TOL_LOSS, MD_TOL_GRAD, MD_TOL_PARAM = 1e-3, 3e-2, 4.2 * MD_LR
+MD_JOBS, MD_EVENTS = 32, 400
+MD_S1_LAYERS, MD_S1_JOBS, MD_S1_EVENTS = 2, 24, 160
 # the training corpus: 32-bar lead sheets of ~675 events (a sample fills L)
 S1_CORPUS_PIECES, S1_CORPUS_BARS = 16, 32
 # flash attention: the re-anchor shape and the smallest the dispatch sends
@@ -3023,6 +3056,304 @@ def phase_remi(dev, smi, root, quiet):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi_device: the mesh, dp and tp training, batch-sharded serving
+# ---------------------------------------------------------------------------
+
+def md_batch(vocab):
+    """The bf16 train steps' batch [MD_B, TRAIN_L] from a seed: random
+    tokens, a tenth of the targets PAD and the last MD_PAD_ROWS rows all
+    PAD (``neutralize_pad_rows``'s rows), so the data ranks' counts differ."""
+    rng = np.random.RandomState(31)
+    shape = (MD_B, TRAIN_L)
+    tgt = rng.randint(0, vocab.pad_id, shape)
+    tgt[rng.rand(*shape) < 0.1] = vocab.pad_id
+    tgt[MD_B - MD_PAD_ROWS:] = vocab.pad_id
+    return {'dec_inp': rng.randint(0, vocab.pad_id, shape), 'dec_tgt': tgt,
+            'track_mask': rng.randint(0, 2, shape),
+            'chord_idx': rng.randint(0, 2, shape),
+            'melody_idx': rng.randint(0, 2, shape)}
+
+
+def md_train(vocab, dev, mesh=None):
+    """MD_STEPS bf16 Performer train steps (dropout 0) on this rank's rows
+    of ``md_batch`` under ``mesh`` (None: one rank, the whole batch).
+    Returns the global losses, each step's wall (host clock, synchronized),
+    the first step's reduced gradients and the final parameters (a tp
+    rank's shards), and the launches of #1-#4 by the wrappers' counts and
+    by the profiler's kernel events."""
+    from emo_disentanger_tpu_torch.models import MusicPerformer
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.parallel import shard_batch, shard_params
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer, make_train_step,
+        stage2_performer_loss_fn)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model = MusicPerformer(n_token=vocab.size, n_layer=N_LAYER, n_head=N_HEAD,
+                           d_model=D_MODEL, d_ff=D_FF, d_embed=D_MODEL,
+                           favor_dims=FAVOR, dropout=0.0, heads_last=False,
+                           compute_dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    omegas = model.draw_omegas(torch.Generator().manual_seed(1))
+    if mesh is not None:
+        shard_params(model, mesh)
+    opt = make_optimizer(model.parameters(),
+                         OptimizerConfig(max_lr=MD_LR, warmup_steps=0))
+    step = make_train_step(stage2_performer_loss_fn(model, vocab.pad_id),
+                           model, opt, mesh)
+    grads, adam = {}, opt.step
+
+    def keep_first_grads():                  # reduced, before clip and Adam
+        if not grads:
+            grads.update({n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()})
+        return adam()
+    opt.step = keep_first_grads
+    batch = batch_to_device(shard_batch(mesh, md_batch(vocab)), dev)
+    before = collections.Counter(_build.LAUNCHES)
+    losses, walls = [], []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            losses.append(float(step(batch, {'omegas': omegas})[0]))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {'losses': losses, 'walls': walls, 'grads': grads,
+            'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
+            'launches': {k: _build.LAUNCHES[k] - before[k] for k in HEAD_MAJOR},
+            'profiled': {k: sum(e.count for e in events if f'{k}_kernel' in e.key)
+                         for k in HEAD_MAJOR},
+            'heads': model.layers[0].attention.query_projection.weight.shape[0]
+            // D_HEAD}
+
+
+def md_serve(vocab, dev, mesh=None):
+    """The Performer's bf16 serve of MD_JOBS jobs in SERVE_B slots (the
+    mesh's data ranks split the slots) and the decode-layer launches."""
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    model, omegas = build_model(vocab, dev)
+    cast_params(model)
+    primers, sheets = synthetic_jobs(vocab, MD_JOBS, np.random.RandomState(41))
+    gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B, temp=1.1,
+                               top_p=0.99, max_events=MD_EVENTS, omegas=omegas,
+                               mesh=mesh, device=dev)
+    before = _build.LAUNCHES['performer_decode_layer']
+    streams, stats = gen.serve(primers, sheets, seed=43)
+    return {'streams': streams, 'wall': stats['wall_seconds'],
+            'stats': {k: stats[k] for k in ('status', 'bars', 'events',
+                                            'rejects', 'steps', 'chunks')},
+            'launches': _build.LAUNCHES['performer_decode_layer'] - before}
+
+
+def md_s1_serve(dev, mesh=None):
+    """Stage 1's bf16 serve at MD_S1_LAYERS layers of MD_S1_JOBS jobs in
+    S1_SERVE_B slots, the head moved as in phase 5s."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer.stage1_batch import Stage1BatchGenerator
+    from emo_disentanger_tpu_torch.models import PlainTransformer
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    vocab = Vocab(*s1_dictionary())
+    model = PlainTransformer(vocab.size, d_embed=D_MODEL, n_layer=MD_S1_LAYERS,
+                             n_head=N_HEAD, d_model=D_MODEL, d_ff=D_FF,
+                             pad_id=vocab.pad_id, device=dev,
+                             generator=torch.Generator().manual_seed(3)).eval()
+    beats = [vocab.event2idx[f'Beat_{b}'] for b in range(16)]
+    with torch.no_grad():
+        model.dec_out_proj.bias[beats] += S1_BEAT_BIAS
+        model.dec_out_proj.bias[vocab.eos_id] += S1_EOS_BIAS
+    cast_params(model)
+    gen = Stage1BatchGenerator(model, vocab, batch=S1_SERVE_B, temp=S1_TEMP,
+                               top_p=S1_TOP_P, max_events=MD_S1_EVENTS,
+                               max_bars=S1_MAX_BARS, mesh=mesh, device=dev)
+    jobs = ['Positive', 'Negative'] * (MD_S1_JOBS // 2)
+    songs, stats = gen.serve(jobs, seed=47)
+    return {'songs': songs, 'wall': stats['seconds'],
+            'stats': {k: stats[k] for k in ('status', 'bars', 'events',
+                                            'rejects', 'steps', 'chunks')}}
+
+
+def md_rank(rank, world, root):
+    """One of the ranks that share the card: the dp=2 and tp=2 train
+    steps, then the dp=2 Performer and stage-1 serves; writes what it got
+    to ``root/rank{rank}.pt``.  The kernels were built by the parent."""
+    import torch.distributed as dist
+    from emo_disentanger_tpu_torch.parallel import make_mesh
+    os.environ['LOCAL_WORLD_SIZE'] = str(world)
+    # the ranks share the host's cores: intra-op threads that outnumber
+    # them spin against each other
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    torch.cuda.set_device(0)
+    dev = torch.device('cuda', 0)
+    dist.init_process_group('gloo', init_method=f'file://{root}/rendezvous',
+                            rank=rank, world_size=world)
+    try:
+        vocab = synthetic_vocab()
+        out = {}
+        for leg, tp in (('dp', 1), ('tp', 2)):
+            t0 = time.time()
+            mesh = make_mesh(world, tp=tp, backend='gloo', device_type='cuda')
+            out[leg] = md_train(vocab, dev, mesh)
+            out[leg]['leg_s'] = time.time() - t0
+            torch.cuda.empty_cache()
+        dp = make_mesh(world, backend='gloo', device_type='cuda')
+        out['serve'] = md_serve(vocab, dev, dp)
+        out['s1'] = md_s1_serve(dev, dp)
+        torch.save(out, os.path.join(root, f'rank{rank}.pt'))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def md_unshard(ranks, model_state, leg, key):
+    """The tp ranks' shards of ``key`` ('params' or 'grads') put back
+    whole (sharding_rules' block-wise split inverted)."""
+    from emo_disentanger_tpu_torch.parallel.sharding_rules import FUSED
+    full = {}
+    for name, ref in model_state.items():
+        pieces = [r[leg][key][name] for r in ranks]
+        if pieces[0].shape == ref.shape:
+            full[name] = pieces[0]
+            continue
+        dim = [d for d in range(ref.dim()) if pieces[0].shape[d] != ref.shape[d]][0]
+        blocks = FUSED.get(name.split('.')[-2], 1)
+        parts = [p.chunk(blocks, dim) for p in pieces]
+        full[name] = torch.cat([torch.cat([p[k] for p in parts], dim)
+                                for k in range(blocks)], dim)
+    return full
+
+
+def phase_multi_device(dev, smi):
+    """The multi_device path (phase 12): the one-rank references in this
+    process, then two ranks that share the card over gloo (``md_rank``),
+    then ``train_stage2.run`` through the mesh path on a NCCL world of one.
+    Returns the launches on the path (both ranks and the NCCL leg)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.train import train_stage2
+    caps = dict(dist.Backend.backend_capability)
+    print(f'phase 12 backends of torch {torch.__version__}: {caps}')
+    expect('cuda' in caps.get('gloo', ()), 'gloo reduces CUDA tensors')
+    vocab = synthetic_vocab()
+    t0 = time.time()
+    one = md_train(vocab, dev)
+    one_train_s = time.time() - t0
+    one_serve = md_serve(vocab, dev)
+    one_s1 = md_s1_serve(dev)
+    torch.cuda.empty_cache()
+    print(f'phase 12a one rank, bf16 B={MD_B} L={TRAIN_L} [{smi}]: losses '
+          f'{[round(x, 5) for x in one["losses"]]}, step walls '
+          f'{[round(x, 3) for x in one["walls"]]} s; serve {MD_JOBS} jobs '
+          f'{one_serve["wall"]:.2f} s, {one_serve["stats"]["steps"]} steps; '
+          f'stage-1 serve {MD_S1_JOBS} jobs {one_s1["wall"]:.2f} s')
+
+    _build.LAUNCHES.clear()                  # the multi_device path starts here
+    root = tempfile.mkdtemp(prefix='multi_device_')
+    try:
+        t0 = time.time()
+        mp.start_processes(md_rank, args=(2, root), nprocs=2, join=True,
+                           start_method='spawn')
+        spawn_s = time.time() - t0
+        ranks = [torch.load(os.path.join(root, f'rank{r}.pt'), weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ref = one['params']
+    note = ('two ranks share one card: walls are not scaling numbers')
+    for leg in ('dp', 'tp'):
+        got = [r[leg] for r in ranks]
+        params, grads = ((got[0]['params'], got[0]['grads']) if leg == 'dp'
+                         else (md_unshard(ranks, ref, leg, 'params'),
+                               md_unshard(ranks, ref, leg, 'grads')))
+        err = max(float((params[n].float() - ref[n].float()).abs().max())
+                  for n in ref)
+        g_ref = one['grads']
+        g_err = math.sqrt(sum(float((grads[n].float() - g_ref[n].float())
+                                    .square().sum()) for n in ref)
+                          / sum(float(g_ref[n].float().square().sum())
+                                for n in ref))
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g['losses'], one['losses']))
+        print(f'phase 12b {leg}=2 (gloo) bf16 B={MD_B} ({MD_B // 2 if leg == "dp" else MD_B} '
+              f'a rank, {got[0]["heads"]} heads a rank) L={TRAIN_L} [{smi}]: losses '
+              f'{[[round(x, 5) for x in g["losses"]] for g in got]} vs one rank '
+              f'{[round(x, 5) for x in one["losses"]]} (largest relative '
+              f'difference {loss_err:.2e}, tolerance {MD_TOL_LOSS}); largest '
+              f'parameter difference after {MD_STEPS} steps {err:.3e} '
+              f'(tolerance {MD_TOL_PARAM:.1e}); first gradient relative by '
+              f'norm {g_err:.2e} (tolerance {MD_TOL_GRAD}); '
+              f'step walls '
+              f'{[[round(x, 3) for x in g["walls"]] for g in got]} s against one '
+              f'rank {[round(x, 3) for x in one["walls"]]} s ({note}); '
+              f'launches a rank {[g["launches"] for g in got]}, profiler kernel '
+              f'events {[g["profiled"] for g in got]}; leg {got[0]["leg_s"]:.1f} s')
+        expect(loss_err <= MD_TOL_LOSS, f'{leg}=2 losses match one rank')
+        expect(g_err <= MD_TOL_GRAD, f'{leg}=2 gradients match one rank')
+        expect(err <= MD_TOL_PARAM, f'{leg}=2 parameters match one rank')
+        expect(all(g['launches'][k] == N_LAYER * MD_STEPS == g['profiled'][k]
+                   for g in got for k in HEAD_MAJOR),
+               f'#1-#4 launched once a layer a step in each {leg} rank')
+        expect(got[0]['heads'] == (N_HEAD if leg == 'dp' else N_HEAD // 2),
+               f'{leg} ranks hold their heads')
+        print(f'phase 12b {leg}=2 train steps: ok')
+    for key, want, what in (('serve', one_serve, 'Performer serve'),
+                            ('s1', one_s1, 'stage-1 serve')):
+        got = [r[key] for r in ranks]
+        out = 'streams' if key == 'serve' else 'songs'
+        print(f'phase 12c dp=2 {what} (gloo, bf16) [{smi}]: walls '
+              f'{[round(g["wall"], 2) for g in got]} s against one rank '
+              f'{want["wall"]:.2f} s ({note}); {got[0]["stats"]["steps"]} steps, '
+              f'{got[0]["stats"]["chunks"]} chunks, statuses '
+              f'{sorted(set(got[0]["stats"]["status"]))}'
+              + (f', decode-layer launches a rank {[g["launches"] for g in got]}'
+                 if key == 'serve' else ''))
+        expect(all(g[out] == want[out] and g['stats'] == want['stats']
+                   for g in got), f'dp=2 {what} equals one rank bit for bit')
+        if key == 'serve':
+            expect(all(g['launches'] > 0 for g in got),
+                   'the decode layer launched in each serving rank')
+        print(f'phase 12c dp=2 {what}: ok')
+    print(f'phase 12 the two ranks took {spawn_s:.1f} s, start-up included')
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r['dp']['launches'])
+        launches.update(r['tp']['launches'])
+        launches['performer_decode_layer'] += r['serve']['launches']
+
+    # the NCCL path: a world of one, train_stage2.run through the mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        config = write_corpus(tmp, np.random.RandomState(9))
+        dist.init_process_group('nccl', init_method=f'file://{tmp}/rendezvous',
+                                rank=0, world_size=1)
+        try:
+            t0 = time.time()
+            before = collections.Counter(_build.LAUNCHES)
+            out = train_stage2.run(config, 'functional', max_epoch_override=1,
+                                   max_batches_per_epoch=1, n_devices=1,
+                                   device=dev)
+            torch.cuda.synchronize()
+            nccl_s = time.time() - t0
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    nccl = {k: _build.LAUNCHES[k] - before[k] for k in HEAD_MAJOR}
+    launches.update(nccl)
+    print(f'phase 12d train_stage2.run over a {backend} world of one, f32 '
+          f'B={TRAIN_B} L={TRAIN_L} [{smi}]: {out["steps"]} step, loss '
+          f'{out["step_losses"]}, {nccl_s:.1f} s; launches {nccl}')
+    expect(backend == 'nccl' and out['steps'] == 1
+           and np.isfinite(out['step_losses']).all()
+           and all(nccl[k] > 0 for k in HEAD_MAJOR),
+           'train_stage2.run ran through the NCCL mesh path')
+    print('phase 12d NCCL world of one: ok')
+    return dict(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3083,7 +3414,10 @@ def main():
              'two_stage_generation': ('performer_decode_layer',),
              # tokenizing is host work; the stage-2 train step runs #1-#4
              'tokenized_training': HEAD_MAJOR,
-             'remi_generation': ('performer_decode_layer',)}
+             'remi_generation': ('performer_decode_layer',),
+             # the dp=2 and tp=2 train steps and the NCCL run: #1-#4; the
+             # dp=2 Performer serve: #12
+             'multi_device': HEAD_MAJOR + ('performer_decode_layer',)}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -3187,6 +3521,9 @@ def main():
         shutil.rmtree(tok_root, ignore_errors=True)
     print(f'tokenized training path took {t_remi - t_tok:.0f} s, REMI generation '
           f'{time.time() - t_remi:.0f} s')
+    t_md = time.time()
+    launches['multi_device'] = phase_multi_device(dev, smi)
+    print(f'multi-device path took {time.time() - t_md:.0f} s')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -3194,6 +3531,7 @@ def main():
                    f'{name} launched on the {path} path')
     for name, r in rec.items():
         r['launches'] = launches[owner.get(name, 'serving')][name]
+        r['launches_multi_device'] = launches['multi_device'].get(name, 0)
 
     phase_timing(dev, rec, smi)
     phase_timing_cla(dev, rec, smi)

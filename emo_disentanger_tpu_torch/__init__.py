@@ -24,10 +24,18 @@ infer     rule tables, the stage-1 and stage-2 generators and servers, the
           reference-exact replays; the drivers ``run_stage1.run`` and
           ``run_stage2.run``, the ``_roman.txt`` contract (``pipeline``),
           MIDI rendering (``convert2midi``), ``metrics``, ``audio``
+parallel  the device mesh over ``torch.distributed`` ranks (``mesh``:
+          ('dp', 'tp') or ('dcn', 'dp', 'tp'), batch sharding, the data
+          axes' collectives) and tensor-parallel placement
+          (``sharding_rules``: the rule table, ``placement_report``,
+          ``shard_params`` and the collectives of a sharded projection)
 cli       train-stage1, train-stage2, infer-stage1, infer-stage2,
           events2words and evaluate, dispatched by
           ``python -m emo_disentanger_tpu_torch <command>``
-utils     device resolution, serving precision, logs, file IO
+utils     device resolution, serving precision, logs, file IO;
+          ``profiling`` (``trace`` over ``torch.profiler``, ``Throughput``,
+          ``step_timer``) and ``debug`` (``checked_train_step``,
+          ``assert_all_finite``)
 
 Entry points run on the GPU (``device='cuda'``) unless the caller passes
 ``device='cpu'``; on CPU tensors every kernel wrapper runs its plain PyTorch

@@ -1,9 +1,16 @@
 """CLI: stage-1 training (port of ``emo_disentanger_tpu/cli/train_stage1.py``;
 reference ``stage1_compose/train.py:191-204``): ``-c/--configuration``,
-``-r/--representation``, ``--max_epoch``, ``--seed`` and ``--device``.
+``-r/--representation``, ``--max_epoch``, ``--n_devices``, ``--backend``,
+``--seed`` and ``--device``.
 
     python -m emo_disentanger_tpu_torch.cli.train_stage1 \\
         -c emopia_finetune.yaml -r functional
+
+A data-parallel run starts one rank a card under torchrun, each rank on
+``cuda:LOCAL_RANK``:
+
+    torchrun --nproc_per_node N -m emo_disentanger_tpu_torch train-stage1 \\
+        -c emopia_finetune.yaml -r functional --n_devices N
 
 A bare config name is looked up among the JAX package's stage-1 YAMLs,
 read by path (this package imports nothing of it).
@@ -36,6 +43,11 @@ def main(argv=None):
     required.add_argument('-r', '--representation', required=True,
                           choices=['remi', 'functional'])
     parser.add_argument('--max_epoch', type=int, default=None)
+    parser.add_argument('--n_devices', type=int, default=None,
+                        help='ranks of a data-parallel run (the world size)')
+    parser.add_argument('--backend', default='nccl',
+                        help="process-group backend a multi-rank run starts "
+                        "('nccl', default, one card a rank; or 'gloo')")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
@@ -45,6 +57,7 @@ def main(argv=None):
     return train_stage1.run(resolve_config(args.configuration),
                             args.representation,
                             max_epoch_override=args.max_epoch,
+                            n_devices=args.n_devices, backend=args.backend,
                             seed=args.seed, device=args.device)
 
 

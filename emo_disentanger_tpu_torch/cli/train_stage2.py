@@ -1,11 +1,17 @@
 """CLI: stage-2 training (port of ``emo_disentanger_tpu/cli/train_stage2.py``;
 reference ``stage2_accompaniment/train.py:196-212``): ``-m/--model_type``,
-``-c``, ``-r`` and ``--device``.
+``-c``, ``-r``, ``--n_devices``, ``--backend`` and ``--device``.
 
     python -m emo_disentanger_tpu_torch.cli.train_stage2 -m performer \\
         -c pop1k7_pretrain.yaml -r functional
     python -m emo_disentanger_tpu_torch.cli.train_stage2 -m gpt2 \\
         -c pop1k7_pretrain_gpt2.yaml -r functional
+
+A data-parallel run starts one rank a card under torchrun, each rank on
+``cuda:LOCAL_RANK``:
+
+    torchrun --nproc_per_node N -m emo_disentanger_tpu_torch train-stage2 \\
+        -m performer -c pop1k7_pretrain.yaml -r functional --n_devices N
 
 ``EMODIS_HL_ATTN=1`` in the environment trains the Performer in the
 heads-last attention layout.  A bare config name is looked up among the JAX
@@ -41,7 +47,11 @@ def main(argv=None):
     required.add_argument('-r', '--representation', required=True,
                           choices=['remi', 'functional'])
     parser.add_argument('--max_epoch', type=int, default=None)
-    parser.add_argument('--n_devices', type=int, default=None)
+    parser.add_argument('--n_devices', type=int, default=None,
+                        help='ranks of a data-parallel run (the world size)')
+    parser.add_argument('--backend', default='nccl',
+                        help="process-group backend a multi-rank run starts "
+                        "('nccl', default, one card a rank; or 'gloo')")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (default) or 'cpu'")
@@ -51,7 +61,8 @@ def main(argv=None):
     return train_stage2.run(resolve_config(args.configuration),
                             args.representation, args.model_type,
                             max_epoch_override=args.max_epoch,
-                            n_devices=args.n_devices, seed=args.seed,
+                            n_devices=args.n_devices, backend=args.backend,
+                            seed=args.seed,
                             device=args.device)
 
 

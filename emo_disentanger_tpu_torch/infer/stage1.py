@@ -26,6 +26,11 @@ masks, so the host reads whether any song runs only every
 ``HOST_CHECK_STEPS`` steps (the extra steps change nothing).  The write
 position is a host integer here, so the chunked attention's chunk count
 needs no device read.
+
+Over a mesh (``Stage1BatchGenerator``'s ``mesh``), a rank runs its rows of
+the B songs: every step draws ``torch.rand(B)`` uniforms on every rank and
+each keeps its rows, and the host reads are reduced over the data axes, so
+every rank steps as often as one device would (``stage2_batch``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
 from ..ops.sampling import nucleus_sample
+from ..parallel.mesh import any_rows, batch_rows
 from ..utils.device import resolve_device
 from .rules import build_rule_tables, emotion_wants_major
 
@@ -55,13 +61,17 @@ HOST_CHECK_STEPS = 16
 
 
 class SongLoop:
-    """The per-step body of stage-1 generation for B songs on one device.
+    """The per-step body of stage-1 generation for B songs on one device,
+    or this rank's rows of them over a ``mesh``'s data axes.
     ``Stage1Generator`` (B=1) and ``Stage1BatchGenerator`` build on it."""
 
     def __init__(self, model: PlainTransformer, vocab: Vocab, *, batch: int,
                  temp: float, top_p: float, max_events: int, max_bars: int,
-                 device: Union[str, torch.device], functional: bool = True):
+                 device: Union[str, torch.device], functional: bool = True,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh, self.rows = batch_rows(mesh, batch)
+        self.nb = self.rows.stop - self.rows.start      # this rank's songs
         if not isinstance(model, PlainTransformer):
             raise TypeError(f'expected PlainTransformer, got '
                             f'{type(model).__name__}')
@@ -85,7 +95,7 @@ class SongLoop:
         self._is_eos = on_dev(tb.is_eos)
         self._is_key = on_dev(tb.is_key)
         self._key_major = on_dev(tb.key_major)
-        self._ar = torch.arange(batch, device=self.device)
+        self._ar = torch.arange(self.nb, device=self.device)
 
     # ---- jobs ----
 
@@ -132,15 +142,15 @@ class SongLoop:
                 'target_bars': tb, 'want_major': want}
 
     def _fresh(self, jobs: Dict[str, np.ndarray], rows) -> Dict[str, torch.Tensor]:
-        """Per-slot state of the jobs ``rows`` (B of them), before any
-        step: the primer's first token is next, and the output holds the
-        primer."""
+        """Per-slot state of the jobs ``rows`` (one a slot of this rank),
+        before any step: the primer's first token is next, and the output
+        holds the primer."""
         r = np.asarray(rows)
         f = {k: torch.from_numpy(v[r]).to(self.device) for k, v in jobs.items()}
         E = self.max_events + 8
-        out = torch.zeros(self.batch, E, dtype=torch.long, device=self.device)
+        out = torch.zeros(self.nb, E, dtype=torch.long, device=self.device)
         out[:, :f['primer'].shape[1]] = f['primer']
-        zeros = torch.zeros(self.batch, dtype=torch.long, device=self.device)
+        zeros = torch.zeros(self.nb, dtype=torch.long, device=self.device)
         return {'primer': f['primer'], 'primer_len': f['primer_len'],
                 'target_bars': f['target_bars'], 'want_major': f['want_major'],
                 'last': f['primer'][:, 0], 'fed': torch.ones_like(zeros),
@@ -173,9 +183,10 @@ class SongLoop:
             max=s['primer'].shape[1] - 1)[:, None])[:, 0]
         key_step = (s['out_len'] == 1) & ~in_primer & self.functional
         # one batched sort: the key step's settings are chosen per row
+        u = torch.rand(self.batch, generator=gen, device=self.device)
         sampled_tok = nucleus_sample(
             logits, torch.where(key_step, KEY_TEMP, self.temp),
-            torch.where(key_step, KEY_TOP_P, self.top_p), gen)
+            torch.where(key_step, KEY_TOP_P, self.top_p), u[self.rows])
         word = torch.where(in_primer, prim_next, sampled_tok)
 
         is_beat, is_bar = self._is_beat[word], self._is_bar[word]
@@ -219,7 +230,7 @@ class SongLoop:
         row (the step that gets there marks the running songs OVERFLOW).
         Returns the step count."""
         while (iters < self.max_iters and s['t'] < max_klen - 1
-               and bool(self._running(s).any())):
+               and any_rows(self.mesh, self._running(s))):
             for _ in range(min(HOST_CHECK_STEPS, self.max_iters - iters,
                                max_klen - 1 - s['t'])):
                 self._step(s, gen, max_klen=max_klen,

@@ -27,6 +27,13 @@ refilled slot needs no cache clear: it writes from position 0 and attends
 only to positions <= its clock.  Slots that are not running keep stepping
 and their clocks keep counting; a clock past the cache writes its last row
 (clamped) and is a dead slot until a refill.
+
+Over a ``mesh`` whose data axes (dp * dcn) exceed one, each rank runs its
+B / (dp * dcn) rows (``SongLoop``).  The ladder's tier moves are decided on
+the global status, so every rank moves at the same step; ``serve`` gathers
+the slot statuses at every chunk and every rank makes the same refill
+decision over all B slots.  Both return the global songs and stats on
+every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 
 from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
+from ..parallel.mesh import gather_rows, reduce_flags
 from .stage1 import (
     HOST_CHECK_STEPS, STATUS_IDLE, STATUS_OVERFLOW, STATUS_RUNNING,
     SongLoop)
@@ -58,19 +66,12 @@ class Stage1BatchGenerator(SongLoop):
         """``fast_slack``: the ladder [max_events + fast_slack, max_events +
         reject_slack] (None: one tier).  ``tiers`` overrides it with
         explicit intermediate sizes (values below max_events are legal: a
-        song that spills mid-primer continues in the next tier).  ``mesh``:
-        multi-device serving is not ported; a mesh of more than one device
-        is refused.  ``functional=False`` decodes REMI: no key step."""
-        if mesh is not None:
-            size = mesh.size() if callable(getattr(mesh, 'size', None)) \
-                else getattr(mesh, 'size', 1)
-            if size > 1:
-                raise NotImplementedError(
-                    'the port serves on one device; multi-device serving is '
-                    'not ported')
+        song that spills mid-primer continues in the next tier).  ``mesh``
+        splits the ``batch`` songs over its data axes (``batch`` must divide
+        by dp * dcn).  ``functional=False`` decodes REMI: no key step."""
         super().__init__(model, vocab, batch=batch, temp=temp, top_p=top_p,
                          max_events=max_events, max_bars=max_bars,
-                         device=device, functional=functional)
+                         device=device, functional=functional, mesh=mesh)
         self.full_klen = max_events + reject_slack
         if tiers is None:
             tiers = ([max_events + fast_slack]
@@ -96,14 +97,14 @@ class Stage1BatchGenerator(SongLoop):
         jobs = self._jobs(emotions, primers, prompt_bars, target_bars)
         t0 = time.time()
         gen = self._generator(seed)
-        s = self._fresh(jobs, list(range(self.batch)))
-        full = self.model.init_decode_cache(self.batch, self.full_klen)
+        s = self._fresh(jobs, list(range(self.batch))[self.rows])
+        full = self.model.init_decode_cache(self.nb, self.full_klen)
         s['t'] = 0
         iters = resumed = 0
         for i, klen in enumerate(self.klens):
             if i > 0:
                 overflow = s['status'] == STATUS_OVERFLOW
-                n = int(overflow.sum())
+                n = reduce_flags(self.mesh, [int(overflow.sum())], 'sum')[0]
                 if n == 0:
                     break
                 resumed += n
@@ -114,23 +115,23 @@ class Stage1BatchGenerator(SongLoop):
                           'v': full['v'][:, :, :klen], 'r': full['r']}
             iters = self._lockstep(s, gen, iters, max_klen=klen,
                                    full_attention=True)
-        out = s['out'].cpu().numpy()
-        out_len = s['out_len'].cpu().numpy()
-        status = s['status'].cpu().numpy()
+        got = {k: gather_rows(self.mesh, s[k]) for k in (
+            'out', 'out_len', 'status', 'bars', 'rejects')}
+        out, out_len, status = got['out'], got['out_len'], got['status']
         songs = [self._song(out[b], out_len[b], status[b])
                  for b in range(self.batch)]
         stats = {'seconds': time.time() - t0, 'status': status.tolist(),
-                 'bars': s['bars'].cpu().tolist(), 'events': out_len.tolist(),
-                 'rejects': s['rejects'].cpu().tolist(), 'resumed': resumed,
+                 'bars': got['bars'].tolist(), 'events': out_len.tolist(),
+                 'rejects': got['rejects'].tolist(), 'resumed': resumed,
                  'iters': iters}
         return songs, stats
 
     def _poll(self, s: Dict, entry: torch.Tensor) -> Tuple[bool, bool]:
         """One host read: (any slot running, the running set differs from
-        ``entry``)."""
+        ``entry``), over every rank's rows."""
         run = self._running(s)
-        any_run, changed = torch.stack(
-            [run.any(), (run != entry).any()]).tolist()
+        any_run, changed = reduce_flags(self.mesh, torch.stack(
+            [run.any(), (run != entry).any()]).tolist())
         return bool(any_run), bool(changed)
 
     def _run_chunk(self, s: Dict, gen: torch.Generator, chunk_steps: int) -> int:
@@ -150,8 +151,10 @@ class Stage1BatchGenerator(SongLoop):
     def _refill(self, s: Dict, mask: np.ndarray, idle: np.ndarray,
                 jobs: Dict[str, np.ndarray], rows) -> None:
         """One masked update: the slots in ``mask`` take the jobs ``rows``
-        (B-shaped, unmasked entries ignored) with fresh counters and clock
-        0; the slots in ``idle`` become IDLE."""
+        (over all B slots, unmasked entries ignored) with fresh counters and
+        clock 0; the slots in ``idle`` become IDLE.  A rank applies the
+        decision to its own rows."""
+        mask, idle, rows = mask[self.rows], idle[self.rows], rows[self.rows]
         m = torch.from_numpy(mask).to(self.device)
         fresh = self._fresh(jobs, rows)
         for k, v in fresh.items():
@@ -182,10 +185,10 @@ class Stage1BatchGenerator(SongLoop):
         gen = self._generator(seed)
         first = min(B, N)
         slot_job: List[Optional[int]] = list(range(first)) + [None] * (B - first)
-        s = self._fresh(jobs, list(range(first)) + [0] * (B - first))
-        s['cache'] = self.model.init_decode_cache(B, self.full_klen)
-        s['t'] = torch.zeros(B, dtype=torch.long, device=self.device)
-        idle = np.arange(B) >= first
+        s = self._fresh(jobs, (list(range(first)) + [0] * (B - first))[self.rows])
+        s['cache'] = self.model.init_decode_cache(self.nb, self.full_klen)
+        s['t'] = torch.zeros(self.nb, dtype=torch.long, device=self.device)
+        idle = (np.arange(B) >= first)[self.rows]
         if idle.any():
             s['status'] = torch.where(torch.from_numpy(idle).to(self.device),
                                       STATUS_IDLE, s['status'])
@@ -196,18 +199,19 @@ class Stage1BatchGenerator(SongLoop):
         while True:
             steps += self._run_chunk(s, gen, chunk_steps)
             chunks += 1
-            run = self._running(s).cpu().numpy()
-            status = s['status'].cpu().numpy()
+            run = gather_rows(self.mesh, self._running(s))
+            status = gather_rows(self.mesh, s['status'])
             finished = [b for b in range(B) if slot_job[b] is not None
                         and not run[b]]
             if not finished:
                 if not run.any():
                     break
                 continue
-            out = s['out'].cpu().numpy()
-            got = {'status': status, 'events': s['out_len'].cpu().numpy(),
-                   'bars': s['bars'].cpu().numpy(),
-                   'rejects': s['rejects'].cpu().numpy()}
+            out = gather_rows(self.mesh, s['out'])
+            got = {'status': status,
+                   **{k: gather_rows(self.mesh, s[f]) for k, f in (
+                       ('events', 'out_len'), ('bars', 'bars'),
+                       ('rejects', 'rejects'))}}
             for b in finished:
                 j = slot_job[b]
                 songs[j] = self._song(out[b], got['events'][b], status[b])

@@ -36,6 +36,18 @@ have reached them.  ``serve()`` streams N jobs through the B slots,
 refilling every finished slot in one masked update (which zeroes a
 Performer slot's (S, z); a GPT-2 slot overwrites its cache from position 0
 before attending to it).
+
+Data parallelism.  With a ``mesh`` whose data axes (dp * dcn) exceed one,
+each rank runs its B / (dp * dcn) rows of the B slots (``mesh.local_rows``).
+Every step draws ``torch.rand(B)`` uniforms on every rank and each keeps its
+rows, so a row samples what it samples on one device.  The ranks stay in
+lockstep through one all-reduce at each host check (any slot running, the
+clocks' bound, whether a slot finished), and the tier moves are decided on
+the global status.  ``serve`` gathers the slot statuses at every chunk, so
+every rank makes the same refill decision over all B slots and applies it
+to its own rows; ``generate`` and ``serve`` return the global streams and
+stats on every rank.  A re-anchor forward runs on the ranks that hold a
+flagged element.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from ..core.vocab import Vocab
 from ..models.gpt2 import MusicGPT2
 from ..models.performer import MusicPerformer
 from ..ops.sampling import nucleus_sample
+from ..parallel.mesh import any_rows, batch_rows, gather_rows, reduce_flags
 from ..utils.device import resolve_device
 from .rules import build_rule_tables
 
@@ -75,7 +88,8 @@ _COUNTERS = ('t', 'primer_pos', 'bars', 'inj_pos', 'cur_pos', 'failed',
 
 
 class Stage2BatchGenerator:
-    """Whole-batch stage-2 generation (Performer or GPT-2) on one device."""
+    """Whole-batch stage-2 generation (Performer or GPT-2) on one device,
+    or data-parallel over a mesh (module docstring)."""
 
     def __init__(self, model, vocab: Vocab, *, batch: int, temp: float = 1.1,
                  top_p: float = 0.99, max_events: int = 10000,
@@ -83,9 +97,13 @@ class Stage2BatchGenerator:
                  gpt2_cache_len: int = 4096, gpt2_window: int = 2048,
                  reanchor_margin: int = 256, serve_chunk_steps: int = 192,
                  omegas: Optional[torch.Tensor] = None,
-                 gpt2_tiers: Optional[Sequence[int]] = None,
+                 gpt2_tiers: Optional[Sequence[int]] = None, mesh=None,
                  device: Union[str, torch.device] = 'cuda'):
+        """``batch`` counts the slots over all ranks; ``mesh`` splits them
+        over its data axes (``batch`` must divide by dp * dcn)."""
         self.device = resolve_device(device)
+        self.mesh, self.rows = batch_rows(mesh, batch)
+        self.nb = self.rows.stop - self.rows.start      # this rank's slots
         self.is_performer = isinstance(model, MusicPerformer)
         if not self.is_performer and not isinstance(model, MusicGPT2):
             raise TypeError(f'expected MusicPerformer or MusicGPT2, got '
@@ -142,7 +160,7 @@ class Stage2BatchGenerator:
         self._is_pad = on_dev(tb.is_pad)
         self._is_eos = on_dev(tb.is_eos)
         self._is_lead = on_dev(tb.is_track_lead)
-        self._ar = torch.arange(batch, device=self.device)
+        self._ar = torch.arange(self.nb, device=self.device)
 
     # ---- the loop body ----
 
@@ -162,7 +180,9 @@ class Stage2BatchGenerator:
         in_primer, mode = s['in_primer'], s['mode']
 
         # --- choose this step's token per element ---
-        sampled = nucleus_sample(s['logits'], self.temp, self.top_p, gen)
+        u = torch.rand(self.batch, generator=gen, device=self.device)
+        sampled = nucleus_sample(s['logits'], self.temp, self.top_p,
+                                 u[self.rows])
         prim_tok = s['primer'].gather(1, s['primer_pos'].clamp(
             0, s['primer'].shape[1] - 1)[:, None])[:, 0]
         bar_idx = s['bars'].clamp(max=self.max_bars - 1)
@@ -297,12 +317,17 @@ class Stage2BatchGenerator:
     def _running(self, s: Dict) -> torch.Tensor:
         return s['status'] == STATUS_RUNNING
 
-    def _poll(self, s: Dict) -> bool:
-        """One host read: whether any element is running.  It also refreshes
-        the host's bound on the clocks."""
-        run, s['t_hi'] = torch.stack(
-            [self._running(s).any().long(), s['t'].max()]).tolist()
-        return bool(run)
+    def _poll(self, s: Dict, entry: Optional[torch.Tensor] = None
+              ) -> Tuple[bool, bool]:
+        """One host read: (whether any element is running, whether the
+        running set differs from ``entry``).  It also refreshes the host's
+        bound on the clocks.  Over a mesh, the reads are global."""
+        run = self._running(s)
+        changed = (run != entry).any() if entry is not None else run.any()
+        flags = torch.stack([run.any().long(), s['t'].max(),
+                             changed.long()]).tolist()
+        run, s['t_hi'], changed = reduce_flags(self.mesh, flags)
+        return bool(run), bool(changed)
 
     # ---- jobs and slots ----
 
@@ -359,7 +384,7 @@ class Stage2BatchGenerator:
         in ``idle``.  A Performer slot's (S, z) is zeroed (the masked update
         ADDS to it); a GPT-2 slot needs no clear, since it overwrites each
         cache position before attending to it."""
-        B = self.batch
+        B = self.nb
         m = torch.from_numpy(mask).to(self.device)
         bmask = lambda t: m.reshape((B,) + (1,) * (t.dim() - 1))
         for f in _JOB_FIELDS:
@@ -384,9 +409,10 @@ class Stage2BatchGenerator:
 
     def _init_state(self, jobs: Dict[str, np.ndarray], rows,
                     cache_len: Optional[int] = None) -> Dict:
-        """A fresh state with the jobs of ``rows`` in the B slots; a GPT-2
-        cache of ``cache_len`` positions (``gpt2_cache_len`` when None)."""
-        B, dev = self.batch, self.device
+        """A fresh state with the jobs of ``rows`` in this rank's slots; a
+        GPT-2 cache of ``cache_len`` positions (``gpt2_cache_len`` when
+        None)."""
+        B, dev = self.nb, self.device
         zl = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)
         state = (self.model.init_decode_state(B) if self.is_performer else
                  self.model.init_decode_cache(B, cache_len or self.gpt2_cache_len))
@@ -423,12 +449,13 @@ class Stage2BatchGenerator:
         the step count."""
         tier = (self._cache_len(s) if not self.is_performer
                 and self._cache_len(s) < self.gpt2_cache_len else None)
-        while iters < self.max_iters and self._poll(s):
+        while iters < self.max_iters and self._poll(s)[0]:
             for _ in range(min(HOST_CHECK_STEPS, self.max_iters - iters)):
                 self._step(s, gen)
                 iters += 1
                 if (tier is not None and s['t_hi'] >= tier - 2
-                        and bool((s['status'] == STATUS_OVERFLOW).any())):
+                        and any_rows(self.mesh,
+                                     s['status'] == STATUS_OVERFLOW)):
                     return iters
         return iters
 
@@ -449,12 +476,13 @@ class Stage2BatchGenerator:
         t0 = time.time()
         gen = self._generator(seed)
         tiers = self.tiers + [self.gpt2_cache_len] if self.tiers else [None]
-        s = self._init_state(jobs, list(range(B)), cache_len=tiers[0])
+        s = self._init_state(jobs, list(range(B))[self.rows],
+                             cache_len=tiers[0])
         iters = self._lockstep(s, gen, 0)
         resumed = 0
         for tier in tiers[1:]:
             overflow = s['status'] == STATUS_OVERFLOW
-            if not bool(overflow.any()):
+            if not any_rows(self.mesh, overflow):
                 break
             resumed += 1
             # unwritten positions are masked by the decode, so padding the
@@ -464,15 +492,15 @@ class Stage2BatchGenerator:
                 s['state'][name] = F.pad(cache, (0, 0, 0, 0, 0, grow))
             s['status'] = torch.where(overflow, STATUS_RUNNING, s['status'])
             iters = self._lockstep(s, gen, iters)
-        out = s['out'].cpu().numpy()
-        out_len = s['out_len'].cpu().numpy()
-        status = s['status'].cpu().numpy()
+        got = {k: gather_rows(self.mesh, s[k]) for k in (
+            'out', 'out_len', 'status', 'bars', 'reanchors', 'rejects')}
+        out, out_len, status = got['out'], got['out_len'], got['status']
         secs = time.time() - t0
         streams = [self._stream(out[b], out_len[b], status[b]) for b in range(B)]
         stats = {'seconds': secs, 'status': status.tolist(),
-                 'bars': s['bars'].cpu().tolist(), 'events': out_len.tolist(),
-                 'reanchors': s['reanchors'].cpu().tolist(),
-                 'rejects': s['rejects'].cpu().tolist(), 'steps': iters,
+                 'bars': got['bars'].tolist(), 'events': out_len.tolist(),
+                 'reanchors': got['reanchors'].tolist(),
+                 'rejects': got['rejects'].tolist(), 'steps': iters,
                  'tier_resumes': resumed}
         return streams, stats
 
@@ -483,8 +511,8 @@ class Stage2BatchGenerator:
         entry = self._running(s)
         i = 0
         while True:
-            if not self._poll(s) or (i >= self.serve_chunk_steps and not bool(
-                    (self._running(s) == entry).all())):
+            any_run, changed = self._poll(s, entry)
+            if not any_run or (i >= self.serve_chunk_steps and changed):
                 return i
             for _ in range(HOST_CHECK_STEPS):
                 self._step(s, gen)
@@ -514,30 +542,32 @@ class Stage2BatchGenerator:
         t0 = time.time()
         gen = self._generator(seed)
         first = min(B, N)
-        s = self._init_state(jobs, list(range(first)) + [0] * (B - first))
+        mine = self.rows
+        s = self._init_state(jobs, (list(range(first))
+                                    + [0] * (B - first))[mine])
         slot_job: List[Optional[int]] = list(range(first)) + [None] * (B - first)
         if first < B:
             idle0 = np.zeros(B, bool)
             idle0[first:] = True
-            self._reset_slots(s, np.zeros(B, bool), idle0,
-                              self._job_rows(jobs, [0] * B))
+            self._reset_slots(s, np.zeros(self.nb, bool), idle0[mine],
+                              self._job_rows(jobs, [0] * self.nb))
         next_job = first
         streams: List[Optional[List[int]]] = [None] * N
         per_job = {k: [0] * N for k in fields}
         chunks = steps = 0
-        while bool(self._running(s).any()):
+        while any_rows(self.mesh, self._running(s)):
             steps += self._run_chunk(s, gen)
             chunks += 1
-            status = s['status'].cpu().numpy()
+            status = gather_rows(self.mesh, s['status'])
             finished = [b for b in range(B) if slot_job[b] is not None
                         and status[b] not in (STATUS_RUNNING, STATUS_IDLE)]
             if not finished:
                 continue
-            out = s['out'].cpu().numpy()
-            got = {'status': status, 'events': s['out_len'].cpu().numpy(),
-                   'bars': s['bars'].cpu().numpy(),
-                   'reanchors': s['reanchors'].cpu().numpy(),
-                   'rejects': s['rejects'].cpu().numpy()}
+            out = gather_rows(self.mesh, s['out'])
+            got = {'status': status,
+                   **{k: gather_rows(self.mesh, s[f]) for k, f in (
+                       ('events', 'out_len'), ('bars', 'bars'),
+                       ('reanchors', 'reanchors'), ('rejects', 'rejects'))}}
             for b in finished:
                 j = slot_job[b]
                 streams[j] = self._stream(out[b], got['events'][b], status[b])
@@ -555,7 +585,8 @@ class Stage2BatchGenerator:
                 else:
                     idle[b] = True
                     slot_job[b] = None
-            self._reset_slots(s, mask, idle, self._job_rows(jobs, rows))
+            self._reset_slots(s, mask[mine], idle[mine],
+                              self._job_rows(jobs, rows[mine]))
         secs = time.time() - t0
         return streams, {'seconds': secs, 'wall_seconds': secs,
                          'chunks': chunks, 'steps': steps, **per_job}

@@ -75,3 +75,10 @@ def txl_positional_embedding(pos_seq: torch.Tensor, d_model: int) -> torch.Tenso
                                              device=pos_seq.device) / d_model))
     ang = pos_seq.float()[:, None] * inv_freq[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def head_f32(h: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The vocabulary head in float32: ``h @ weight.T + bias``."""
+    y = torch.matmul(h.float(), weight.float().t())
+    return y if bias is None else y + bias.float()

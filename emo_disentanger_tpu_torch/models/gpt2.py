@@ -38,8 +38,10 @@ from torch import nn
 
 from ..ops.attention import NEG_INF, layout_equations, write_row_pe
 from ..ops.flash_attention import flash_attention
+from ..parallel.sharding_rules import parallel_linear
 from ..utils.device import resolve_device
-from .embeddings import LayerNorm, TokenEmbedding, sinusoid_position_encoding
+from .embeddings import (
+    LayerNorm, TokenEmbedding, head_f32, sinusoid_position_encoding)
 from .txl import masked_cross_entropy
 
 
@@ -60,7 +62,12 @@ class Conv1D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_out, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype).t(), self.bias.to(x.dtype))
+        return parallel_linear(self, x, _apply_conv1d)
+
+
+def _apply_conv1d(x, weight, bias):
+    return F.linear(x, weight.to(x.dtype).t(),
+                    None if bias is None else bias.to(x.dtype))
 
 
 class GPT2Attention(nn.Module):
@@ -119,10 +126,12 @@ class GPT2Block(nn.Module):
 
     def forward(self, x: torch.Tensor, return_kv: bool = False):
         """x [B, L, D] -> [B, L, D] (and k, v [B, L, H, Dh] with
-        ``return_kv``)."""
+        ``return_kv``).  Under tensor parallelism ``c_attn`` yields this
+        rank's n_head / tp heads of each of q, k and v."""
         B, L, D = x.shape
-        heads = lambda t: t.reshape(B, L, self.n_head, self.d_head)
-        q, k, v = (heads(t) for t in self.attn.c_attn(self.ln_1(x)).split(D, -1))
+        heads = lambda t: t.reshape(B, L, -1, self.d_head)
+        qkv = self.attn.c_attn(self.ln_1(x))
+        q, k, v = (heads(t) for t in qkv.split(qkv.shape[-1] // 3, -1))
         x = x + self.resid_drop(self.attn.c_proj(self._attention(q, k, v)))
         out = x + self.mlp_drop(self.mlp(self.ln_2(x)))
         return (out, k, v) if return_kv else out
@@ -190,8 +199,7 @@ class MusicGPT2(nn.Module):
         return emb
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.dec_out_proj
-        return torch.matmul(h.float(), w.weight.float().t()) + w.bias.float()
+        return parallel_linear(self.dec_out_proj, h, head_f32)
 
     def forward(self, tokens: torch.Tensor, seg: Optional[torch.Tensor] = None,
                 *, keep_last_only: bool = False, return_kv: bool = False):
@@ -226,6 +234,9 @@ class MusicGPT2(nn.Module):
         """Zero k and v caches [n_layer, B, Kmax, H, Dh] in the decode
         dtype.  The port carries 'khd' only (``ops.attention``)."""
         layout_equations(layout)
+        if getattr(self, 'tp_size', 1) > 1:
+            raise NotImplementedError('a tensor-parallel model does not '
+                                      'decode; serving shards the batch')
         k = torch.zeros(self.n_layer, batch, max_klen, self.n_head,
                         self.d_head, dtype=self.decode_dtype, device=self.device)
         return {'k': k, 'v': torch.zeros_like(k)}

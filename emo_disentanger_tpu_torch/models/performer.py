@@ -65,8 +65,10 @@ from ..ops.linear_attention import (
     draw_orthogonal_features, favor_causal_attention,
     favor_causal_attention_heads_last)
 from ..ops.performer_decode import fused_decode_layer
+from ..parallel.sharding_rules import parallel_linear, tp_input
 from ..utils.device import resolve_device
-from .embeddings import LayerNorm, TokenEmbedding, sinusoid_position_encoding
+from .embeddings import (
+    LayerNorm, TokenEmbedding, head_f32, sinusoid_position_encoding)
 from .txl import masked_cross_entropy
 
 
@@ -76,9 +78,16 @@ def _heads_last_from_env() -> bool:
     return os.environ.get('EMODIS_HL_ATTN', '0') != '0'
 
 
-def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``mod`` applied in ``x``'s dtype (its weights cast to it)."""
-    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
+def _apply_linear(x, weight, bias):
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
+def _linear(mod: nn.Linear, x: torch.Tensor, copied: bool = False
+            ) -> torch.Tensor:
+    """``mod`` applied in ``x``'s dtype (its weights cast to it), with its
+    tensor-parallel collectives when it was sharded."""
+    return parallel_linear(mod, x, _apply_linear, copied)
 
 
 class AttentionLayer(nn.Module):
@@ -109,17 +118,22 @@ class PerformerLayer(nn.Module):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D]; omega [d_head, M]."""
+        """x [B, L, D]; omega [d_head, M].  Under tensor parallelism the
+        projections hold this rank's n_head / tp heads, so the head count
+        is read off q's width."""
         B, L, D = x.shape
         a = self.attention
-        q, k, v = (_linear(p, x) for p in (a.query_projection, a.key_projection,
-                                           a.value_projection))
+        xq = tp_input(a.query_projection, x)
+        q, k, v = (_linear(p, xq, copied=True) for p in (
+            a.query_projection, a.key_projection, a.value_projection))
+        d_head = omega.shape[0]
         if self.heads_last:
-            attn = favor_causal_attention_heads_last(q, k, v, omega, self.n_head)
+            attn = favor_causal_attention_heads_last(q, k, v, omega,
+                                                     q.shape[-1] // d_head)
         else:
-            heads = lambda t: t.reshape(B, L, self.n_head, -1).transpose(1, 2)
+            heads = lambda t: t.reshape(B, L, -1, d_head).transpose(1, 2)
             attn = favor_causal_attention(heads(q), heads(k), heads(v), omega)
-            attn = attn.transpose(1, 2).reshape(B, L, D)
+            attn = attn.transpose(1, 2).reshape(B, L, -1)
         x = x + self.drop(_linear(a.out_projection, attn.to(x.dtype)))
         y = x = self.norm1(x)
         y = self.drop(F.relu(_linear(self.linear1, y)))
@@ -239,8 +253,7 @@ class MusicPerformer(nn.Module):
         return emb
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.dec_out_proj
-        return torch.matmul(h.float(), w.weight.float().t()) + w.bias.float()
+        return parallel_linear(self.dec_out_proj, h, head_f32)
 
     def forward(self, tokens: torch.Tensor, omegas: torch.Tensor,
                 seg: Optional[torch.Tensor] = None, *,
@@ -269,6 +282,9 @@ class MusicPerformer(nn.Module):
         if state_layout != 'dm':
             raise ValueError(f"the port carries the 'dm' state layout only "
                              f"(got {state_layout!r})")
+        if getattr(self, 'tp_size', 1) > 1:
+            raise NotImplementedError('a tensor-parallel model does not '
+                                      'decode; serving shards the batch')
         kw = dict(dtype=torch.float32, device=self.device)
         return {
             'S': torch.zeros(self.n_layer, batch, self.n_head, self.d_head,

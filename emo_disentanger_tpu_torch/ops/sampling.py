@@ -10,6 +10,14 @@ keeps the reference sampler's two quirks (``inference_utils.py:14-41``):
 and, like the JAX sampler, keeps everything but the last token when exactly
 one index exceeds p, and at least one token always.  ``top_p=0`` keeps only
 the most probable token, so the draw is the argmax whatever the generator.
+
+The draw is the inverse CDF over the kept nucleus at a uniform ``u`` per
+row: the first kept token whose cumulative probability exceeds ``u``.  A
+row's draw depends on its own logits and its own ``u`` only, never on the
+batch's shape, so a rank that samples its rows of a batch draws what one
+device sampling the whole batch draws for them, given the same uniforms
+(the batched generators draw ``torch.rand(B_global)`` each step on every
+rank and keep their rows).
 """
 
 from __future__ import annotations
@@ -26,13 +34,14 @@ NEG_INF = -1e30
 def nucleus_sample(logits: torch.Tensor,
                    temperature: Union[float, torch.Tensor],
                    top_p: Union[float, torch.Tensor],
-                   generator: torch.Generator,
+                   draw: Union[torch.Generator, torch.Tensor],
                    forbid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample one token id per row of ``logits`` [B, V] -> [B] int64.
     ``temperature`` and ``top_p`` are floats, or tensors [B] of per-row
     values on the logits' device (stage 1's key step samples some rows at
-    its own settings, all rows from one sort).  ``generator`` must live on
-    the logits' device.  ``forbid``: optional bool mask [V] on that device;
+    its own settings, all rows from one sort).  ``draw`` is the uniforms
+    ``u`` [B] in [0, 1) on the logits' device, or a generator there from
+    which they are drawn (``torch.rand(B)``).  ``forbid``: optional bool mask [V] on that device;
     its True entries get ``NEG_INF`` before the softmax, as the JAX sampler
     does (the reference subtracts inf from inadmissible tempo logits,
     ``stage2_accompaniment/inference.py:71-73``)."""
@@ -54,8 +63,12 @@ def nucleus_sample(logits: torch.Tensor,
                          torch.where(n_after == 1, V - 1, 3)).clamp(min=1)
     idx = torch.arange(V, device=logits.device)
     candi = torch.where(idx[None, :] < keep_n[:, None], sorted_probs, 0.0)
-    candi = candi / candi.sum(-1, keepdim=True)
-    choice = torch.multinomial(candi, 1, generator=generator)
+    cdf = (candi / candi.sum(-1, keepdim=True)).cumsum(-1)
+    u = draw if isinstance(draw, torch.Tensor) else torch.rand(
+        logits.shape[0], generator=draw, device=logits.device)
+    choice = torch.searchsorted(cdf, u.float()[:, None], right=True)
+    # rounding can leave the last kept cumulative sum below u
+    choice = torch.minimum(choice, (keep_n - 1)[:, None])
     return order.gather(-1, choice)[:, 0]
 
 

@@ -9,6 +9,12 @@ dict under the reference checkpoint's names) -> ``log.txt`` and
 resuming from ``trained_epochs``) in the reference formats.  Finetuning
 starts from ``pretrained_param_path``: a released reference ``.pt`` loads
 by name, as does a checkpoint the port wrote.
+
+Over ``n_devices`` ranks the run is data-parallel as stage 2's
+(``parallel.mesh.mesh_for``, ``tp=1`` as JAX's driver builds its mesh):
+PAD rows pad the batch to a size the data axes divide, each rank trains on
+its rows, the logged losses are the global ones and only rank 0 writes
+files.
 """
 
 from __future__ import annotations
@@ -21,17 +27,20 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.vocab import Vocab
 from ..data.datasets import Stage1Dataset
 from ..models.txl import PlainTransformer
-from ..utils.device import resolve_device
+from ..parallel.mesh import (
+    check_replicas, dp_padded_batch_size, mesh_for, shard_batch)
 from ..utils.io import load_yaml, pickle_load
 from ..utils.logging import EpochLogger, write_valloss_line
 from .checkpoint import PARAMS, gc_checkpoints, load_optimizer, save_checkpoint
 from .trainer import (
-    OptimizerConfig, batch_to_device, finalize_accuracy, make_eval_step,
-    make_optimizer, make_train_step, neutralize_pad_rows, stage1_loss_fn,
+    OptimizerConfig, batch_to_device, dropout_seed, finalize_accuracy,
+    make_eval_step, make_optimizer, make_train_step, neutralize_pad_rows,
+    stage1_loss_fn,
 )
 
 
@@ -76,13 +85,16 @@ def load_pretrained_params(model: PlainTransformer, path: str) -> None:
 def run(config: Union[str, dict], representation: str, *,
         max_epoch_override: Optional[int] = None,
         max_batches_per_epoch: Optional[int] = None,
+        n_devices: Optional[int] = None, backend: Optional[str] = None,
         seed: int = 0, device='cuda') -> dict:
     """Train as the config says.  ``config`` is a YAML path or a dict of
     the same shape.  Returns the last epoch's mean training loss, the step
     count, the checkpoint directory, and every step's loss and seconds on
     the host clock (the step ends by reading its loss, which waits for the
-    device).  Runs on CUDA unless ``device='cpu'`` is given."""
-    dev = resolve_device(device)
+    device).  Runs on CUDA unless ``device='cpu'`` is given.
+    ``n_devices`` and ``backend`` as in ``train_stage2.run``."""
+    dev, mesh = mesh_for(n_devices, backend=backend, device=device)
+    lead = mesh is None or dist.get_rank() == 0
     config_path = None
     if not isinstance(config, dict):
         config_path = str(config)
@@ -101,6 +113,7 @@ def run(config: Union[str, dict], representation: str, *,
     model = build_model_and_params(config, vocab, seed, device=dev)
     if config.get('pretrained_param_path'):
         load_pretrained_params(model, config['pretrained_param_path'])
+    check_replicas(model, mesh)
     optimizer = make_optimizer(model.parameters(), OptimizerConfig(
         max_lr=float(tconf['max_lr']), min_lr=float(tconf['min_lr']),
         warmup_steps=tconf['warmup_steps'],
@@ -109,22 +122,25 @@ def run(config: Union[str, dict], representation: str, *,
         load_optimizer(optimizer, config['pretrained_optim_path'])
 
     loss_fn = stage1_loss_fn(model, vocab.pad_id)
-    train_step = make_train_step(loss_fn, model, optimizer)
-    eval_step = make_eval_step(loss_fn, model)
+    train_step = make_train_step(loss_fn, model, optimizer, mesh)
+    eval_step = make_eval_step(loss_fn, model, mesh)
 
-    os.makedirs(ckpt_dir, exist_ok=True)
-    if config_path is not None:
-        shutil.copy(config_path, os.path.join(ckpt_dir, 'config.yaml'))
-    else:
-        with open(os.path.join(ckpt_dir, 'config.json'), 'w') as f:
-            json.dump(config, f, indent=1)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if config_path is not None:
+            shutil.copy(config_path, os.path.join(ckpt_dir, 'config.yaml'))
+        else:
+            with open(os.path.join(ckpt_dir, 'config.json'), 'w') as f:
+                json.dump(config, f, indent=1)
     start_epoch = tconf.get('trained_epochs') or 0
     suffix = '' if start_epoch == 0 else f'_from_ep{start_epoch:03d}'
-    logger = EpochLogger(os.path.join(ckpt_dir, f'log{suffix}.txt'))
+    logger = (EpochLogger(os.path.join(ckpt_dir, f'log{suffix}.txt'))
+              if lead else None)
 
     batch_size = dconf['batch_size']
+    eff_batch_size = dp_padded_batch_size(mesh, batch_size)
     max_epoch = max_epoch_override or tconf['max_epoch']
-    torch.manual_seed(seed + 1)                     # the dropout masks
+    torch.manual_seed(dropout_seed(seed, mesh))       # the dropout masks
     train_steps = tconf.get('trained_steps') or 0
     step_losses, step_seconds = [], []
     recons_loss = float('nan')
@@ -136,8 +152,8 @@ def run(config: Union[str, dict], representation: str, *,
             if max_batches_per_epoch and bidx >= max_batches_per_epoch:
                 break
             bsz = batch['dec_inp'].shape[0]
-            batch = batch_to_device(
-                neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
+            batch = batch_to_device(shard_batch(mesh, neutralize_pad_rows(
+                batch, eff_batch_size, vocab.pad_id)), dev)
             t_step = time.time()
             loss, _ = train_step(batch, {})
             loss = float(loss)
@@ -146,12 +162,12 @@ def run(config: Union[str, dict], representation: str, *,
             train_steps += 1
             loss_sum += loss * bsz
             n_samples += bsz
-            if train_steps % tconf['log_interval'] == 0:
+            if lead and train_steps % tconf['log_interval'] == 0:
                 logger.log(ep + 1, train_steps, loss_sum / n_samples,
                            time.time() - t0)
         recons_loss = loss_sum / max(n_samples, 1)
 
-        if (ep + 1) % config['output']['ckpt_interval'] == 0:
+        if lead and (ep + 1) % config['output']['ckpt_interval'] == 0:
             params_dir = os.path.join(ckpt_dir, 'params')
             save_checkpoint(params_dir, ep + 1, recons_loss, model, optimizer)
             keep = config['output'].get('ckpt_keep_last', 0)
@@ -161,18 +177,20 @@ def run(config: Union[str, dict], representation: str, *,
         if (ep + 1) % tconf['val_interval'] == 0:
             val_losses, acc_sums = [], None
             for batch in val_dset.batches(batch_size, shuffle=False):
-                batch = batch_to_device(
-                    neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
+                batch = batch_to_device(shard_batch(mesh, neutralize_pad_rows(
+                    batch, eff_batch_size, vocab.pad_id)), dev)
                 loss, aux = eval_step(batch, {})
                 val_losses.append(float(loss))
                 aux = {k: float(v) for k, v in aux.items()}
                 acc_sums = aux if acc_sums is None else \
                     {k: acc_sums[k] + aux[k] for k in aux}
-            write_valloss_line(os.path.join(ckpt_dir, f'valloss{suffix}.txt'),
-                               ep + 1, recons_loss, float(np.mean(val_losses)),
-                               float(np.std(val_losses)),
-                               finalize_accuracy(acc_sums))
-        logger.log(ep + 1, train_steps, recons_loss, time.time() - t0)
+            if lead:
+                write_valloss_line(
+                    os.path.join(ckpt_dir, f'valloss{suffix}.txt'), ep + 1,
+                    recons_loss, float(np.mean(val_losses)),
+                    float(np.std(val_losses)), finalize_accuracy(acc_sums))
+        if lead:
+            logger.log(ep + 1, train_steps, recons_loss, time.time() - t0)
 
     return {'loss': recons_loss, 'steps': train_steps, 'ckpt_dir': ckpt_dir,
             'step_losses': step_losses, 'step_seconds': step_seconds}

@@ -1,11 +1,13 @@
 """Stage-2 training driver (port of ``emo_disentanger_tpu/train/train_stage2.py``;
 reference ``stage2_accompaniment/train.py``).
 
-Either stage-2 backbone on one device: YAML config (or a dict of the same
-shape) -> datasets -> ``MusicPerformer`` or ``MusicGPT2`` -> train/eval
-steps -> per-interval ``ep{N}_loss{L}_params.pt`` / ``_optim.pt``
-checkpoints (the model's state dict under the reference checkpoint's
-names) -> ``log.txt`` and ``valloss.txt`` in the reference formats.
+Either stage-2 backbone on one device or data-parallel over ranks
+(``parallel.mesh.mesh_for``; every rank calls :func:`run`): YAML config
+(or a dict of the same shape) -> datasets -> ``MusicPerformer`` or
+``MusicGPT2`` -> train/eval steps -> per-interval
+``ep{N}_loss{L}_params.pt`` / ``_optim.pt`` checkpoints (the model's state
+dict under the reference checkpoint's names) -> ``log.txt`` and
+``valloss.txt`` in the reference formats.
 
 * Performer: the FAVOR+ feature matrices are redrawn before a step with the
   configured probability (reference ``feat_redraw_prob``,
@@ -16,6 +18,13 @@ names) -> ``log.txt`` and ``valloss.txt`` in the reference formats.
   (attention dropout); the validation forwards run in ``eval()`` mode and
   so take the flash-attention kernel on CUDA where ``models/gpt2.py``'s
   dispatch sends them (L >= 512, L % 128 == 0).
+
+Over ``n_devices`` ranks, as JAX's driver: the batch is padded with PAD
+rows to a size the data axes divide (``dp_padded_batch_size``) before each
+rank takes its rows (``shard_batch``); the parameters are built from the
+same seed on every rank (checked once); the losses logged are the global
+ones; only rank 0 writes the checkpoints, ``log.txt`` and ``valloss.txt``.
+Each rank's dropout masks are seeded by its data rank.
 """
 
 from __future__ import annotations
@@ -28,20 +37,22 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.vocab import Vocab
 from ..data.datasets import Stage2Dataset
 from ..models.gpt2 import MusicGPT2
 from ..models.performer import MusicPerformer
-from ..utils.device import resolve_device
+from ..parallel.mesh import (
+    check_replicas, dp_padded_batch_size, mesh_for, shard_batch)
 from ..utils.io import load_yaml, pickle_load
 from ..utils.logging import EpochLogger, write_valloss_line
 from .checkpoint import (
     PARAMS, gc_checkpoints, load_optimizer, load_params, save_checkpoint,
 )
 from .trainer import (
-    OptimizerConfig, batch_to_device, finalize_accuracy, make_eval_step,
-    make_optimizer, make_train_step, neutralize_pad_rows,
+    OptimizerConfig, batch_to_device, dropout_seed, finalize_accuracy,
+    make_eval_step, make_optimizer, make_train_step, neutralize_pad_rows,
     stage2_gpt2_loss_fn, stage2_performer_loss_fn,
 )
 
@@ -95,16 +106,19 @@ def run(config: Union[str, dict], representation: str,
         model_type: str = 'performer', *,
         max_epoch_override: Optional[int] = None,
         max_batches_per_epoch: Optional[int] = None,
-        n_devices: Optional[int] = None, seed: int = 0,
-        device='cuda') -> dict:
+        n_devices: Optional[int] = None, backend: Optional[str] = None,
+        seed: int = 0, device='cuda') -> dict:
     """Train as the config says.  ``config`` is a YAML path or a dict of
     the same shape.  Returns the last epoch's mean training loss, the step
     count, the checkpoint directory, and every step's loss and seconds on
     the host clock (the step ends by reading its loss, which waits for the
-    device).  Runs on CUDA unless ``device='cpu'`` is given."""
-    dev = resolve_device(device)
-    if n_devices not in (None, 1):
-        raise NotImplementedError('the port trains on one device')
+    device).  Runs on CUDA unless ``device='cpu'`` is given.
+    ``n_devices``: the ranks of a data-parallel run (None: the world's
+    size when a process group or launcher is present, else one device);
+    a value that differs from the world's size raises.  ``backend`` names
+    the process group's backend when this call starts it."""
+    dev, mesh = mesh_for(n_devices, backend=backend, device=device)
+    lead = mesh is None or dist.get_rank() == 0
     config_path = None
     if not isinstance(config, dict):
         config_path = str(config)
@@ -124,6 +138,7 @@ def run(config: Union[str, dict], representation: str,
                                            device=dev)
     if tconf.get('trained_params'):
         load_params(model, tconf['trained_params'])
+    check_replicas(model, mesh)
     optimizer = make_optimizer(model.parameters(), OptimizerConfig(
         max_lr=float(tconf['lr']), min_lr=float(tconf['lr_scheduler']['eta_min']),
         warmup_steps=tconf['warmup_steps'],
@@ -135,21 +150,23 @@ def run(config: Union[str, dict], representation: str,
     performer = model_type == 'performer'
     loss_fn = (stage2_performer_loss_fn if performer
                else stage2_gpt2_loss_fn)(model, vocab.pad_id)
-    train_step = make_train_step(loss_fn, model, optimizer)
-    eval_step = make_eval_step(loss_fn, model)
+    train_step = make_train_step(loss_fn, model, optimizer, mesh)
+    eval_step = make_eval_step(loss_fn, model, mesh)
 
-    os.makedirs(ckpt_dir, exist_ok=True)
-    if config_path is not None:
-        shutil.copy(config_path, os.path.join(ckpt_dir, 'config.yaml'))
-    else:
-        with open(os.path.join(ckpt_dir, 'config.json'), 'w') as f:
-            json.dump(config, f, indent=1)
-    logger = EpochLogger(os.path.join(ckpt_dir, 'log.txt'))
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if config_path is not None:
+            shutil.copy(config_path, os.path.join(ckpt_dir, 'config.yaml'))
+        else:
+            with open(os.path.join(ckpt_dir, 'config.json'), 'w') as f:
+                json.dump(config, f, indent=1)
+    logger = EpochLogger(os.path.join(ckpt_dir, 'log.txt')) if lead else None
 
     batch_size = dconf['batch_size']
+    eff_batch_size = dp_padded_batch_size(mesh, batch_size)
     redraw_prob = tconf.get('feat_redraw_prob', 0.0)
     max_epoch = max_epoch_override or tconf['num_epochs']
-    torch.manual_seed(seed + 1)                     # the dropout masks
+    torch.manual_seed(dropout_seed(seed, mesh))       # the dropout masks
     omega_gen = torch.Generator().manual_seed(seed + 1)
     host_rng = np.random.RandomState(seed + 2)
     train_steps = 0
@@ -163,8 +180,8 @@ def run(config: Union[str, dict], representation: str,
             if max_batches_per_epoch and bidx >= max_batches_per_epoch:
                 break
             bsz = batch['dec_inp'].shape[0]
-            batch = batch_to_device(
-                neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
+            batch = batch_to_device(shard_batch(mesh, neutralize_pad_rows(
+                batch, eff_batch_size, vocab.pad_id)), dev)
             if performer and host_rng.random() <= redraw_prob:
                 omegas = model.draw_omegas(omega_gen)
             t_step = time.time()
@@ -175,12 +192,12 @@ def run(config: Union[str, dict], representation: str,
             train_steps += 1
             loss_sum += loss * bsz
             n_samples += bsz
-            if train_steps % tconf['log_interval'] == 0:
+            if lead and train_steps % tconf['log_interval'] == 0:
                 logger.log(ep + 1, train_steps, loss_sum / n_samples,
                            time.time() - t0)
         recons_loss = loss_sum / max(n_samples, 1)
 
-        if (ep + 1) % tconf['ckpt_interval'] == 0:
+        if lead and (ep + 1) % tconf['ckpt_interval'] == 0:
             params_dir = os.path.join(ckpt_dir, 'params')
             save_checkpoint(params_dir, ep + 1, recons_loss, model, optimizer)
             if tconf.get('ckpt_keep_last', 0):
@@ -189,17 +206,19 @@ def run(config: Union[str, dict], representation: str,
         # validate every epoch (reference val_interval = 1)
         val_losses, acc_sums = [], None
         for batch in val_dset.batches(batch_size, shuffle=False):
-            batch = batch_to_device(
-                neutralize_pad_rows(batch, batch_size, vocab.pad_id), dev)
+            batch = batch_to_device(shard_batch(mesh, neutralize_pad_rows(
+                batch, eff_batch_size, vocab.pad_id)), dev)
             loss, aux = eval_step(batch, {'omegas': omegas} if performer else {})
             val_losses.append(float(loss))
             aux = {k: float(v) for k, v in aux.items()}
             acc_sums = aux if acc_sums is None else \
                 {k: acc_sums[k] + aux[k] for k in aux}
-        write_valloss_line(os.path.join(ckpt_dir, 'valloss.txt'), ep + 1,
-                           recons_loss, float(np.mean(val_losses)),
-                           float(np.std(val_losses)), finalize_accuracy(acc_sums))
-        logger.log(ep + 1, train_steps, recons_loss, time.time() - t0)
+        if lead:
+            write_valloss_line(os.path.join(ckpt_dir, 'valloss.txt'), ep + 1,
+                               recons_loss, float(np.mean(val_losses)),
+                               float(np.std(val_losses)),
+                               finalize_accuracy(acc_sums))
+            logger.log(ep + 1, train_steps, recons_loss, time.time() - t0)
 
     return {'loss': recons_loss, 'steps': train_steps, 'ckpt_dir': ckpt_dir,
             'step_losses': step_losses, 'step_seconds': step_seconds}

@@ -260,11 +260,12 @@ def test_stuck_song_returns_none(monkeypatch):
 
 
 def test_mesh_of_many_devices_is_refused():
+    """A mesh whose data axes do not divide the batch is refused with JAX's
+    message (``stage1_batch.py:249-256`` there); a mesh that divides it is
+    served (``tests/test_torch_parallel_serve.py``)."""
     jv = tiny_vocab2()
     _, _, tm = txl_pair(jv.size)
-
-    class Mesh:
-        size = 4
-    with pytest.raises(NotImplementedError, match='one device'):
-        Stage1BatchGenerator(tm, _port_vocab(jv), batch=2, mesh=Mesh(),
-                             device='cpu')
+    with pytest.raises(ValueError, match=r'not divisible by the mesh data '
+                       r'axes \(dp\*dcn=4\)'):
+        Stage1BatchGenerator(tm, _port_vocab(jv), batch=2,
+                             mesh={'dp': 4, 'tp': 1}, device='cpu')
