@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives twelve paths at full width with random weights from a seed.  Three run
+drives thirteen paths at full width with random weights from a seed.  Three run
 the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
 128 FAVOR+ features):
 
@@ -29,7 +29,7 @@ Two run the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
   L=2048, two micro-batches an update), whose validation forwards launch
   the flash-attention kernel and whose train steps (attention dropout) do
   not, then a fixed batch whose loss must fall;
-* gpt2_serving: with bf16 weights, ``serve`` over 24 jobs in 16 slots whose
+* gpt2_serving: with bf16 weights, ``serve`` over 16 jobs in 16 slots whose
   songs outgrow the 4096-position cache and re-anchor over a 2048-token
   window, the lockstep ``generate`` through the (1024, 2048) cache ladder,
   one host-driven ``Stage2Generator`` song that re-anchors, and the
@@ -88,7 +88,18 @@ one rank only; the Performer's ``serve`` of 32 jobs in 16 slots (8 a rank,
 the decode-layer kernel) and stage 1's at two layers, whose streams must
 equal one rank's bit for bit; then ``train_stage2.run`` through the mesh
 path over a NCCL world of one.  Sharing a card halves nothing, so its walls
-are not scaling numbers.
+are not scaling numbers.  Beside them, two bf16 stage-1 train steps of the
+Transformer-XL at ``emopia_finetune.yaml``'s width and depth (B=4, L=512)
+tensor-parallel (4 heads a rank), against one rank.
+
+The thirteenth, cache_layouts, runs the decode-state layouts at full width
+with bf16 weights: stage 1's caches 'khd', 'hkd' and 'dk' (1536 rows) and
+GPT-2's 'khd' and 'dk' (4096 rows) over 64 teacher-forced steps at B=16
+from one cache content, the logits held across layouts; a serve() step
+profiled in each layout (einsum and copy device time); GPT-2's cache ladder
+in 'dk'; kernel #12 with the 'md' state against its plain version and
+against the 'dm' launch on the transposed state, timed in both; and the
+Performer's serve with the 'md' state against 'dm'.
 
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
@@ -148,6 +159,10 @@ GPT2_MAX_LEN = 4096
 GPT2_CACHE, GPT2_WINDOW, GPT2_MARGIN, GPT2_BAR_TOKENS = 4096, 2048, 256, 256
 GPT2_EVENTS = 4160                  # songs pass the cache end: all re-anchor
 GPT2_JOB_BARS = (32, 48)            # lead-sheet bars a job, so songs run long
+# the serve's jobs: one for each slot, as a refilled slot would run a second
+# ~4,400-step round (~50 s); refills are held on the card by the
+# Performer's serves and against JAX on the CPU
+GPT2_SERVE_JOBS = SERVE_B
 GPT2_TIERS, GPT2_TIER_EVENTS = (1024, 2048), 1200
 # the host generator's least legal cache, to keep its one song short
 GPT2_HOST_CACHE = GPT2_WINDOW + GPT2_BAR_TOKENS + 2
@@ -253,13 +268,39 @@ REMI_FULL_GROUPS, REMI_FULL_EVENTS = 2, 512
 # MD_JOBS jobs in SERVE_B slots and stage 1's of MD_S1_JOBS jobs in
 # S1_SERVE_B slots at MD_S1_LAYERS layers (full width), both bf16, streams
 # equal to one rank's bit for bit.  Then train_stage2.run over a NCCL world
-# of one
+# of one.  The stage-1 Transformer-XL's tp=2 leg (emopia_finetune.yaml's
+# width and depth, B=S1_B, L=S1_L) holds its bf16 losses and parameters as
+# above.  Its first gradient is held in f32 to TOL_GRAD against one rank's
+# f32 gradient, and in bf16 against that same f32 gradient, where it may
+# lie at most MD_TOL_GRAD farther than one rank's bf16 gradient lies.  Two
+# runs that round in other places send some of the 50M feed-forward ReLU
+# units near zero down the other branch, which moves the gradient by ~5e-4
+# in f32 and, with bf16's rounding, by ~5e-2 (more than MD_TOL_GRAD)
+# between two bf16 runs; with a smooth activation in their place the f32
+# runs agree to rounding.  A dropped reduction is off by ~0.6 either way
 MD_B, MD_STEPS, MD_LR, MD_PAD_ROWS = BF16_B, 2, 1e-4, 3
 MD_TOL_LOSS, MD_TOL_GRAD, MD_TOL_PARAM = 1e-3, 3e-2, 4.2 * MD_LR
 MD_JOBS, MD_EVENTS = 32, 400
 MD_S1_LAYERS, MD_S1_JOBS, MD_S1_EVENTS = 2, 24, 160
 # the training corpus: 32-bar lead sheets of ~675 events (a sample fills L)
 S1_CORPUS_PIECES, S1_CORPUS_BARS = 16, 32
+# cache_layouts: the decode-state layouts at full width with bf16 weights.
+# Stage 1's caches 'khd', 'hkd' and 'dk' (the lead_sheet mode's 1536 rows)
+# and GPT-2's 'khd' and 'dk' (GPT2_CACHE rows) take LAYOUT_STEPS
+# teacher-forced per-element-clock steps at B=SERVE_B from one cache
+# content (random rows; clocks drawn from the cache's second quarter on), and
+# the logits are held to TOL_BF16 across layouts; the serving steps of
+# phases 7g and 7s are profiled in the head-major layouts beside them (13b);
+# GPT-2's ladder runs once in 'dk' (tiers LAYOUT_GPT2_TIERS,
+# songs of up to LAYOUT_GPT2_EVENTS events, so both moves happen); kernel #12
+# carries the 'md' state against its plain version and against 'dm' on the
+# transposed state, and the Performer serves LAYOUT_JOBS jobs in 'md' and
+# in 'dm'
+S1_LAYOUTS, GPT2_LAYOUTS = ('khd', 'hkd', 'dk'), ('khd', 'dk')
+LAYOUT_STEPS = 64
+LAYOUT_PROFILE_STEPS = 8
+LAYOUT_GPT2_TIERS, LAYOUT_GPT2_EVENTS = (128, 256), 320
+LAYOUT_JOBS, LAYOUT_EVENTS = 16, 400
 # flash attention: the re-anchor shape and the smallest the dispatch sends
 # (H = N_HEAD, Dh = D_HEAD), inputs at std FLASH_STD so softmax rows peak
 FLASH_CASES = ((WINDOW_B, WINDOW_L), (2, 512))
@@ -672,13 +713,13 @@ def kernel_ms(prof, steps, needle):
 
 def kernel_breakdown(prof, steps, n_top=8):
     """(device busy ms per step, the top kernels by device ms per step) from
-    a torch.profiler run over ``steps`` steps; device events only, so
-    nothing is counted twice, and no user annotation (the optimizer's
-    ``Optimizer.step#...`` range also shows as a device event and would
-    count its kernels again).  Busy is 0 when the profiler saw no device
-    events."""
+    a torch.profiler run over ``steps`` steps (or its ``key_averages()``);
+    device events only, so nothing is counted twice, and no user annotation
+    (the optimizer's ``Optimizer.step#...`` range also shows as a device
+    event and would count its kernels again).  Busy is 0 when the profiler
+    saw no device events."""
     from torch.autograd import DeviceType
-    events = prof.key_averages()
+    events = prof if isinstance(prof, list) else prof.key_averages()
     notes = {e.key for e in events if getattr(e, 'is_user_annotation', False)}
     kern = [e for e in events
             if e.device_type == DeviceType.CUDA and e.key not in notes]
@@ -1954,7 +1995,8 @@ def phase_gpt2_serve(model, vocab, dev, smi):
               gpt2_window=GPT2_WINDOW, reanchor_margin=GPT2_MARGIN,
               max_bar_tokens=GPT2_BAR_TOKENS, device=dev)
     try:
-        primers, sheets = synthetic_jobs(vocab, 24, np.random.RandomState(7),
+        primers, sheets = synthetic_jobs(vocab, GPT2_SERVE_JOBS,
+                                         np.random.RandomState(7),
                                          bars=GPT2_JOB_BARS)
         gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B,
                                    max_events=GPT2_EVENTS, **kw)
@@ -2020,38 +2062,84 @@ def phase_gpt2_serve(model, vocab, dev, smi):
     return n
 
 
-def phase_profile_gpt2(model, vocab, dev, smi):
-    """Where a GPT-2 serving step's time goes: a short serve() (no re-anchor)
-    on the host clock, then under torch.profiler.  The decode attention's
-    two products run as aten::einsum; their device time (layout copies
-    included) is read from the profiler's operator events."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_gpt2_serve(model, vocab, dev, layout='khd', record=None):
+    """A short GPT-2 serve() (no re-anchor) with its cache in ``layout`` on
+    the host clock, then under torch.profiler, every step of it, or
+    ``record`` steps from step S1_PROFILE_SKIP.  Returns (wall ms a step,
+    device busy ms a step, the top kernels, aten::einsum and aten::copy_
+    device ms a step, device kernels a step, the run's steps)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
     primers, sheets = synthetic_jobs(vocab, SERVE_B, np.random.RandomState(8))
     gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B, temp=1.1,
                                top_p=0.99, max_events=64,
                                gpt2_cache_len=GPT2_CACHE,
-                               gpt2_window=GPT2_WINDOW, device=dev)
+                               gpt2_window=GPT2_WINDOW, cache_layout=layout,
+                               device=dev)
     _, stats = gen.serve(primers, sheets, seed=8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    kw = {}
+    if record is not None:
+        real_step = gen._step
+
+        def step(*args):
+            real_step(*args)
+            prof.step()
+        gen._step = step
+        kw['schedule'] = schedule(wait=S1_PROFILE_SKIP - 2, warmup=2,
+                                  active=record, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **kw) as prof:
         _, pstats = gen.serve(primers, sheets, seed=8)
         torch.cuda.synchronize()
-    expect(pstats['steps'] == stats['steps'], 'profiled run repeats the run')
     steps = stats['steps']
+    expect(pstats['steps'] == steps and steps >= S1_PROFILE_SKIP + (record or 0),
+           'profiled run repeats the run')
     wall = stats['wall_seconds'] * 1e3 / steps
-    busy, top = kernel_breakdown(prof, steps)
+    return (wall,) + serve_profile(prof, record or steps) + (steps,)
+
+
+def print_serve_profile(label, what, layout, result, smi):
+    """One line of a serving step's profile (``profile_s1_serve`` /
+    ``profile_gpt2_serve``): the wall, the device's busy time and idle
+    share, its kernels a step, the decode attention's products
+    (aten::einsum, layout copies included) and all aten::copy_ time."""
+    wall, busy, top, einsum, copy, kernels, steps = result
     if busy == 0:
-        print('phase 7g profile: device time not measured (the profiler saw '
-              'no device events)')
+        print(f"{label} profile {what} '{layout}': device time not measured "
+              '(the profiler saw no device events)')
         return
-    einsum = sum(e.device_time_total for e in prof.key_averages()
-                 if e.key == 'aten::einsum') / 1e3 / steps
-    print(f'phase 7g profile GPT-2 serve B={SERVE_B} cache {GPT2_CACHE}, {steps} '
-          f'steps [{smi}]: wall {wall:.3f} ms/step, device busy {busy:.3f} '
-          f'ms/step (idle share {1 - busy / wall:.3f}); decode attention '
-          f'products (aten::einsum) {einsum:.3f} ms/step ({einsum / busy:.3f} '
-          f'of busy); device ms/step by kernel: {top}')
+    print(f"{label} profile {what} '{layout}', {steps} steps [{smi}]: wall "
+          f'{wall:.3f} ms/step, device busy {busy:.3f} ms/step (idle share '
+          f'{1 - busy / wall:.3f}), {kernels:.0f} device kernels a step; decode '
+          f'attention products (aten::einsum) {einsum:.3f} ms/step '
+          f'({einsum / busy:.3f} of busy), aten::copy_ {copy:.3f} ms/step; '
+          f'device ms/step by kernel: {top}')
+
+
+def phase_profile_gpt2(model, vocab, dev, smi):
+    """Where a GPT-2 serving step's time goes, in the 'khd' cache
+    (``profile_gpt2_serve``, every step recorded)."""
+    print_serve_profile('phase 7g', f'GPT-2 serve B={SERVE_B} cache {GPT2_CACHE}',
+                        'khd', profile_gpt2_serve(model, vocab, dev), smi)
+
+
+def phase_profile_layouts(s1_model, s1_vocab, gpt2_model, vocab, dev, smi):
+    """Phase 13b: the serving steps of phases 7g and 7s profiled again in
+    the head-major caches (GPT-2's 'dk', stage 1's 'hkd' and 'dk'), with
+    LAYOUT_PROFILE_STEPS steps recorded from step S1_PROFILE_SKIP (the
+    profiler's processing of a recorded step costs about a second)."""
+    what = (f'{LAYOUT_PROFILE_STEPS} steps from step {S1_PROFILE_SKIP} '
+            'recorded (the wall: the whole warm run)')
+    print_serve_profile('phase 13b', f'GPT-2 serve B={SERVE_B} cache '
+                        f'{GPT2_CACHE}, {what}', 'dk', profile_gpt2_serve(
+                            gpt2_model, vocab, dev, 'dk', LAYOUT_PROFILE_STEPS),
+                        smi)
+    for layout in S1_LAYOUTS[1:]:
+        print_serve_profile('phase 13b', f'stage-1 serve B={S1_SERVE_B} cache '
+                            f'{S1_EVENTS + S1_REJECT_SLACK}, {what}', layout,
+                            profile_s1_serve(s1_model, s1_vocab, dev, layout,
+                                             LAYOUT_PROFILE_STEPS), smi)
 
 
 # ---------------------------------------------------------------------------
@@ -2221,20 +2309,38 @@ def phase_s1_serve(model, vocab, dev, smi):
     return gen
 
 
-def phase_profile_s1(model, vocab, dev, smi):
-    """Where a stage-1 serving step's time goes: serve() of 16 short jobs
-    (max_events S1_PROFILE_EVENTS, the serving phase's head) in a cache of
-    the lead_sheet mode's full 1536 rows on the host clock (the second of
-    two runs), then the same run with torch.profiler recording
-    S1_PROFILE_STEPS of its steps, all slots busy.  The decode attention's products run as aten::einsum;
-    their device time (layout copies included) is read from the profiler's
-    operator events."""
+def serve_profile(prof, steps):
+    """(device busy ms a step, the top kernels, aten::einsum and aten::copy_
+    device ms a step, device kernels a step) of a torch.profiler run over
+    ``steps`` steps, from one pass over its events.  An operator's device
+    time holds its kernels and its children's, such as an einsum's layout
+    copies."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    busy, top = kernel_breakdown(events, steps)
+    op_ms = lambda key: sum(e.device_time_total for e in events  # noqa: E731
+                            if e.key == key) / 1e3 / steps
+    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, 'is_user_annotation', False))
+    return busy, top, op_ms('aten::einsum'), op_ms('aten::copy_'), kernels / steps
+
+
+def profile_s1_serve(model, vocab, dev, layout='khd', record=S1_PROFILE_STEPS):
+    """serve() of 16 short jobs (max_events S1_PROFILE_EVENTS, the serving
+    phase's head) in a cache of the lead_sheet mode's full 1536 rows in
+    ``layout`` on the host clock (the second of two runs), then the same
+    run with torch.profiler recording ``record`` of its steps from step
+    S1_PROFILE_SKIP, all slots busy.  Returns (wall ms a step, device busy ms a step, the top
+    kernels, aten::einsum and aten::copy_ device ms a step, device kernels
+    a step, the run's steps); busy is 0 when the profiler saw no device
+    events."""
     from torch.profiler import ProfilerActivity, profile, schedule
     from emo_disentanger_tpu_torch.infer.stage1_batch import Stage1BatchGenerator
     klen = S1_EVENTS + S1_REJECT_SLACK
     gen = Stage1BatchGenerator(model, vocab, batch=S1_SERVE_B, temp=S1_TEMP,
                                top_p=S1_TOP_P, max_events=S1_PROFILE_EVENTS,
-                               reject_slack=klen - S1_PROFILE_EVENTS, device=dev)
+                               reject_slack=klen - S1_PROFILE_EVENTS,
+                               cache_layout=layout, device=dev)
     jobs = ['Positive', 'Negative'] * (S1_SERVE_B // 2)
     gen.serve(jobs, seed=24)                                # warm
     _, stats = gen.serve(jobs, seed=24)
@@ -2247,32 +2353,24 @@ def phase_profile_s1(model, vocab, dev, smi):
     gen._step = step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=S1_PROFILE_SKIP - 2, warmup=2,
-                                   active=S1_PROFILE_STEPS, repeat=1)) as prof:
+                                   active=record, repeat=1)) as prof:
         _, pstats = gen.serve(jobs, seed=24)
         torch.cuda.synchronize()
     expect(pstats['steps'] == stats['steps']
-           and stats['steps'] >= S1_PROFILE_SKIP + S1_PROFILE_STEPS,
+           and stats['steps'] >= S1_PROFILE_SKIP + record,
            'the profiled run repeats the run, past the profiled steps')
     wall = stats['seconds'] * 1e3 / stats['steps']
-    busy, top = kernel_breakdown(prof, S1_PROFILE_STEPS)
-    if busy == 0:
-        print('phase 7s profile: device time not measured (the profiler saw '
-              'no device events)')
-        return
-    from torch.autograd import DeviceType
-    events = prof.key_averages()
-    einsum = sum(e.device_time_total for e in events
-                 if e.key == 'aten::einsum') / 1e3 / S1_PROFILE_STEPS
-    kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA
-                  and not getattr(e, 'is_user_annotation', False))
-    print(f'phase 7s profile stage-1 serve B={S1_SERVE_B} cache {klen}, steps '
-          f'{S1_PROFILE_SKIP}-{S1_PROFILE_SKIP + S1_PROFILE_STEPS} of '
-          f'{stats["steps"]} [{smi}]: wall {wall:.3f} ms/step (the whole '
-          f'warm run), device busy {busy:.3f} ms/step (idle share '
-          f'{1 - busy / wall:.3f}), {kernels / S1_PROFILE_STEPS:.0f} device '
-          f'kernels a step; decode attention products (aten::einsum) '
-          f'{einsum:.3f} ms/step ({einsum / busy:.3f} of busy); device ms/step '
-          f'by kernel: {top}')
+    return (wall,) + serve_profile(prof, record) + (stats['steps'],)
+
+
+def phase_profile_s1(model, vocab, dev, smi):
+    """Where a stage-1 serving step's time goes, in the 'khd' cache
+    (``profile_s1_serve``)."""
+    print_serve_profile('phase 7s', f'stage-1 serve B={S1_SERVE_B} cache '
+                        f'{S1_EVENTS + S1_REJECT_SLACK}, {S1_PROFILE_STEPS} steps '
+                        f'from step {S1_PROFILE_SKIP} recorded (the wall: the '
+                        'whole warm run)', 'khd',
+                        profile_s1_serve(model, vocab, dev), smi)
 
 
 def s1_write_corpus(root, rng):
@@ -3130,6 +3228,60 @@ def md_train(vocab, dev, mesh=None):
             // D_HEAD}
 
 
+def md_s1_batch(vocab):
+    """The stage-1 bf16 train steps' batch [S1_B, S1_L] from a seed: random
+    tokens, a tenth of the targets PAD."""
+    rng = np.random.RandomState(33)
+    shape = (S1_B, S1_L)
+    tgt = rng.randint(0, vocab.pad_id, shape)
+    tgt[rng.rand(*shape) < 0.1] = vocab.pad_id
+    return {'dec_inp': rng.randint(0, vocab.pad_id, shape), 'dec_tgt': tgt,
+            'inp_chord': rng.randint(0, 2, shape),
+            'inp_melody': rng.randint(0, 2, shape)}
+
+
+def md_s1_train(dev, mesh=None, dtype=torch.bfloat16, steps=MD_STEPS):
+    """``steps`` stage-1 train steps of the Transformer-XL at
+    ``configs/stage1/emopia_finetune.yaml``'s width and depth (dropout 0,
+    B=S1_B, L=S1_L, computing in ``dtype``) on ``md_s1_batch`` under
+    ``mesh`` (tp=2: each rank half the heads, the whole batch).  Returns
+    the global losses, each step's wall, the first step's reduced
+    gradients, the final parameters (a tp rank's shards) and the heads a
+    rank."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.parallel import shard_batch, shard_params
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer, make_train_step,
+        stage1_loss_fn)
+    vocab = Vocab(*s1_dictionary())
+    model = build_txl(vocab, dev, dropout=0.0, compute_dtype=dtype)
+    if mesh is not None:
+        shard_params(model, mesh)
+    opt = make_optimizer(model.parameters(),
+                         OptimizerConfig(max_lr=MD_LR, warmup_steps=0))
+    step = make_train_step(stage1_loss_fn(model, vocab.pad_id), model, opt, mesh)
+    grads, adam = {}, opt.step
+
+    def keep_first_grads():                  # reduced, before clip and Adam
+        if not grads:
+            grads.update({n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()})
+        return adam()
+    opt.step = keep_first_grads
+    batch = batch_to_device(shard_batch(mesh, md_s1_batch(vocab)), dev)
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses.append(float(step(batch, {})[0]))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    return {'losses': losses, 'walls': walls, 'grads': grads,
+            'params': {n: p.detach().cpu() for n, p in model.named_parameters()},
+            'heads': model.decoder.layers[0].dec_attn.qkv_net.weight.shape[0]
+            // (3 * D_HEAD)}
+
+
 def md_serve(vocab, dev, mesh=None):
     """The Performer's bf16 serve of MD_JOBS jobs in SERVE_B slots (the
     mesh's data ranks split the slots) and the decode-layer launches."""
@@ -3178,15 +3330,19 @@ def md_s1_serve(dev, mesh=None):
 
 
 def md_rank(rank, world, root):
-    """One of the ranks that share the card: the dp=2 and tp=2 train
-    steps, then the dp=2 Performer and stage-1 serves; writes what it got
-    to ``root/rank{rank}.pt``.  The kernels were built by the parent."""
+    """One of the ranks that share the card: the dp=2 and tp=2 Performer
+    train steps, the tp=2 stage-1 train steps, then the dp=2 Performer and
+    stage-1 serves; writes what it got to ``root/rank{rank}.pt``.  The
+    kernels were built by the parent."""
     import torch.distributed as dist
     from emo_disentanger_tpu_torch.parallel import make_mesh
     os.environ['LOCAL_WORLD_SIZE'] = str(world)
     # the ranks share the host's cores: intra-op threads that outnumber
     # them spin against each other
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    # full float32 products, as main() sets them for the one-rank runs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     dev = torch.device('cuda', 0)
     dist.init_process_group('gloo', init_method=f'file://{root}/rendezvous',
@@ -3200,6 +3356,12 @@ def md_rank(rank, world, root):
             out[leg] = md_train(vocab, dev, mesh)
             out[leg]['leg_s'] = time.time() - t0
             torch.cuda.empty_cache()
+        t0 = time.time()
+        tp = make_mesh(world, tp=2, backend='gloo', device_type='cuda')
+        out['s1_tp'] = md_s1_train(dev, tp)
+        out['s1_tp_f32'] = md_s1_train(dev, tp, torch.float32, 1)
+        out['s1_tp']['leg_s'] = time.time() - t0
+        torch.cuda.empty_cache()
         dp = make_mesh(world, backend='gloo', device_type='cuda')
         out['serve'] = md_serve(vocab, dev, dp)
         out['s1'] = md_s1_serve(dev, dp)
@@ -3227,6 +3389,31 @@ def md_unshard(ranks, model_state, leg, key):
     return full
 
 
+def grad_rel(grads, ref):
+    """||grads - ref|| / ||ref|| over all of ``ref``'s parameters."""
+    return math.sqrt(sum(float((grads[n].float() - ref[n].float()).square().sum())
+                         for n in ref)
+                     / sum(float(ref[n].float().square().sum()) for n in ref))
+
+
+def md_errors(ranks, one, leg):
+    """(largest parameter difference after the steps, the first step's
+    gradient error relative by norm, the largest relative loss difference)
+    of the ranks' ``leg`` against one rank's run ``one``; a tp leg's shards
+    are put back whole first."""
+    ref, g_ref = one['params'], one['grads']
+    got = [r[leg] for r in ranks]
+    params, grads = ((got[0]['params'], got[0]['grads']) if leg == 'dp'
+                     else (md_unshard(ranks, ref, leg, 'params'),
+                           md_unshard(ranks, ref, leg, 'grads')))
+    err = max(float((params[n].float() - ref[n].float()).abs().max())
+              for n in ref)
+    g_err = grad_rel(grads, g_ref)
+    loss_err = max(abs(a - b) / abs(b) for g in got
+                   for a, b in zip(g['losses'], one['losses']))
+    return err, g_err, loss_err
+
+
 def phase_multi_device(dev, smi):
     """The multi_device path (phase 12): the one-rank references in this
     process, then two ranks that share the card over gloo (``md_rank``),
@@ -3245,12 +3432,17 @@ def phase_multi_device(dev, smi):
     one_train_s = time.time() - t0
     one_serve = md_serve(vocab, dev)
     one_s1 = md_s1_serve(dev)
+    one_s1_train = md_s1_train(dev)
+    one_s1_f32 = md_s1_train(dev, None, torch.float32, 1)
     torch.cuda.empty_cache()
     print(f'phase 12a one rank, bf16 B={MD_B} L={TRAIN_L} [{smi}]: losses '
           f'{[round(x, 5) for x in one["losses"]]}, step walls '
           f'{[round(x, 3) for x in one["walls"]]} s; serve {MD_JOBS} jobs '
           f'{one_serve["wall"]:.2f} s, {one_serve["stats"]["steps"]} steps; '
-          f'stage-1 serve {MD_S1_JOBS} jobs {one_s1["wall"]:.2f} s')
+          f'stage-1 serve {MD_S1_JOBS} jobs {one_s1["wall"]:.2f} s; stage-1 '
+          f'bf16 B={S1_B} L={S1_L} losses '
+          f'{[round(x, 5) for x in one_s1_train["losses"]]}, step walls '
+          f'{[round(x, 3) for x in one_s1_train["walls"]]} s')
 
     _build.LAUNCHES.clear()                  # the multi_device path starts here
     root = tempfile.mkdtemp(prefix='multi_device_')
@@ -3263,22 +3455,10 @@ def phase_multi_device(dev, smi):
                  for r in range(2)]
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    ref = one['params']
     note = ('two ranks share one card: walls are not scaling numbers')
     for leg in ('dp', 'tp'):
         got = [r[leg] for r in ranks]
-        params, grads = ((got[0]['params'], got[0]['grads']) if leg == 'dp'
-                         else (md_unshard(ranks, ref, leg, 'params'),
-                               md_unshard(ranks, ref, leg, 'grads')))
-        err = max(float((params[n].float() - ref[n].float()).abs().max())
-                  for n in ref)
-        g_ref = one['grads']
-        g_err = math.sqrt(sum(float((grads[n].float() - g_ref[n].float())
-                                    .square().sum()) for n in ref)
-                          / sum(float(g_ref[n].float().square().sum())
-                                for n in ref))
-        loss_err = max(abs(a - b) / abs(b) for g in got
-                       for a, b in zip(g['losses'], one['losses']))
+        err, g_err, loss_err = md_errors(ranks, one, leg)
         print(f'phase 12b {leg}=2 (gloo) bf16 B={MD_B} ({MD_B // 2 if leg == "dp" else MD_B} '
               f'a rank, {got[0]["heads"]} heads a rank) L={TRAIN_L} [{smi}]: losses '
               f'{[[round(x, 5) for x in g["losses"]] for g in got]} vs one rank '
@@ -3301,6 +3481,34 @@ def phase_multi_device(dev, smi):
         expect(got[0]['heads'] == (N_HEAD if leg == 'dp' else N_HEAD // 2),
                f'{leg} ranks hold their heads')
         print(f'phase 12b {leg}=2 train steps: ok')
+    got = [r['s1_tp'] for r in ranks]
+    err, g_err, loss_err = md_errors(ranks, one_s1_train, 's1_tp')
+    f32 = one_s1_f32['grads']
+    g_f32 = grad_rel(md_unshard(ranks, f32, 's1_tp_f32', 'grads'), f32)
+    g_tp = grad_rel(md_unshard(ranks, f32, 's1_tp', 'grads'), f32)
+    g_one = grad_rel(one_s1_train['grads'], f32)
+    print(f'phase 12b stage-1 tp=2 (gloo) bf16 {N_LAYER}L/{N_HEAD}H/{D_MODEL}d '
+          f'B={S1_B} L={S1_L}, {got[0]["heads"]} heads a rank [{smi}]: losses '
+          f'{[[round(x, 5) for x in g["losses"]] for g in got]} vs one rank '
+          f'{[round(x, 5) for x in one_s1_train["losses"]]} (largest relative '
+          f'difference {loss_err:.2e}, tolerance {MD_TOL_LOSS}); largest '
+          f'parameter difference after {MD_STEPS} steps {err:.3e} (tolerance '
+          f'{MD_TOL_PARAM:.1e}); first gradient relative by norm: f32 tp '
+          f'against one rank f32 {g_f32:.2e} (tolerance {TOL_GRAD}), bf16 tp '
+          f'against one rank bf16 {g_err:.2e}, against one rank f32 {g_tp:.2e} '
+          f'where one rank bf16 is {g_one:.2e} (tolerance: {MD_TOL_GRAD} '
+          f'beyond it); step walls '
+          f'{[[round(x, 3) for x in g["walls"]] for g in got]} s against one '
+          f'rank {[round(x, 3) for x in one_s1_train["walls"]]} s ({note}); leg '
+          f'{got[0]["leg_s"]:.1f} s')
+    expect(loss_err <= MD_TOL_LOSS, 'stage-1 tp=2 losses match one rank')
+    expect(g_f32 <= TOL_GRAD, 'stage-1 tp=2 f32 gradients match one rank')
+    expect(g_tp - g_one <= MD_TOL_GRAD, 'stage-1 tp=2 bf16 gradients are as '
+           "close to the f32 gradient as one rank's")
+    expect(err <= MD_TOL_PARAM, 'stage-1 tp=2 parameters match one rank')
+    expect(all(g['heads'] == N_HEAD // 2 for g in got),
+           'stage-1 tp ranks hold half the heads')
+    print('phase 12b stage-1 tp=2 train steps: ok')
     for key, want, what in (('serve', one_serve, 'Performer serve'),
                             ('s1', one_s1, 'stage-1 serve')):
         got = [r[key] for r in ranks]
@@ -3352,6 +3560,215 @@ def phase_multi_device(dev, smi):
            'train_stage2.run ran through the NCCL mesh path')
     print('phase 12d NCCL world of one: ok')
     return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# cache_layouts: the decode-state layouts
+# ---------------------------------------------------------------------------
+
+def layout_order(content, layout):
+    """A 'khd' cache [n_layer, B, K, H, Dh] in ``layout``'s order."""
+    perm = {'khd': (0, 1, 2, 3, 4), 'hkd': (0, 1, 3, 2, 4),
+            'dk': (0, 1, 3, 4, 2)}[layout]
+    return content.permute(*perm)
+
+
+@torch.no_grad()
+def layout_logits(model, vocab, dev, layouts, K, seed):
+    """LAYOUT_STEPS teacher-forced steps with per-element clocks at
+    B=SERVE_B in each of ``layouts`` from one cache content of K rows:
+    ({layout: logits [steps, B, V]}, {layout: host ms a step})."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = SERVE_B
+    shape = (model.n_layer, B, K, model.n_head, model.d_head)
+    content = {n: 0.5 * torch.randn(shape, generator=gen, device=dev,
+                                    dtype=model.decode_dtype) for n in ('k', 'v')}
+    t0 = torch.randint(K // 4, K - LAYOUT_STEPS - 1, (B,), generator=gen,
+                       device=dev)
+    toks = torch.randint(0, vocab.size - 1, (LAYOUT_STEPS, B), generator=gen,
+                         device=dev)
+    segs = torch.zeros(B, dtype=torch.long, device=dev)
+    gpt2 = not hasattr(model, 'decoder')
+    logits, ms = {}, {}
+    for layout in layouts:
+        cache = model.init_decode_cache(B, K, layout)
+        for n in ('k', 'v'):
+            cache[n].copy_(layout_order(content[n], layout))
+        steps = []
+        torch.cuda.synchronize()
+        t = time.time()
+        for i in range(LAYOUT_STEPS):
+            steps.append(model.decode_step_batchpos(toks[i], segs, t0 + i, cache,
+                                                    layout)[0] if gpt2 else
+                         model.decode_step_pe(toks[i], t0 + i, cache, layout)[0])
+        torch.cuda.synchronize()
+        ms[layout] = (time.time() - t) * 1e3 / LAYOUT_STEPS
+        logits[layout] = torch.stack(steps)
+        del cache
+    del content
+    torch.cuda.empty_cache()
+    return logits, ms
+
+
+def layout_agreement(logits, what, smi):
+    """Print and check each layout's logits against the first layout's:
+    relative error (TOL_BF16) and the share of rows whose argmax agrees."""
+    layouts = list(logits)
+    base = logits[layouts[0]]
+    parts = []
+    for layout in layouts[1:]:
+        err = rel_err(logits[layout], base)
+        same = float((logits[layout].argmax(-1) == base.argmax(-1)).float().mean())
+        parts.append(f"'{layout}' rel err {err:.2e}, greedy rows agreeing {same:.4f}")
+        expect(bool(torch.isfinite(logits[layout]).all()) and err <= TOL_BF16,
+               f"{what} '{layout}' logits agree with '{layouts[0]}'")
+    print(f'phase 13a {what} bf16 B={SERVE_B}, {LAYOUT_STEPS} teacher-forced '
+          f"steps [{smi}]: against '{layouts[0]}': " + '; '.join(parts)
+          + f' (tol {TOL_BF16})')
+
+
+def phase_layouts_decode(dev, rec, smi):
+    """Kernel #12 with the 'md' state at B=SERVE_B in f32 and bf16 weights:
+    8 masked steps against its plain version in 'md' and against the 'dm'
+    launch on the same inputs (the state transposed), then one decode
+    step's time a layer in each layout, in turns (CUDA events around the 12
+    wrapped calls, and the profiler's device time).  The launches here
+    compare and time, and count on no path."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    from emo_disentanger_tpu_torch.ops import performer_decode as pd
+    gen = torch.Generator().manual_seed(63)
+    omega = la.draw_orthogonal_features(D_HEAD, FAVOR, gen).to(dev)
+    B = SERVE_B
+    bitwise = True
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        p = layer_params(gen, dtype, dev)
+        S_md = [torch.zeros(B, N_HEAD, FAVOR, D_HEAD, device=dev) for _ in range(2)]
+        S_dm = torch.zeros(B, N_HEAD, D_HEAD, FAVOR, device=dev)
+        z = [torch.zeros(B, N_HEAD, FAVOR, device=dev) for _ in range(3)]
+        worst = {'out': 0.0, 'S': 0.0, 'z': 0.0}
+        diff_dm = 0.0
+        for _ in range(8):
+            x = torch.randn(B, D_MODEL, generator=gen).to(dev, dtype)
+            mask = (torch.rand(B, generator=gen) > 0.3).to(dev)
+            got = pd._decode_layer_cuda(x, S_md[0], z[0], p, omega, mask, N_HEAD,
+                                        'md')
+            ref = pd._decode_layer_plain(x, S_md[1], z[1], p, omega, mask,
+                                         N_HEAD, 'md')
+            dm = pd._decode_layer_cuda(x, S_dm, z[2], p, omega, mask, N_HEAD, 'dm')
+            torch.cuda.synchronize()
+            for key, a, b in (('out', got, ref), ('S', S_md[0], S_md[1]),
+                              ('z', z[0], z[1])):
+                worst[key] = max(worst[key], rel_err(a, b))
+            diff_dm = max(diff_dm, max_abs(got, dm),
+                          max_abs(S_md[0].transpose(-1, -2), S_dm),
+                          max_abs(z[0], z[2]))
+        bitwise = bitwise and diff_dm == 0.0
+        name = dtype_name(dtype)
+        print(f"phase 13d kernel B 'md' state, {name} weights B={B} D={D_MODEL} "
+              f'H={N_HEAD} M={FAVOR} F={D_FF}, 8 masked steps: rel err vs its '
+              f'plain version out {worst["out"]:.2e} S {worst["S"]:.2e} z '
+              f"{worst['z']:.2e} (tol {tol}); against the 'dm' launch on the "
+              f'transposed state largest difference {diff_dm:.3e} (out, S, z)')
+        expect(max(worst.values()) <= tol, f"kernel B 'md' {name}")
+        expect(rel_err(got, dm) <= tol, f"kernel B 'md' against 'dm' {name}")
+
+    bf = torch.bfloat16
+    layers = [layer_params(gen, bf, dev) for _ in range(N_LAYER)]
+    x = torch.randn(B, D_MODEL, generator=gen).to(dev, bf)
+    mask = torch.ones(B, device=dev)
+    shapes = {'dm': (D_HEAD, FAVOR), 'md': (FAVOR, D_HEAD)}
+    states = {k: (torch.zeros(N_LAYER, B, N_HEAD, *shp, device=dev),
+                  torch.zeros(N_LAYER, B, N_HEAD, FAVOR, device=dev))
+              for k, shp in shapes.items()}
+
+    def step(layout):
+        S, z = states[layout]
+
+        def run():
+            for i, p in enumerate(layers):
+                pd._decode_layer_cuda(x, S[i], z[i], p, omega, mask, N_HEAD, layout)
+        return run
+    events, device = {'dm': [], 'md': []}, {}
+    for layout in ('dm', 'md', 'md', 'dm'):
+        events[layout].append(time_ms(step(layout), iters=10) / N_LAYER)
+    for layout in ('dm', 'md'):
+        device[layout] = decode_device_ms(step(layout))[0]
+    b_d, by_d = decode_bound(B, D_MODEL, N_HEAD, FAVOR, D_FF, 2, 2)
+    fmt = lambda v: 'not measured' if v is None else f'{v:.5f}'  # noqa: E731
+    print(f'phase 13d kernel B bf16 B={B} per layer in turns [{smi}]: device '
+          f"time 'dm' {fmt(device['dm'])} ms, 'md' {fmt(device['md'])} ms (the "
+          f"profiler); CUDA events around {N_LAYER} wrapped calls 'dm' "
+          f"{', '.join(f'{t:.4f}' for t in events['dm'])} ms, 'md' "
+          f"{', '.join(f'{t:.4f}' for t in events['md'])} ms; bound {b_d:.4f} "
+          f'{by_d}')
+    rec['performer_decode_layer'].update(
+        md_ms=device['md'] if device['md'] is not None else min(events['md']),
+        md_bitwise_dm=bitwise)
+    return bitwise
+
+
+def phase_cache_layouts(s1_model, s1_vocab, gpt2_model, model, omegas, vocab,
+                        dev, smi, bitwise):
+    """The cache_layouts path (phase 13): stage 1's three cache layouts and
+    GPT-2's two at full width (teacher-forced logits held across layouts),
+    GPT-2's ladder in 'dk', and the Performer's serve with the 'md' state
+    (kernel #12) against 'dm'.  Returns the path's launches.  (Phase 13b,
+    the serving steps profiled in each layout, runs with the other
+    profiles at the end: ``phase_profile_layouts``.)"""
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    from emo_disentanger_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()                  # the cache_layouts path starts here
+    s1, s1_ms = layout_logits(s1_model, s1_vocab, dev, S1_LAYOUTS,
+                              S1_EVENTS + S1_REJECT_SLACK, 71)
+    layout_agreement(s1, f'stage-1 decode_step_pe, cache '
+                     f'{S1_EVENTS + S1_REJECT_SLACK}, host ms a step '
+                     f'{ {k: round(v, 3) for k, v in s1_ms.items()} }', smi)
+    g2, g2_ms = layout_logits(gpt2_model, vocab, dev, GPT2_LAYOUTS, GPT2_CACHE, 72)
+    layout_agreement(g2, f'GPT-2 decode_step_batchpos, cache {GPT2_CACHE}, '
+                     f'host ms a step { {k: round(v, 3) for k, v in g2_ms.items()} }',
+                     smi)
+    del s1, g2
+    primers, sheets = synthetic_jobs(vocab, SERVE_B, np.random.RandomState(73),
+                                     bars=GPT2_JOB_BARS)
+    lad = Stage2BatchGenerator(
+        gpt2_model, vocab, batch=SERVE_B, temp=1.1, top_p=0.99,
+        max_events=LAYOUT_GPT2_EVENTS, gpt2_cache_len=GPT2_CACHE,
+        gpt2_window=GPT2_WINDOW, reanchor_margin=GPT2_MARGIN,
+        max_bar_tokens=GPT2_BAR_TOKENS, gpt2_tiers=LAYOUT_GPT2_TIERS,
+        cache_layout='dk', device=dev)
+    t0 = time.time()
+    streams, st = lad.generate(primers, sheets, seed=74)
+    secs = time.time() - t0
+    print(f"phase 13c GPT-2 generate 'dk' B={SERVE_B} tiers {LAYOUT_GPT2_TIERS} "
+          f'[{smi}]: {sum(st["events"])} events in {secs:.2f} s, {st["steps"]} '
+          f'steps, tier resumes {st["tier_resumes"]}, statuses '
+          f'{sorted(set(st["status"]))}')
+    expect(st['tier_resumes'] == len(LAYOUT_GPT2_TIERS),
+           "the 'dk' ladder moved up every tier")
+    check_streams(streams, primers, sheets, vocab, "'dk' ladder")
+
+    primers, sheets = synthetic_jobs(vocab, LAYOUT_JOBS, np.random.RandomState(75))
+    runs, launched = {}, {}
+    for layout in ('md', 'dm'):
+        before = _build.LAUNCHES['performer_decode_layer']
+        runs[layout] = Stage2BatchGenerator(
+            model, vocab, batch=SERVE_B, temp=1.1, top_p=0.99,
+            max_events=LAYOUT_EVENTS, omegas=omegas, state_layout=layout,
+            device=dev).serve(primers, sheets, seed=76)
+        launched[layout] = _build.LAUNCHES['performer_decode_layer'] - before
+        check_streams(runs[layout][0], primers, sheets, vocab, f"'{layout}' serve")
+    same = runs['md'][0] == runs['dm'][0] and all(
+        runs['md'][1][k] == runs['dm'][1][k] for k in ('status', 'events', 'steps'))
+    print(f"phase 13e Performer serve bf16 {LAYOUT_JOBS} jobs in {SERVE_B} slots "
+          f"[{smi}]: 'md' {runs['md'][1]['wall_seconds']:.2f} s, 'dm' "
+          f"{runs['dm'][1]['wall_seconds']:.2f} s, {runs['md'][1]['steps']} steps; "
+          f"decode-layer launches 'md' {launched['md']}, 'dm' {launched['dm']}; "
+          f"streams {'equal' if same else 'DIFFER'}")
+    expect(launched['md'] > 0, "the decode layer launched with the 'md' state")
+    if bitwise:
+        expect(same, "the 'md' serve equals the 'dm' serve (the kernel is "
+               'bit for bit the same in both layouts)')
+    return dict(_build.LAUNCHES)
 
 
 def main():
@@ -3417,7 +3834,10 @@ def main():
              'remi_generation': ('performer_decode_layer',),
              # the dp=2 and tp=2 train steps and the NCCL run: #1-#4; the
              # dp=2 Performer serve: #12
-             'multi_device': HEAD_MAJOR + ('performer_decode_layer',)}
+             'multi_device': HEAD_MAJOR + ('performer_decode_layer',),
+             # stage 1's and GPT-2's layouts run no kernel (no re-anchor
+             # there); the Performer's serve in 'md' and 'dm': #12
+             'cache_layouts': ('performer_decode_layer',)}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -3524,6 +3944,11 @@ def main():
     t_md = time.time()
     launches['multi_device'] = phase_multi_device(dev, smi)
     print(f'multi-device path took {time.time() - t_md:.0f} s')
+    t_lay = time.time()
+    bitwise = phase_layouts_decode(dev, rec, smi)
+    launches['cache_layouts'] = phase_cache_layouts(
+        s1_model, s1_vocab, gpt2_model, model, omegas, vocab, dev, smi, bitwise)
+    print(f'cache-layouts path took {time.time() - t_lay:.0f} s')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -3532,6 +3957,7 @@ def main():
     for name, r in rec.items():
         r['launches'] = launches[owner.get(name, 'serving')][name]
         r['launches_multi_device'] = launches['multi_device'].get(name, 0)
+        r['launches_cache_layouts'] = launches['cache_layouts'].get(name, 0)
 
     phase_timing(dev, rec, smi)
     phase_timing_cla(dev, rec, smi)
@@ -3541,6 +3967,9 @@ def main():
                         label='phase 7h', layout='heads-last')
     phase_profile_gpt2(gpt2_model, vocab, dev, smi)
     phase_profile_s1(s1_model, s1_vocab, dev, smi)
+    t_prof = time.time()
+    phase_profile_layouts(s1_model, s1_vocab, gpt2_model, vocab, dev, smi)
+    print(f'phase 13b took {time.time() - t_prof:.0f} s')
     print(f'chip_smoke: all phases passed in {time.time() - t_start:.0f} s')
     kernels = [dict(name=name, **{'library_ms': None, **r})
                for name, r in rec.items()]

@@ -4,14 +4,14 @@
 // emo_disentanger_tpu/ops/performer_decode.py:59 (via fused_decode_layer :154):
 //   q, k, v = x Wq + bq, x Wk + bk, x Wv + bv            (per head, Dh = D / H)
 //   phi_q   = exp(h(q) - max_m h(q)) / sqrt(M),  phi_k = mask * exp(h(k)) / sqrt(M)
-//   S      += v phi_k^T,  z += phi_k                      (in place, 'dm' layout)
+//   S      += v phi_k^T,  z += phi_k                      (in place)
 //   attn    = S phi_q / (phi_q . z + 1e-6)
 //   x1      = x + attn Wo + bo;  y = LN1(x1)
 //   out     = LN2(y + relu(y W1 + b1) W2 + b2)            (LayerNorm eps 1e-5)
 // with f32 accumulation; the matrix operands are taken in the weights'
 // stored dtype (bf16 serving weights round their activations to bf16), as
-// the TPU kernel does.  S is carried as [B, H, Dh, M] f32 ('dm'), z as
-// [B, H, M] f32.
+// the TPU kernel does.  S is carried in f32 as [B, H, Dh, M] ('dm') or
+// [B, H, M, Dh] ('md', the TPU kernel's layout), z as [B, H, M] f32.
 //
 // Bound on the H100: at serving batches the step moves the layer's weights
 // once (3,145,728 parameters; 6.29 MB in bf16) and reads and writes S
@@ -40,9 +40,13 @@
 // * favor_state_kernel: one block per (b, h) of M x DS threads, DS of them
 //   per feature m, each taking Dh / DS values of d: the features' dot
 //   products are summed across the DS threads in shared memory, and the
-//   S read-modify-write ('dm', coalesced along M) has all of a thread's d
-//   in flight at once.  S phi_q is reduced along M through shared memory,
-//   with no dependent shuffle chain.
+//   S read-modify-write has all of a thread's d in flight at once.  S
+//   phi_q is reduced along M through shared memory, with no dependent
+//   shuffle chain.  The state's layout is a template parameter that only
+//   moves S's index (d M + m in 'dm', coalesced along M; m Dh + d in 'md',
+//   a stride of Dh across a warp's lanes): the arithmetic and its order are
+//   the same, so an 'md' step is bit for bit the 'dm' step on the
+//   transposed state.
 // Intermediates (q, k, v, attn, x1, y, FF hidden) go through scratch the
 // caller allocates (performer_decode_scratch_floats).  Batches above 16 run
 // as chunks of 16 rows.
@@ -380,8 +384,15 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
   }
 }
 
+// S's offset of (d, m) inside one (b, h): 'dm' [Dh][M], 'md' [M][Dh]
+template <bool MD>
+__device__ __forceinline__ size_t state_at(int d, int m, int Dh, int M) {
+  return MD ? (size_t)m * Dh + d : (size_t)d * M + m;
+}
+
 // one block per (b, h); thread (j, m) takes feature m and the d of
 // {j, j + DS, ...}, DS = blockDim.x / M
+template <bool MD>
 __global__ void favor_state_kernel(const float* __restrict__ qkv, const float* __restrict__ omega,
                                    const float* __restrict__ mask, float* __restrict__ S,
                                    float* __restrict__ z, float* __restrict__ attn, int B, int H,
@@ -405,7 +416,7 @@ __global__ void favor_state_kernel(const float* __restrict__ qkv, const float* _
 #pragma unroll
   for (int i = 0; i < STATE_PER; ++i)
     if (i < nd) {
-      s[i] = Sb[(size_t)(j + DS * i) * M + m];
+      s[i] = Sb[state_at<MD>(j + DS * i, m, Dh, M)];
       om[i] = omega[(j + DS * i) * M + m];
     }
   const float z0 = j == 0 ? z[bh * M + m] : 0.f;
@@ -456,7 +467,7 @@ __global__ void favor_state_kernel(const float* __restrict__ qkv, const float* _
     if (i >= nd) break;
     const int d = j + DS * i;
     s[i] += vh[d] * pk;
-    Sb[(size_t)d * M + m] = s[i];
+    Sb[state_at<MD>(d, m, Dh, M)] = s[i];
     prod[m * (Dh + 1) + d] = pq * s[i];
   }
   __syncthreads();
@@ -507,7 +518,8 @@ size_t scratch_floats(int D, int F) { return (size_t)BM * (7 * D + F); }
 
 template <class TW>
 cudaError_t decode_chunk(const void* x, bool x_bf16, const void* const* p, const float* omega,
-                         const float* mask, float* S, float* z, void* out, float* scratch,
+                         const float* mask, float* S, bool s_md, float* z, void* out,
+                         float* scratch,
                          int* counters, int B, int D, int H, int M, int F, float scale,
                          float rsqm, float eps, float ln_eps, cudaStream_t s) {
   const int Dh = D / H;
@@ -536,11 +548,11 @@ cudaError_t decode_chunk(const void* x, bool x_bf16, const void* const* p, const
 
   const int T = M * state_split(Dh, M);
   const size_t smem = sizeof(float) * (3 * Dh + 32 + 4 * T + M * (Dh + 1) + (T / Dh) * Dh);
-  err = cudaFuncSetAttribute(favor_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const auto state_kernel = s_md ? favor_state_kernel<true> : favor_state_kernel<false>;
+  err = cudaFuncSetAttribute(state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  favor_state_kernel<<<B * H, T, smem, s>>>(qkv, omega, mask, S, z, attn, B, H, Dh, M, scale,
-                                            rsqm, eps);
+  state_kernel<<<B * H, T, smem, s>>>(qkv, omega, mask, S, z, attn, B, H, Dh, M, scale, rsqm,
+                                      eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // x1 = x + attn Wo + bo, then y = LN1(x1)
@@ -599,7 +611,8 @@ cudaError_t decode_chunk(const void* x, bool x_bf16, const void* const* p, const
 
 template <class TW>
 int decode_layer(const void* x, bool x_bf16, const void* const* p, const float* omega,
-                 const float* mask, float* S, float* z, void* out, float* scratch, int* counters,
+                 const float* mask, float* S, bool s_md, float* z, void* out, float* scratch,
+                 int* counters,
                  int B, int D, int H, int M, int F, float eps, float ln_eps, cudaStream_t s) {
   const float scale = (float)pow((double)(D / H), -0.25);
   const float rsqm = (float)(1.0 / sqrt((double)M));
@@ -609,7 +622,7 @@ int decode_layer(const void* x, bool x_bf16, const void* const* p, const float* 
     const size_t sb = (size_t)b0 * H;
     cudaError_t err = decode_chunk<TW>(
         static_cast<const char*>(x) + b0 * D * xb, x_bf16, p, omega, mask ? mask + b0 : nullptr,
-        S + sb * (D / H) * M, z + sb * M, static_cast<char*>(out) + b0 * D * xb, scratch,
+        S + sb * (D / H) * M, s_md, z + sb * M, static_cast<char*>(out) + b0 * D * xb, scratch,
         counters, nb, D, H, M, F, scale, rsqm, eps, ln_eps, s);
     if (err != cudaSuccess) return (int)err;
   }
@@ -630,25 +643,26 @@ int performer_decode_counter_ints() { return 2; }
 // x [B, D] (f32, or bf16 when x_bf16); p: the 16 parameters in the order
 // wq bq wk bk wv bv wo bo w1 b1 w2 b2 g1 be1 g2 be2, weights [out, in], all f32
 // or all bf16 (w_bf16); omega [D/H, M] f32; mask [B] f32 or null (all ones);
-// S [B, H, D/H, M] and z [B, H, M] f32, updated in place; out [B, D] in x's
+// S [B, H, D/H, M] ('dm'; [B, H, M, D/H] 'md' when s_md) and z [B, H, M] f32,
+// updated in place; out [B, D] in x's
 // dtype; scratch and counters as sized above, the counters zero before the
 // first call (each launch leaves them zero).  D and F multiples of 8 x the
 // weights' 16-byte step (256 for bf16, 128 for f32 weights), D <= 1024, M a
 // multiple of 16 in [32, 512] with Dh = D / H such that state_split finds a
 // split.  One stream at a time may use one counters buffer.
 int performer_decode_layer(const void* x, int x_bf16, const void* const* p, int w_bf16,
-                           const float* omega, const float* mask, float* S, float* z,
-                           void* out, float* scratch, int* counters, int B, int D, int H, int M,
-                           int F, float eps, float ln_eps, void* stream) {
+                           const float* omega, const float* mask, float* S, int s_md,
+                           float* z, void* out, float* scratch, int* counters, int B, int D,
+                           int H, int M, int F, float eps, float ln_eps, void* stream) {
   const int kmin = (w_bf16 ? Step<__nv_bfloat16>::K : Step<float>::K) * WARPS;
   if (B <= 0 || H <= 0 || D % H || D % kmin || F % kmin || D > 32 * LN_PER || M % 16 ||
       M < 32 || M > STATE_THREADS || !state_split(D / H, M))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_bf16 ? decode_layer<__nv_bfloat16>(x, x_bf16, p, omega, mask, S, z, out, scratch,
-                                               counters, B, D, H, M, F, eps, ln_eps, s)
-                : decode_layer<float>(x, x_bf16, p, omega, mask, S, z, out, scratch, counters, B,
-                                      D, H, M, F, eps, ln_eps, s);
+  return w_bf16 ? decode_layer<__nv_bfloat16>(x, x_bf16, p, omega, mask, S, s_md != 0, z, out,
+                                               scratch, counters, B, D, H, M, F, eps, ln_eps, s)
+                : decode_layer<float>(x, x_bf16, p, omega, mask, S, s_md != 0, z, out, scratch,
+                                      counters, B, D, H, M, F, eps, ln_eps, s);
 }
 
 }  // extern "C"

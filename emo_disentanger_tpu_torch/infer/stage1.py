@@ -27,6 +27,12 @@ masks, so the host reads whether any song runs only every
 position is a host integer here, so the chunked attention's chunk count
 needs no device read.
 
+The decode cache is in ``cache_layout`` ('khd', 'hkd' or 'dk';
+``EMODIS_S1_CACHE_LAYOUT`` when None, else 'khd'; ``ops.attention``), as
+JAX's generators take it (``stage1.py:163-182``).  ``Stage1Generator``
+decodes a 'khd' cache with the chunked attention and a head-major one with
+the whole-cache attention, as JAX does (``stage1.py:46-49``).
+
 Over a mesh (``Stage1BatchGenerator``'s ``mesh``), a rank runs its rows of
 the B songs: every step draws ``torch.rand(B)`` uniforms on every rank and
 each keeps its rows, and the host reads are reduced over the data axes, so
@@ -35,6 +41,7 @@ every rank steps as often as one device would (``stage2_batch``).
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -43,6 +50,7 @@ import torch
 
 from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
+from ..ops.attention import VALID_LAYOUTS
 from ..ops.sampling import nucleus_sample
 from ..parallel.mesh import any_rows, batch_rows
 from ..utils.device import resolve_device
@@ -68,8 +76,13 @@ class SongLoop:
     def __init__(self, model: PlainTransformer, vocab: Vocab, *, batch: int,
                  temp: float, top_p: float, max_events: int, max_bars: int,
                  device: Union[str, torch.device], functional: bool = True,
-                 mesh=None):
+                 mesh=None, cache_layout: Optional[str] = None):
         self.device = resolve_device(device)
+        self.cache_layout = (cache_layout if cache_layout is not None else
+                             os.environ.get('EMODIS_S1_CACHE_LAYOUT', 'khd'))
+        if self.cache_layout not in VALID_LAYOUTS:
+            raise ValueError(f'cache_layout must be one of {VALID_LAYOUTS} '
+                             f'(got {self.cache_layout!r})')
         self.mesh, self.rows = batch_rows(mesh, batch)
         self.nb = self.rows.stop - self.rows.start      # this rank's songs
         if not isinstance(model, PlainTransformer):
@@ -173,10 +186,12 @@ class SongLoop:
         that runs ``max_iters`` steps is marked STUCK."""
         per_element = isinstance(s['t'], torch.Tensor)
         if per_element:
-            logits, _ = self.model.decode_step_pe(s['last'], s['t'], s['cache'])
+            logits, _ = self.model.decode_step_pe(s['last'], s['t'], s['cache'],
+                                                  self.cache_layout)
         else:
             logits, _ = self.model.decode_step(s['last'], s['t'], s['cache'],
-                                               full_attention=full_attention)
+                                               full_attention=full_attention,
+                                               layout=self.cache_layout)
         s['t'] = s['t'] + 1
         in_primer = s['fed'] < s['primer_len']
         prim_next = s['primer'].gather(1, s['fed'].clamp(
@@ -257,10 +272,12 @@ class Stage1Generator(SongLoop):
                  temp: float = 1.2, top_p: float = 0.97,
                  max_events: int = 512, max_bars: int = 128,
                  functional: bool = True, reject_slack: int = 1024,
+                 cache_layout: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
         super().__init__(model, vocab, batch=1, temp=temp, top_p=top_p,
                          max_events=max_events, max_bars=max_bars,
-                         device=device, functional=functional)
+                         device=device, functional=functional,
+                         cache_layout=cache_layout)
         self.max_klen = max_events + reject_slack
 
     @torch.no_grad()
@@ -271,7 +288,8 @@ class Stage1Generator(SongLoop):
                  ) -> Tuple[Optional[List[str]], dict]:
         """Generate one piece: (events without the dropped last token, or
         None for a stuck song; stats).  All primer tokens but the last are
-        prefilled first; decode steps take the chunked attention (B=1).
+        prefilled first; decode steps take the chunked attention (B=1) in
+        'khd' and the whole-cache one in the head-major layouts.
         ``prompt_bars`` defaults to the primer's Bar_None count minus one
         (the reference's prompt convention, which assumes the primer opens
         with its Emotion token)."""
@@ -282,10 +300,12 @@ class Stage1Generator(SongLoop):
         t0 = time.time()
         s = self._fresh(jobs, [0])
         plen = int(jobs['primer_len'][0])
-        s['cache'] = self.model.init_decode_cache(1, self.max_klen)
+        s['cache'] = self.model.init_decode_cache(1, self.max_klen,
+                                                  self.cache_layout)
         prim = s['primer'][:, :plen]
         for i in range(plen - 1):
-            self.model.decode_step(prim[:, i], i, s['cache'])
+            self.model.decode_step(prim[:, i], i, s['cache'],
+                                   layout=self.cache_layout)
         s['t'] = plen - 1
         s['last'] = prim[:, plen - 1]
         s['fed'] = s['primer_len'].clone()

@@ -15,8 +15,11 @@ reject_slack] by default: the step whose clock reaches a tier's last row
 marks the running songs OVERFLOW, they return to RUNNING and the same
 state and random stream continue in the next tier, with no replayed step.
 Attention masks the positions past the clock, so the streams are the
-single-tier run's.  The tiers are leading views of one cache of the full
-size, so moving up copies nothing.
+single-tier run's.  The tiers are leading views along K of one cache of the
+full size (K is the third axis of a layer's cache in 'khd', the fourth in
+'hkd', the last in 'dk'), so moving up copies nothing; in the head-major
+layouts such a view is still one batched matrix a (b, h) at one stride, so
+the attention reads it in place.
 
 ``serve`` streams N jobs through the B slots with a clock per slot
 (``decode_step_pe``) at the full Kmax with no ladder (an OVERFLOW is
@@ -46,6 +49,7 @@ import torch
 
 from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
+from ..ops.attention import K_AXIS
 from ..parallel.mesh import gather_rows, reduce_flags
 from .stage1 import (
     HOST_CHECK_STEPS, STATUS_IDLE, STATUS_OVERFLOW, STATUS_RUNNING,
@@ -62,16 +66,20 @@ class Stage1BatchGenerator(SongLoop):
                  functional: bool = True, reject_slack: int = 1024,
                  fast_slack: Optional[int] = 256,
                  tiers: Optional[Sequence[int]] = None, mesh=None,
+                 cache_layout: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
         """``fast_slack``: the ladder [max_events + fast_slack, max_events +
         reject_slack] (None: one tier).  ``tiers`` overrides it with
         explicit intermediate sizes (values below max_events are legal: a
         song that spills mid-primer continues in the next tier).  ``mesh``
         splits the ``batch`` songs over its data axes (``batch`` must divide
-        by dp * dcn).  ``functional=False`` decodes REMI: no key step."""
+        by dp * dcn).  ``functional=False`` decodes REMI: no key step.
+        ``cache_layout``: 'khd', 'hkd' or 'dk' (``stage1`` module
+        docstring)."""
         super().__init__(model, vocab, batch=batch, temp=temp, top_p=top_p,
                          max_events=max_events, max_bars=max_bars,
-                         device=device, functional=functional, mesh=mesh)
+                         device=device, functional=functional, mesh=mesh,
+                         cache_layout=cache_layout)
         self.full_klen = max_events + reject_slack
         if tiers is None:
             tiers = ([max_events + fast_slack]
@@ -98,7 +106,9 @@ class Stage1BatchGenerator(SongLoop):
         t0 = time.time()
         gen = self._generator(seed)
         s = self._fresh(jobs, list(range(self.batch))[self.rows])
-        full = self.model.init_decode_cache(self.nb, self.full_klen)
+        full = self.model.init_decode_cache(self.nb, self.full_klen,
+                                            self.cache_layout)
+        k_axis = 1 + K_AXIS[self.cache_layout]      # of [n_layer, B, ...]
         s['t'] = 0
         iters = resumed = 0
         for i, klen in enumerate(self.klens):
@@ -111,8 +121,9 @@ class Stage1BatchGenerator(SongLoop):
                 s['status'] = torch.where(overflow, STATUS_RUNNING, s['status'])
             # the tier: the first klen positions of the full cache; the
             # position heads stay whole (they are indexed by distance)
-            s['cache'] = {'k': full['k'][:, :, :klen],
-                          'v': full['v'][:, :, :klen], 'r': full['r']}
+            s['cache'] = {'k': full['k'].narrow(k_axis, 0, klen),
+                          'v': full['v'].narrow(k_axis, 0, klen),
+                          'r': full['r']}
             iters = self._lockstep(s, gen, iters, max_klen=klen,
                                    full_attention=True)
         got = {k: gather_rows(self.mesh, s[k]) for k in (
@@ -186,7 +197,8 @@ class Stage1BatchGenerator(SongLoop):
         first = min(B, N)
         slot_job: List[Optional[int]] = list(range(first)) + [None] * (B - first)
         s = self._fresh(jobs, (list(range(first)) + [0] * (B - first))[self.rows])
-        s['cache'] = self.model.init_decode_cache(self.nb, self.full_klen)
+        s['cache'] = self.model.init_decode_cache(self.nb, self.full_klen,
+                                                  self.cache_layout)
         s['t'] = torch.zeros(self.nb, dtype=torch.long, device=self.device)
         idle = (np.arange(B) >= first)[self.rows]
         if idle.any():

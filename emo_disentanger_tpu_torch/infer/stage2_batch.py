@@ -27,6 +27,13 @@ step on which any element reaches a tier's end hands back, the caches are
 padded to the next tier and the same state continues, so streams equal the
 single-cache run's (attention masks the positions past each clock).
 
+Decode-state layouts, as JAX's generator picks them (``stage2_batch.py:
+69-91``): GPT-2's KV cache in ``cache_layout`` 'khd' [n_layer, B, K, H, Dh]
+or 'dk' [n_layer, B, H, Dh, K] (``EMODIS_S2_CACHE_LAYOUT`` when None, else
+'khd'); the Performer's FAVOR+ state S in ``state_layout`` 'dm' or 'md'
+(``EMODIS_PERF_STATE_LAYOUT`` when None, else 'dm').  The ladder pads and
+the re-anchor writes along the cache's K axis in either layout.
+
 The body is a Python loop over device tensors.  Elements that are not
 running are frozen by the status masks, so the host reads ``any(running)``
 only every ``HOST_CHECK_STEPS`` steps; the extra steps change nothing.  The
@@ -52,6 +59,7 @@ flagged element.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -98,10 +106,25 @@ class Stage2BatchGenerator:
                  reanchor_margin: int = 256, serve_chunk_steps: int = 192,
                  omegas: Optional[torch.Tensor] = None,
                  gpt2_tiers: Optional[Sequence[int]] = None, mesh=None,
+                 cache_layout: Optional[str] = None,
+                 state_layout: Optional[str] = None,
                  device: Union[str, torch.device] = 'cuda'):
         """``batch`` counts the slots over all ranks; ``mesh`` splits them
-        over its data axes (``batch`` must divide by dp * dcn)."""
+        over its data axes (``batch`` must divide by dp * dcn).
+        ``cache_layout`` / ``state_layout``: the module docstring."""
         self.device = resolve_device(device)
+        self.cache_layout = (cache_layout if cache_layout is not None else
+                             os.environ.get('EMODIS_S2_CACHE_LAYOUT', 'khd'))
+        if self.cache_layout not in ('khd', 'dk'):
+            raise ValueError(f"cache_layout must be 'khd' or 'dk' (got "
+                             f'{self.cache_layout!r})')
+        self.state_layout = (state_layout if state_layout is not None else
+                             os.environ.get('EMODIS_PERF_STATE_LAYOUT', 'dm'))
+        if self.state_layout not in ('dm', 'md'):
+            raise ValueError(f"state_layout must be 'dm' or 'md' (got "
+                             f'{self.state_layout!r})')
+        # the K axis of the GPT-2 cache [n_layer, B, ...]
+        self._k_axis = 2 if self.cache_layout == 'khd' else 4
         self.mesh, self.rows = batch_rows(mesh, batch)
         self.nb = self.rows.stop - self.rows.start      # this rank's slots
         self.is_performer = isinstance(model, MusicPerformer)
@@ -165,7 +188,7 @@ class Stage2BatchGenerator:
     # ---- the loop body ----
 
     def _cache_len(self, s: Dict) -> int:
-        return s['state']['k'].shape[2]
+        return s['state']['k'].shape[self._k_axis]
 
     def _step(self, s: Dict, gen: torch.Generator) -> None:
         """One decode step for every element, updating ``s`` in place."""
@@ -213,10 +236,11 @@ class Stage2BatchGenerator:
         advance = act & ~reject
         if self.is_performer:
             new_logits, _ = self.model.decode_step_batchpos(
-                token, seg, s['t'], self.omegas, s['state'], update_mask=advance)
+                token, seg, s['t'], self.omegas, s['state'], update_mask=advance,
+                state_layout=self.state_layout)
         else:
             new_logits, _ = self.model.decode_step_batchpos(
-                token, seg, s['t'], s['state'])
+                token, seg, s['t'], s['state'], self.cache_layout)
         s['logits'] = torch.where(advance[:, None], new_logits, s['logits'])
         s['t'] = s['t'] + advance
         s['t_hi'] += 1
@@ -308,8 +332,13 @@ class Stage2BatchGenerator:
         sel = flag.nonzero()[:, 0]
         for name, new in (('k', k), ('v', v)):
             cache = s['state'][name]
-            cache[:, sel, :W] = new[:, sel].to(cache.dtype)
-            cache[:, sel, W:] = 0
+            new = new[:, sel].to(cache.dtype)          # [n_layer, n, W, H, Dh]
+            if self.cache_layout == 'khd':
+                cache[:, sel, :W] = new
+                cache[:, sel, W:] = 0
+            else:
+                cache[:, sel, ..., :W] = new.permute(0, 1, 3, 4, 2)
+                cache[:, sel, ..., W:] = 0
         s['t'] = torch.where(flag, keep_len, s['t'])
         s['reanchors'] = s['reanchors'] + flag
         s['need_re'] = torch.zeros_like(flag)
@@ -414,8 +443,10 @@ class Stage2BatchGenerator:
         None)."""
         B, dev = self.nb, self.device
         zl = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)
-        state = (self.model.init_decode_state(B) if self.is_performer else
-                 self.model.init_decode_cache(B, cache_len or self.gpt2_cache_len))
+        state = (self.model.init_decode_state(B, self.state_layout)
+                 if self.is_performer else
+                 self.model.init_decode_cache(B, cache_len or self.gpt2_cache_len,
+                                              self.cache_layout))
         s = {'state': state,
              'out': zl(B, self.max_events + 8),
              'out_segs': zl(B, self.max_events + 8),
@@ -488,8 +519,9 @@ class Stage2BatchGenerator:
             # unwritten positions are masked by the decode, so padding the
             # caches changes no logit
             for name, cache in s['state'].items():
-                grow = tier - cache.shape[2]
-                s['state'][name] = F.pad(cache, (0, 0, 0, 0, 0, grow))
+                grow = tier - cache.shape[self._k_axis]
+                pad = (0, 0, 0, 0, 0, grow) if self._k_axis == 2 else (0, grow)
+                s['state'][name] = F.pad(cache, pad)
             s['status'] = torch.where(overflow, STATUS_RUNNING, s['status'])
             iters = self._lockstep(s, gen, iters)
         got = {k: gather_rows(self.mesh, s[k]) for k in (

@@ -5,9 +5,10 @@ Performer (token embedding scaled by sqrt(d), segment embedding, interleaved
 sinusoidal positions), pre-LN GPT-2 blocks (ln_1 -> causal attention with a
 biased fused QKV projection and 1/sqrt(d_head) scaling -> residual; ln_2 ->
 MLP with tanh-approximated GELU -> residual), no final LayerNorm, and the
-vocabulary head in float32.  The decode carries a KV cache in the 'khd'
-layout [n_layer, B, Kmax, H, Dh] and writes each element's row at its own
-clock (``decode_step_batchpos``).
+vocabulary head in float32.  The decode carries a KV cache in JAX's 'khd'
+layout [n_layer, B, Kmax, H, Dh] or its 'dk' layout [n_layer, B, H, Dh,
+Kmax] (``ops.attention``; 'hkd' is refused, as JAX refuses it) and writes
+each element's row at its own clock (``decode_step_batchpos``).
 
 Parameter names follow the reference checkpoint (``token_emb.emb_lookup``,
 ``segemb.emb_lookup``, ``transformer_decoder.{i}.ln_1`` / ``.attn.c_attn`` /
@@ -36,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import NEG_INF, layout_equations, write_row_pe
+from ..ops.attention import (
+    NEG_INF, cache_positions, layout_equations, write_row_pe)
 from ..ops.flash_attention import flash_attention
 from ..parallel.sharding_rules import parallel_linear
 from ..utils.device import resolve_device
@@ -50,6 +52,12 @@ def _flash_applies(training: bool, q: torch.Tensor) -> bool:
     device in place of the backend; q [B, L, H, Dh]."""
     L = q.shape[1]
     return not training and q.is_cuda and L >= 512 and L % 128 == 0
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in ('khd', 'dk'):
+        raise ValueError(f"MusicGPT2 decode supports 'khd' and 'dk', got "
+                         f'{layout!r}')
 
 
 class Conv1D(nn.Module):
@@ -231,14 +239,17 @@ class MusicGPT2(nn.Module):
 
     def init_decode_cache(self, batch: int, max_klen: int, layout: str = 'khd'
                           ) -> Dict[str, torch.Tensor]:
-        """Zero k and v caches [n_layer, B, Kmax, H, Dh] in the decode
-        dtype.  The port carries 'khd' only (``ops.attention``)."""
-        layout_equations(layout)
+        """Zero k and v caches in the decode dtype: 'khd' [n_layer, B,
+        Kmax, H, Dh] or 'dk' [n_layer, B, H, Dh, Kmax] (``gpt2.py:219-231``).
+        Pass the same ``layout`` to the decode steps."""
+        _check_layout(layout)
         if getattr(self, 'tp_size', 1) > 1:
             raise NotImplementedError('a tensor-parallel model does not '
                                       'decode; serving shards the batch')
-        k = torch.zeros(self.n_layer, batch, max_klen, self.n_head,
-                        self.d_head, dtype=self.decode_dtype, device=self.device)
+        H, Dh = self.n_head, self.d_head
+        shape = (max_klen, H, Dh) if layout == 'khd' else (H, Dh, max_klen)
+        k = torch.zeros((self.n_layer, batch) + shape, dtype=self.decode_dtype,
+                        device=self.device)
         return {'k': k, 'v': torch.zeros_like(k)}
 
     def decode_step(self, token: torch.Tensor, seg: torch.Tensor, t: int,
@@ -256,14 +267,16 @@ class MusicGPT2(nn.Module):
         """Like :meth:`decode_step` with a per-element position ``t`` [B]:
         each element writes its cache row at its own clock (clamped to the
         cache, as JAX clamps) and attends over positions <= t.  Positional
-        rows are clipped at ``max_len - 1``.  The cache is written in place
-        and returned."""
+        rows are clipped at ``max_len - 1``.  The cache (in ``layout``) is
+        written in place and returned."""
+        _check_layout(layout)
         eq_s, eq_v = layout_equations(layout)
         B = token.shape[0]
         h = self._embed(token, seg, self.pe[t.clamp(0, self.max_len - 1)])
         h = h.to(self.decode_dtype)
         k_all, v_all = cache['k'], cache['v']
-        masked = torch.arange(k_all.shape[2], device=t.device)[None] > t[:, None]
+        K = cache_positions(k_all[0], layout)
+        masked = torch.arange(K, device=t.device)[None] > t[:, None]
         scale = 1.0 / (self.d_head ** 0.5)
         for i, block in enumerate(self.transformer_decoder):
             qkv = block.attn.c_attn(block.ln_1(h))

@@ -50,6 +50,12 @@ while it traces), the layer hands the [B, L, D] projections to
 the output projection (``models/performer.py:83-88`` there): the same
 function, without the head-split copies.  Parameter names are the same in
 both layouts, and the decode is the same.
+
+Decode state.  The FAVOR+ state S is carried in either of JAX's layouts
+(``performer.py:104-165,249-308``): 'dm' [.., Dh, M], the default, or 'md'
+[.., M, Dh]; z is [.., M] in both.  ``init_decode_state`` and the decode
+steps take ``state_layout``, and on CUDA both layouts run kernel #12
+(``ops.performer_decode``).
 """
 
 from __future__ import annotations
@@ -156,11 +162,14 @@ class PerformerLayer(nn.Module):
 
     def decode_step(self, x: torch.Tensor, omega: torch.Tensor,
                     S: torch.Tensor, z: torch.Tensor,
-                    update_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, D] -> [B, D]; S [B, H, Dh, M] / z [B, H, M] are updated in
-        place; ``update_mask`` [B] freezes masked elements' state."""
+                    update_mask: Optional[torch.Tensor] = None,
+                    state_layout: str = 'dm') -> torch.Tensor:
+        """x [B, D] -> [B, D]; S ([B, H, Dh, M] in 'dm', [B, H, M, Dh] in
+        'md') and z [B, H, M] are updated in place; ``update_mask`` [B]
+        freezes masked elements' state."""
         return fused_decode_layer(x, S, z, self.decode_params(), omega,
-                                  update_mask, n_head=self.n_head)
+                                  update_mask, n_head=self.n_head,
+                                  state_layout=state_layout)
 
 
 class TransformerDecoder(nn.Module):
@@ -275,36 +284,40 @@ class MusicPerformer(nn.Module):
     # ------------------------------------------------------------ decode
     def init_decode_state(self, batch: int, state_layout: str = 'dm'
                           ) -> Dict[str, torch.Tensor]:
-        """Zero FAVOR+ state in the 'dm' layout: S [n_layer, B, H, Dh, M]
-        and z [n_layer, B, H, M], float32.  The port carries 'dm' only;
-        ``state_layout`` exists so that callers of the JAX signature
-        fail loudly on 'md'."""
-        if state_layout != 'dm':
-            raise ValueError(f"the port carries the 'dm' state layout only "
-                             f"(got {state_layout!r})")
+        """Zero FAVOR+ state, float32 (``performer.py:249-262``): S
+        [n_layer, B, H, Dh, M] in 'dm' or [n_layer, B, H, M, Dh] in 'md',
+        and z [n_layer, B, H, M].  Pass the same ``state_layout`` to the
+        decode steps."""
+        if state_layout not in ('dm', 'md'):
+            raise ValueError(f"unknown state_layout {state_layout!r}; "
+                             "expected 'dm' or 'md'")
         if getattr(self, 'tp_size', 1) > 1:
             raise NotImplementedError('a tensor-parallel model does not '
                                       'decode; serving shards the batch')
         kw = dict(dtype=torch.float32, device=self.device)
+        sdims = ((self.d_head, self.favor_dims) if state_layout == 'dm'
+                 else (self.favor_dims, self.d_head))
         return {
-            'S': torch.zeros(self.n_layer, batch, self.n_head, self.d_head,
-                             self.favor_dims, **kw),
+            'S': torch.zeros(self.n_layer, batch, self.n_head, *sdims, **kw),
             'z': torch.zeros(self.n_layer, batch, self.n_head,
                              self.favor_dims, **kw),
         }
 
     def decode_step(self, token: torch.Tensor, seg: torch.Tensor, t: int,
                     omegas: torch.Tensor, state: Dict[str, torch.Tensor],
+                    state_layout: str = 'dm',
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """token/seg [B], one position ``t`` for all -> (logits [B, V],
-        state); the state is updated in place."""
+        state); the state (in ``state_layout``) is updated in place."""
         tv = torch.full(token.shape, t, dtype=torch.long, device=token.device)
-        return self.decode_step_batchpos(token, seg, tv, omegas, state)
+        return self.decode_step_batchpos(token, seg, tv, omegas, state,
+                                         state_layout=state_layout)
 
     def decode_step_batchpos(self, token: torch.Tensor, seg: torch.Tensor,
                              t: torch.Tensor, omegas: torch.Tensor,
                              state: Dict[str, torch.Tensor],
                              update_mask: Optional[torch.Tensor] = None,
+                             state_layout: str = 'dm',
                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Like :meth:`decode_step` with a per-element position ``t`` [B]
         (each song advances its own clock; only the positional lookup
@@ -314,7 +327,7 @@ class MusicPerformer(nn.Module):
         mask = None if update_mask is None else update_mask.to(torch.float32)
         for i, layer in enumerate(self.layers):
             h = layer.decode_step(h, omegas[i], state['S'][i], state['z'][i],
-                                  mask)
+                                  mask, state_layout)
         return self._logits(h), state
 
     def compute_loss(self, logits: torch.Tensor, targets: torch.Tensor

@@ -16,13 +16,29 @@ Parameter names are the reference checkpoint's (``word_emb.emb_lookup``,
 ``decoder.layers.{i}.pos_ff.CoreNet.{0,3}`` / ``.pos_ff.layer_norm``,
 ``dec_out_proj``), so a released state dict loads by name.
 
-Decode.  ``init_decode_cache`` allocates k/v [n_layer, B, Kmax, H, Dh] and
-the distance-indexed position heads r [n_layer, Kmax, H, Dh] once;
+Decode.  ``init_decode_cache(layout)`` allocates k/v and the
+distance-indexed position heads r once, in one of JAX's three layouts
+(``ops.attention``): 'khd' k/v [n_layer, B, Kmax, H, Dh] with r [n_layer,
+Kmax, H, Dh], or head-major 'hkd' [n_layer, B, H, Kmax, Dh] / 'dk'
+[n_layer, B, H, Dh, Kmax] with r [n_layer, H, Dh, Kmax];
 ``decode_step`` (one clock for all) and ``decode_step_pe`` (a clock per
-element) write them in place.  Weights are fixed at inference, so caching
-k/v after the fused projection gives the reference's recompute-from-mems
-attention.  ``decode_step`` takes the chunked live-prefix attention below
-B=32 and the whole-cache one from there, as JAX does (``txl.py:437``).
+element) take the same ``layout`` and write the caches in place.  Weights
+are fixed at inference, so caching k/v after the fused projection gives the
+reference's recompute-from-mems attention.  In 'khd', ``decode_step`` takes
+the chunked live-prefix attention below B=32 and the whole-cache one from
+there, as JAX does (``txl.py:437``); the head-major layouts always take the
+whole-cache one (``txl.py:429-434``).
+
+Tensor parallelism (``parallel.sharding_rules``).  After ``shard_params``
+each rank holds n_head / tp heads: ``qkv_net`` (block by block) and
+``r_net`` column-parallel, ``o_net`` row-parallel, the feed-forward's
+``CoreNet.0`` / ``.3`` column / row, and the vocabulary head column-parallel
+with its logits gathered; every projection runs through
+``parallel_linear``.  The biases r_w / r_r stay replicated, and the forward
+takes this rank's heads of them through ``tp_heads``, whose backward sums
+their gradient over tp, so every tp rank holds the whole gradient once.
+Hidden states, and so the XL memories, are full width on every rank.  A
+tensor-parallel model does not decode: serving shards the batch.
 
 Precision, as the Performer's (``models/performer.py``): the forward
 computes in ``compute_dtype`` when given, else in the parameters' dtype;
@@ -44,9 +60,11 @@ from torch import nn
 
 from ..ops.attention import (
     NEG_INF, flash_decode_attention, full_decode_attention,
-    full_decode_attention_pe, write_row_pe)
+    full_decode_attention_pe, layout_equations, write_row, write_row_pe)
+from ..parallel.sharding_rules import parallel_linear, tp_heads
 from ..utils.device import resolve_device
-from .embeddings import LayerNorm, TokenEmbedding, txl_positional_embedding
+from .embeddings import (
+    LayerNorm, TokenEmbedding, head_f32, txl_positional_embedding)
 
 
 def _rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -57,10 +75,15 @@ def _rel_shift(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h, k + 1, q)[:, :, 1:].reshape(b, h, q, k)
 
 
+def _apply_linear(x, weight, bias):
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
 def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``mod`` applied in ``x``'s dtype (its weights cast to it)."""
-    bias = None if mod.bias is None else mod.bias.to(x.dtype)
-    return F.linear(x, mod.weight.to(x.dtype), bias)
+    """``mod`` applied in ``x``'s dtype (its weights cast to it), with its
+    tensor-parallel collectives when it is sharded."""
+    return parallel_linear(mod, x, _apply_linear)
 
 
 class TXLSelfAttention(nn.Module):
@@ -81,17 +104,18 @@ class TXLSelfAttention(nn.Module):
 
     def forward(self, x, pos_emb, r_w_bias, r_r_bias, attn_mask, mems=None):
         """x [B, Q, D]; pos_emb [K, D] float32; attn_mask [Q, K], True =
-        masked; mems [B, mlen, D] or None."""
+        masked; mems [B, mlen, D] or None; r_w_bias / r_r_bias [h, Dh] of
+        this rank's h heads (all of them without tensor parallelism)."""
         B, Q, _ = x.shape
         cat = x if mems is None else torch.cat([mems.to(x.dtype), x], 1)
         K = cat.shape[1]
         inp = self.layer_norm(cat) if self.pre_lnorm else cat
         q, k, v = _linear(self.qkv_net, inp).chunk(3, dim=-1)
-        q = q[:, -Q:].reshape(B, Q, self.n_head, self.d_head)
-        k = k.reshape(B, K, self.n_head, self.d_head)
-        v = v.reshape(B, K, self.n_head, self.d_head)
-        r = _linear(self.r_net, pos_emb.to(x.dtype)).reshape(
-            K, self.n_head, self.d_head)
+        h = q.shape[-1] // self.d_head               # this rank's heads
+        q = q[:, -Q:].reshape(B, Q, h, self.d_head)
+        k = k.reshape(B, K, h, self.d_head)
+        v = v.reshape(B, K, h, self.d_head)
+        r = _linear(self.r_net, pos_emb.to(x.dtype)).reshape(K, h, self.d_head)
         ac = torch.einsum('bihd,bjhd->bhij', q + r_w_bias.to(q.dtype), k)
         bd = _rel_shift(torch.einsum('bihd,jhd->bhij',
                                      q + r_r_bias.to(q.dtype), r))
@@ -116,30 +140,33 @@ class TXLSelfAttention(nn.Module):
         return x + out if self.pre_lnorm else self.layer_norm(x + out)
 
     def decode_step(self, x, t: int, k_layer, v_layer, r_heads, r_w_bias,
-                    r_r_bias, full_attention: bool = False):
-        """One token: x [B, 1, D]; writes k/v at position ``t`` of
-        ``k_layer`` / ``v_layer`` [B, Kmax, H, Dh] in place (clamped to the
-        cache, as JAX clamps) and attends over positions 0..t."""
+                    r_r_bias, full_attention: bool = False,
+                    layout: str = 'khd'):
+        """One token: x [B, 1, D]; writes k/v at position ``t`` of the
+        layer's caches ``k_layer`` / ``v_layer`` (in ``layout``) in place
+        (clamped to the cache, as JAX clamps) and attends over positions
+        0..t.  The chunked attention (``full_attention=False``) reads
+        'khd' only."""
         q, k, v = self._qkv_step(x)
-        at = min(int(t), k_layer.shape[1] - 1)
-        k_layer[:, at] = k.to(k_layer.dtype)
-        v_layer[:, at] = v.to(v_layer.dtype)
-        attn_fn = full_decode_attention if full_attention else flash_decode_attention
-        attn = attn_fn(q + r_w_bias.to(q.dtype), k_layer, v_layer, t,
-                       scale=1.0 / self.d_head ** 0.5,
-                       rel=(q + r_r_bias.to(q.dtype), r_heads))
+        write_row(k_layer, k, t, layout)
+        write_row(v_layer, v, t, layout)
+        args = (q + r_w_bias.to(q.dtype), k_layer, v_layer, t)
+        kw = dict(scale=1.0 / self.d_head ** 0.5,
+                  rel=(q + r_r_bias.to(q.dtype), r_heads))
+        attn = (full_decode_attention(*args, layout=layout, **kw)
+                if full_attention else flash_decode_attention(*args, **kw))
         return self._out_step(x, attn)
 
     def decode_step_pe(self, x, t: torch.Tensor, k_layer, v_layer, r_heads,
-                       r_w_bias, r_r_bias):
+                       r_w_bias, r_r_bias, layout: str = 'khd'):
         """:meth:`decode_step` with a per-element clock ``t`` [B]."""
         q, k, v = self._qkv_step(x)
-        write_row_pe(k_layer, k, t)
-        write_row_pe(v_layer, v, t)
+        write_row_pe(k_layer, k, t, layout)
+        write_row_pe(v_layer, v, t, layout)
         attn = full_decode_attention_pe(
             q + r_w_bias.to(q.dtype), k_layer, v_layer, t,
             scale=1.0 / self.d_head ** 0.5,
-            rel=(q + r_r_bias.to(q.dtype), r_heads))
+            rel=(q + r_r_bias.to(q.dtype), r_heads), layout=layout)
         return self._out_step(x, attn)
 
     def rel_heads(self, max_klen: int, dtype: torch.dtype) -> torch.Tensor:
@@ -258,8 +285,7 @@ class PlainTransformer(nn.Module):
             p.copy_(0.01 * randn(p))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.dec_out_proj
-        return torch.matmul(h.float(), w.weight.float().t()) + w.bias.float()
+        return parallel_linear(self.dec_out_proj, h, head_f32)
 
     # ------------------------------------------------------------- train
     def forward(self, tokens: torch.Tensor,
@@ -287,9 +313,12 @@ class PlainTransformer(nn.Module):
         j = torch.arange(klen, device=tokens.device)[None, :]
         attn_mask = j > i + mlen
         dec = self.decoder
+        qkv = dec.layers[0].dec_attn.qkv_net
+        r_w_bias, r_r_bias = (tp_heads(p, qkv)
+                              for p in (dec.r_w_bias, dec.r_r_bias))
         hids = [h]
         for idx, layer in enumerate(dec.layers):
-            h = layer(h, pos_emb, dec.r_w_bias, dec.r_r_bias, attn_mask,
+            h = layer(h, pos_emb, r_w_bias, r_r_bias, attn_mask,
                       None if mems is None else mems[idx])
             hids.append(h)
         logits = self._logits(self.out_dropout(h))
@@ -309,18 +338,29 @@ class PlainTransformer(nn.Module):
     def decode_dtype(self) -> torch.dtype:
         return self.decoder.layers[0].dec_attn.qkv_net.weight.dtype
 
-    def init_decode_cache(self, batch: int, max_klen: int
-                          ) -> Dict[str, torch.Tensor]:
-        """Zero k and v caches [n_layer, B, Kmax, H, Dh] (the 'khd' layout,
-        the only one the port carries) and the position heads r [n_layer,
-        Kmax, H, Dh] (r[i, d] = layer i's r_net(PE(d))), in the decode
-        dtype."""
+    def init_decode_cache(self, batch: int, max_klen: int,
+                          layout: str = 'khd') -> Dict[str, torch.Tensor]:
+        """Zero k and v caches and the position heads r (r[i, d] = layer
+        i's r_net(PE(d))), in the decode dtype (``txl.py:381-410``):
+        'khd' k/v [n_layer, B, Kmax, H, Dh] and r [n_layer, Kmax, H, Dh];
+        'hkd' k/v [n_layer, B, H, Kmax, Dh] or 'dk' [n_layer, B, H, Dh,
+        Kmax], both with r [n_layer, H, Dh, Kmax].  Pass the same
+        ``layout`` to the decode steps."""
+        layout_equations(layout)                  # an unknown layout raises
+        if getattr(self, 'tp_size', 1) > 1:
+            raise NotImplementedError('a tensor-parallel model does not '
+                                      'decode; serving shards the batch')
         dt = self.decode_dtype
-        k = torch.zeros(self.n_layer, batch, max_klen, self.n_head,
-                        self.d_head, dtype=dt, device=self.device)
+        H, Dh = self.n_head, self.d_head
+        shape = {'khd': (max_klen, H, Dh), 'hkd': (H, max_klen, Dh),
+                 'dk': (H, Dh, max_klen)}[layout]
+        k = torch.zeros((self.n_layer, batch) + shape, dtype=dt,
+                        device=self.device)
         with torch.no_grad():
             r = torch.stack([layer.dec_attn.rel_heads(max_klen, dt)
                              for layer in self.decoder.layers])
+        if layout != 'khd':
+            r = r.permute(0, 2, 3, 1).contiguous()
         return {'k': k, 'v': torch.zeros_like(k), 'r': r}
 
     def _embed_step(self, token: torch.Tensor) -> torch.Tensor:
@@ -329,34 +369,45 @@ class PlainTransformer(nn.Module):
     def decode_step(self, token: torch.Tensor, t: int,
                     cache: Dict[str, torch.Tensor],
                     full_attention: Optional[bool] = None,
+                    layout: str = 'khd',
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """token [B], one host position ``t`` for all -> (logits [B, V]
-        float32, cache); the cache is written in place.
-        ``full_attention=None`` picks the whole-cache attention from B=32
-        and the chunked live-prefix one below."""
-        if full_attention is None:
+        float32, cache); the cache (in ``layout``) is written in place.
+        ``full_attention=None`` picks, in 'khd', the whole-cache attention
+        from B=32 and the chunked live-prefix one below; the head-major
+        layouts take the whole-cache one and refuse
+        ``full_attention=False``."""
+        if layout in ('dk', 'hkd'):
+            if full_attention is False:
+                raise ValueError(
+                    f'layout {layout!r} stores the cache head-major, which '
+                    'only the whole-cache attention reads; '
+                    "full_attention=False (chunked) needs layout='khd'")
+            full_attention = True
+        elif full_attention is None:
             full_attention = token.shape[0] >= 32
         h = self._embed_step(token)
         dec = self.decoder
         for i, layer in enumerate(dec.layers):
             h = layer.dec_attn.decode_step(
                 h, t, cache['k'][i], cache['v'][i], cache['r'][i],
-                dec.r_w_bias, dec.r_r_bias, full_attention=full_attention)
+                dec.r_w_bias, dec.r_r_bias, full_attention=full_attention,
+                layout=layout)
             h = layer.pos_ff(h, deterministic=True)
         return self._logits(h)[:, 0], cache
 
     def decode_step_pe(self, token: torch.Tensor, t: torch.Tensor,
-                       cache: Dict[str, torch.Tensor],
+                       cache: Dict[str, torch.Tensor], layout: str = 'khd',
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """:meth:`decode_step` with per-element positions ``t`` [B] (the
-        continuous-batching decode; positions past the cache clamp to its
-        last row)."""
+        continuous-batching decode, whole-cache attention in any layout;
+        positions past the cache clamp to its last row)."""
         h = self._embed_step(token)
         dec = self.decoder
         for i, layer in enumerate(dec.layers):
             h = layer.dec_attn.decode_step_pe(
                 h, t, cache['k'][i], cache['v'][i], cache['r'][i],
-                dec.r_w_bias, dec.r_r_bias)
+                dec.r_w_bias, dec.r_r_bias, layout=layout)
             h = layer.pos_ff(h, deterministic=True)
         return self._logits(h)[:, 0], cache
 

@@ -8,9 +8,13 @@ LayerNorm, ReLU FF, LayerNorm); on CPU tensors it runs the plain version,
 :func:`_decode_layer_plain`, which is the composed decode path of
 ``emo_disentanger_tpu/models/performer.py:157-175``.
 
-The state is carried in the 'dm' layout: S [B, H, Dh, M], z [B, H, M], both
-float32.  Parameters use torch's layout (Linear weights [out, in]) under
-the keys of :data:`PARAM_KEYS`.
+The state is float32 in either of JAX's layouts (``state_layout``): S
+[B, H, Dh, M] in 'dm' or [B, H, M, Dh] in 'md' (the layout JAX's Pallas
+kernel carries), and z [B, H, M].  The kernel reads and writes S at
+``d * M + m`` or ``m * Dh + d`` and does the same arithmetic in the same
+order in both, so an 'md' step is bit for bit the 'dm' step on the
+transposed state.  Parameters use torch's layout (Linear weights
+[out, in]) under the keys of :data:`PARAM_KEYS`.
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ PARAM_KEYS = ('wq', 'bq', 'wk', 'bk', 'wv', 'bv', 'wo', 'bo',
               'w1', 'b1', 'w2', 'b2', 'g1', 'be1', 'g2', 'be2')
 
 
-def _decode_layer_plain(x, S, z, p, omega, update_mask, n_head):
+def _decode_layer_plain(x, S, z, p, omega, update_mask, n_head,
+                        state_layout='dm'):
     """The composed decode path: projections in the weights' dtype,
     ``favor_features`` (query max-stabilized, key stabilizer 0),
-    ``linear_attention_decode_step`` in 'dm', post-norm residual FF."""
+    ``linear_attention_decode_step`` in ``state_layout``, post-norm
+    residual FF."""
     B, D = x.shape
     Dh = D // n_head
     lin = lambda t, w, b: F.linear(t.to(w.dtype), w, b)
@@ -43,7 +49,8 @@ def _decode_layer_plain(x, S, z, p, omega, update_mask, n_head):
     phi_k = favor_features(k, omega, is_query=False, key_stabilizer=0.0)
     mask = None if update_mask is None else update_mask[:, None]
     attn, S_new, z_new = linear_attention_decode_step(
-        phi_q, phi_k, v.float(), S, z, update_mask=mask, state_layout='dm')
+        phi_q, phi_k, v.float(), S, z, update_mask=mask,
+        state_layout=state_layout)
     S.copy_(S_new)
     z.copy_(z_new)
     x = x + lin(attn.to(x.dtype).reshape(B, D), p['wo'], p['bo'])
@@ -54,10 +61,10 @@ def _decode_layer_plain(x, S, z, p, omega, update_mask, n_head):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # (x, x_bf16, params, w_bf16, omega, mask, S, z, out, scratch, counters,
-    #  B, D, H, M, F, eps, ln_eps, stream)
-    'performer_decode_layer': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _F, _P],
+    # (x, x_bf16, params, w_bf16, omega, mask, S, s_md, z, out, scratch,
+    #  counters, B, D, H, M, F, eps, ln_eps, stream)
+    'performer_decode_layer': [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # (D, F) -> floats of scratch; () -> ints of zeroed counters
     'performer_decode_scratch_floats': [_I, _I],
     'performer_decode_counter_ints': [],
@@ -115,10 +122,11 @@ def _scratch(lib, dev, D, Fd):
     return bufs, stream.cuda_stream
 
 
-def _check_inputs(x, S, z, p, omega, update_mask, n_head):
+def _check_inputs(x, S, z, p, omega, update_mask, n_head, state_layout='dm'):
     """Raise unless the inputs are what ``performer_decode_layer`` takes
     (module docstring; D and F multiples of 256 for bf16 weights, 128 for
-    f32, D <= 1024, M a multiple of 16 in [32, 512]), all on x's device.
+    f32, D <= 1024, M a multiple of 16 in [32, 512], S in
+    ``state_layout``), all on x's device.
     Returns ((B, D, H, M, F), the weights' dtype, the parameters' pointer
     array, the f32 mask or None)."""
     dev = x.device
@@ -141,8 +149,12 @@ def _check_inputs(x, S, z, p, omega, update_mask, n_head):
         raise ValueError(f'unsupported D={D}, H={H}, M={M}, F={Fd} (D and F '
                          f'multiples of {kmin} for {wdt} weights, D <= 1024, '
                          'M a multiple of 16 in [32, 512])')
+    if state_layout not in ('dm', 'md'):
+        raise ValueError(f"unknown state_layout {state_layout!r}; expected "
+                         "'dm' or 'md'")
     ptrs = _param_pointers(p, dev, D, Fd, wdt)
-    for name, t, want in (('S', S, (B, H, Dh, M)), ('z', z, (B, H, M)),
+    s_shape = (B, H, Dh, M) if state_layout == 'dm' else (B, H, M, Dh)
+    for name, t, want in (('S', S, s_shape), ('z', z, (B, H, M)),
                           ('omega', omega, (Dh, M))):
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != want or not t.is_contiguous()):
@@ -156,13 +168,14 @@ def _check_inputs(x, S, z, p, omega, update_mask, n_head):
     return (B, D, H, M, Fd), wdt, ptrs, mask
 
 
-def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
+def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head,
+                       state_layout='dm'):
     """Launch ``performer_decode_layer`` (checks, allocation, launch)."""
     dev = x.device
     if dev.type != 'cuda':
         raise ValueError(f'the CUDA kernel takes CUDA tensors (got {dev})')
     (B, D, H, M, Fd), wdt, ptrs, mask = _check_inputs(
-        x, S, z, p, omega, update_mask, n_head)
+        x, S, z, p, omega, update_mask, n_head, state_layout)
     w_bf16 = int(wdt == torch.bfloat16)
     lib = _lib()
     (scratch, counters), stream = _scratch(lib, dev, D, Fd)
@@ -170,7 +183,8 @@ def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
     err = lib.performer_decode_layer(
         x.data_ptr(), int(x.dtype == torch.bfloat16), ptrs, w_bf16,
         omega.data_ptr(), None if mask is None else mask.data_ptr(),
-        S.data_ptr(), z.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        S.data_ptr(), int(state_layout == 'md'), z.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(),
         counters.data_ptr(), B, D, H, M, Fd, EPS, LN_EPS, stream)
     _build.check(lib, err, 'performer_decode_layer')
     _build.LAUNCHES['performer_decode_layer'] += 1
@@ -180,11 +194,12 @@ def _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head):
 def fused_decode_layer(x: torch.Tensor, S: torch.Tensor, z: torch.Tensor,
                        p: Dict[str, torch.Tensor], omega: torch.Tensor,
                        update_mask: Optional[torch.Tensor] = None, *,
-                       n_head: int) -> torch.Tensor:
+                       n_head: int, state_layout: str = 'dm') -> torch.Tensor:
     """One Performer decode-layer step.
 
-    x [B, D] (f32 or bf16); S [B, H, Dh, M] / z [B, H, M] float32 carried
-    state ('dm'), **updated in place**; ``p`` maps :data:`PARAM_KEYS` to the
+    x [B, D] (f32 or bf16); S and z [B, H, M] float32 carried state, S
+    [B, H, Dh, M] in 'dm' or [B, H, M, Dh] in 'md' (``state_layout``),
+    **updated in place**; ``p`` maps :data:`PARAM_KEYS` to the
     layer's parameters (Linear weights [out, in], all in one dtype);
     omega [Dh, M] float32; ``update_mask`` [B] (bool or 0/1) freezes masked
     elements' state.  Returns the layer output [B, D] in x's dtype.
@@ -192,5 +207,7 @@ def fused_decode_layer(x: torch.Tensor, S: torch.Tensor, z: torch.Tensor,
     CPU tensors run the plain composed path; CUDA tensors launch the
     kernel."""
     if x.device.type == 'cpu':
-        return _decode_layer_plain(x, S, z, p, omega, update_mask, n_head)
-    return _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head)
+        return _decode_layer_plain(x, S, z, p, omega, update_mask, n_head,
+                                   state_layout)
+    return _decode_layer_cuda(x, S, z, p, omega, update_mask, n_head,
+                              state_layout)

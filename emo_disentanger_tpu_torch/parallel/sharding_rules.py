@@ -36,7 +36,13 @@ loss computed whole on every tp rank:
 A fused projection is split block by block: GPT-2's ``c_attn`` [D, 3D]
 and the Transformer-XL's ``qkv_net`` hold q, k and v side by side, so a
 rank takes its heads of each (a plain column split would hand rank 0 all
-of q and half of k).  The collectives run in float32.
+of q and half of k).  The Transformer-XL's ``r_net`` projects the position
+embedding, not the hidden state, and is split the same way; its shared
+biases r_w / r_r [H, Dh] match no rule and stay replicated, as in JAX, and
+the forward takes this rank's heads of them through :func:`tp_heads`,
+whose backward sums the gradient over tp (so every tp rank holds the
+whole, equal gradient, and the clip counts it once).  The collectives run
+in float32.
 """
 
 from __future__ import annotations
@@ -75,9 +81,10 @@ FUSED = {'c_attn': 3, 'qkv_net': 3}
 PARTNER = {'query_projection': 'out_projection',
            'key_projection': 'out_projection',
            'value_projection': 'out_projection', 'linear1': 'linear2',
-           'c_attn': 'c_proj', 'c_fc': 'c_proj'}
+           'c_attn': 'c_proj', 'c_fc': 'c_proj', 'qkv_net': 'o_net',
+           'r_net': 'o_net'}
 HEAD_SPLIT = ('query_projection', 'key_projection', 'value_projection',
-              'c_attn')
+              'c_attn', 'qkv_net', 'r_net')
 
 
 def _role(path: str) -> Optional[str]:
@@ -150,11 +157,6 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
     tp = mesh_shape(mesh).get('tp', 1)
     if tp <= 1:
         return model
-    if hasattr(getattr(model, 'decoder', None), 'r_w_bias'):
-        raise NotImplementedError(
-            'the Transformer-XL tensor-parallel forward (qkv_net, r_net, '
-            'o_net, with r_w_bias / r_r_bias sliced by head) is not ported; '
-            'stage 1 trains with tp=1')
     targets = _targets(model, tp)
     for path, role in targets.items():
         parent, _, leaf = path.rpartition('.')
@@ -209,6 +211,21 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _HeadsOfTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        n = x.shape[0] // size
+        ctx.rows = slice(rank * n, (rank + 1) * n)
+        ctx.shape, ctx.group = x.shape, group
+        return x[ctx.rows].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full[ctx.rows] = g
+        return _all_reduce(full, ctx.group), None, None, None
+
+
 class _GatherFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, size, rank):
@@ -242,6 +259,16 @@ def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_tp(x: torch.Tensor, group, size: int, rank: int) -> torch.Tensor:
     return _GatherFromTP.apply(x, group, size, rank)
+
+
+def tp_heads(x: torch.Tensor, mod: nn.Module) -> torch.Tensor:
+    """This rank's heads (rows of dim 0, in tp order) of a replicated
+    per-head tensor ``x`` [H, ...] when ``mod``, the projection that makes
+    the heads, is column-sharded, else ``x``; the gradient is summed over
+    tp on the way back."""
+    if getattr(mod, 'tp_role', None) != 'col':
+        return x
+    return _HeadsOfTP.apply(x, mod.tp_group, mod.tp_size, mod.tp_rank)
 
 
 def tp_input(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:

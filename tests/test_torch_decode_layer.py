@@ -1,8 +1,8 @@
 """The port's decode layer (``fused_decode_layer``, plain version on the
 CPU) against the JAX package's: its whole-layer Pallas kernel in interpret
-mode (which carries S in 'md', transposed here to the port's 'dm') and its
-composed 'dm' path, over a 5-step roll with a random update mask.  f32 at
-the JAX suite's op tolerance, rtol 2e-4 / atol 2e-5."""
+mode (which carries S in 'md', as the port does with ``state_layout='md'``)
+and its composed path in both layouts, over a 5-step roll with a random update mask.
+f32 at the JAX suite's op tolerance, rtol 2e-4 / atol 2e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,13 +28,14 @@ def _jax_roll(jm, params, omegas, x, state, mask, fused, layout):
     return jm.apply(params, x, state, mask, method=roll)
 
 
-@pytest.mark.parametrize('fused,layout', [(True, 'md'), (False, 'dm')],
-                         ids=['pallas-interpret', 'composed-dm'])
+@pytest.mark.parametrize('fused,layout',
+                         [(True, 'md'), (False, 'dm'), (False, 'md')],
+                         ids=['pallas-interpret', 'composed-dm', 'composed-md'])
 @torch.no_grad()
 def test_decode_layer_matches_jax(fused, layout):
     jm, params, jom, tm, tom = model_pair(48, seed=3)
     jstate = jm.apply(params, B, layout, method=JaxPerformer.init_decode_state)
-    tstate = tm.init_decode_state(B)
+    tstate = tm.init_decode_state(B, layout)
     rng = np.random.RandomState(0)
     for _ in range(5):
         x = rng.randn(B, SMALL['d_model']).astype(np.float32)
@@ -45,12 +46,10 @@ def test_decode_layer_matches_jax(fused, layout):
         for i, layer in enumerate(tm.layers):
             h = fused_decode_layer(h, tstate['S'][i], tstate['z'][i],
                                    layer.decode_params(), tom[i],
-                                   torch.from_numpy(mask), n_head=SMALL['n_head'])
-        jS = np.asarray(jstate['S'])
-        if layout == 'md':
-            jS = jS.swapaxes(-1, -2)
+                                   torch.from_numpy(mask), n_head=SMALL['n_head'],
+                                   state_layout=layout)
         for got, want in ((h, np.asarray(jh)[:, 0]),
-                          (tstate['S'], jS), (tstate['z'], jstate['z'])):
+                          (tstate['S'], jstate['S']), (tstate['z'], jstate['z'])):
             np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                        rtol=RTOL, atol=ATOL)
 

@@ -122,10 +122,19 @@ def test_write_row_pe_matches_jax():
     out = tattn.write_row_pe(got, torch.from_numpy(row), torch.from_numpy(t).long())
     assert out is got
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    for layout in ('dk', 'hkd'):
-        with pytest.raises(ValueError, match="'khd'"):
-            tattn.write_row_pe(got, torch.from_numpy(row), torch.zeros(3).long(),
-                               layout)
+    # the head-major layouts: the same clocks into [B, H, K, Dh] / [B, H, Dh, K]
+    for layout, shape in (('hkd', (3, 2, 10, 4)), ('dk', (3, 2, 4, 10))):
+        cache = rng.randn(*shape).astype(np.float32)
+        want = jax_write_row_pe(jnp.asarray(cache), jnp.asarray(row),
+                                jnp.asarray(t), layout, impl='dus')
+        got = torch.from_numpy(cache.copy())
+        out = tattn.write_row_pe(got, torch.from_numpy(row),
+                                 torch.from_numpy(t).long(), layout)
+        assert out is got
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match='unknown cache layout'):
+        tattn.write_row_pe(got, torch.from_numpy(row), torch.zeros(3).long(),
+                           'kdh')
 
 
 def test_batchpos_decode_matches_jax():
@@ -156,8 +165,11 @@ def test_batchpos_decode_matches_jax():
     assert rejected > 0
     _close(tc['k'], jc['k'])
     _close(tc['v'], jc['v'])
-    with pytest.raises(ValueError, match="'khd'"):
-        tm.init_decode_cache(B, K, 'dk')
+    # 'dk' is the other layout GPT-2 decodes (tests/test_torch_cache_layout.py);
+    # 'hkd' is refused, as JAX refuses it
+    assert tm.init_decode_cache(B, K, 'dk')['k'].shape == (2, B, 4, 16, K)
+    with pytest.raises(ValueError, match="'khd' and 'dk'"):
+        tm.init_decode_cache(B, K, 'hkd')
 
 
 @torch.no_grad()

@@ -169,10 +169,11 @@ def test_shard_params_refusals():
     _, _, _, tm, _ = model_pair(48, seed=1)
     with pytest.raises(ValueError, match='n_head=2 does not split over tp=4'):
         shard_params(tm, {'dp': 2, 'tp': 4})
+    # the Transformer-XL shards at tp=2 (tests/test_torch_parallel_txl.py);
+    # heads that tp does not divide are refused as for the other families
     _, _, xtm = txl_pair(48, seed=3)
-    with pytest.raises(NotImplementedError, match='Transformer-XL tensor-'
-                       'parallel forward'):
-        shard_params(xtm, {'dp': 1, 'tp': 2})
+    with pytest.raises(ValueError, match='n_head=4 does not split over tp=8'):
+        shard_params(xtm, {'dp': 1, 'tp': 8})
     assert shard_params(tm, {'dp': 2, 'tp': 1}) is tm       # tp=1: untouched
 
 

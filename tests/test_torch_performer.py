@@ -77,12 +77,13 @@ def test_decode_equals_forward():
     tok, seg = (torch.from_numpy(a).long()
                 for a in _tokens(np.random.RandomState(2), 2, 30))
     full = tm(tok, tom, seg)
-    with pytest.raises(ValueError, match="'dm' state layout only"):
-        tm.init_decode_state(2, 'md')
-    state = tm.init_decode_state(2, 'dm')
-    steps = [tm.decode_step(tok[:, t], seg[:, t], t, tom, state)[0]
-             for t in range(30)]
-    _close(torch.stack(steps, 1), full)
+    with pytest.raises(ValueError, match="unknown state_layout 'mm'"):
+        tm.init_decode_state(2, 'mm')
+    for layout in ('dm', 'md'):                 # S [.., Dh, M] / [.., M, Dh]
+        state = tm.init_decode_state(2, layout)
+        steps = [tm.decode_step(tok[:, t], seg[:, t], t, tom, state, layout)[0]
+                 for t in range(30)]
+        _close(torch.stack(steps, 1), full)
 
 
 def test_state_dict_names_follow_the_reference_checkpoint():

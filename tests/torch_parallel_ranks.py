@@ -77,15 +77,24 @@ def train_steps(model, omegas, batches, cfg, pad, mesh=None):
     return losses, {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
-def segmented_steps(state, shape, segs, cfg, pad, mesh=None):
-    """(losses, final memories of this rank's rows, parameters) of one
-    stage-1 segmented step a segment, memories carried."""
+def txl(state, shape):
     from emo_disentanger_tpu_torch.models import PlainTransformer
-    from emo_disentanger_tpu_torch.parallel import shard_batch
-    from emo_disentanger_tpu_torch.train import trainer as ttr
     model = PlainTransformer(state['dec_out_proj.bias'].shape[0], dropout=0.0,
                              device='cpu', **shape)
     model.load_state_dict(state)
+    return model
+
+
+def segmented_steps(state, shape, segs, cfg, pad, mesh=None):
+    """(losses, final memories of this rank's rows, parameters) of one
+    stage-1 segmented step a segment, memories carried; over a mesh with
+    tp > 1 the model is sharded first (the parameters are this rank's
+    shards)."""
+    from emo_disentanger_tpu_torch.parallel import shard_batch, shard_params
+    from emo_disentanger_tpu_torch.train import trainer as ttr
+    model = txl(state, shape)
+    if mesh is not None:
+        shard_params(model, mesh)
     opt = ttr.make_optimizer(model.parameters(), ttr.OptimizerConfig(**cfg))
     step = ttr.make_segmented_train_step(model, pad, opt, mesh)
     rows = shard_batch(mesh, segs[0])['dec_inp'].shape[0]
@@ -97,6 +106,53 @@ def segmented_steps(state, shape, segs, cfg, pad, mesh=None):
         losses.append(float(loss))
     return losses, mems, {n: p.detach().clone()
                           for n, p in model.named_parameters()}
+
+
+def stage1_steps(model, batches, cfg, pad, mesh=None):
+    """(losses, parameters, the first step's gradients after the data
+    reduction and before the clip) of one stage-1 train step a batch; over
+    a ``mesh`` each step takes this rank's rows."""
+    from emo_disentanger_tpu_torch.parallel import shard_batch
+    from emo_disentanger_tpu_torch.train import trainer as ttr
+    opt = ttr.make_optimizer(model.parameters(), ttr.OptimizerConfig(**cfg))
+    step = ttr.make_train_step(ttr.stage1_loss_fn(model, pad), model, opt, mesh)
+    grads, adam = {}, opt.step
+
+    def keep_first_grads():
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+        return adam()
+    opt.step = keep_first_grads
+    losses = [float(step(ttr.batch_to_device(shard_batch(mesh, b), 'cpu'),
+                         {})[0]) for b in batches]
+    return losses, {n: p.detach().clone()
+                    for n, p in model.named_parameters()}, grads
+
+
+def leg_txl_tp(rank, state, shape, mem_state, tokens, batches, cfg, pad,
+               segmented):
+    """On a world of four, dp=2 x tp=2: the Transformer-XL forward over two
+    segments (the second on the first's memories), the refusal to decode,
+    three Adam steps and two segmented steps."""
+    from emo_disentanger_tpu_torch.parallel import make_mesh, shard_params
+    mesh = make_mesh(tp=2, backend='gloo', device_type='cpu')
+    out = {}
+    model = shard_params(txl(mem_state, dict(shape, mem_len=8)), mesh)
+    with torch.no_grad():
+        first, mems = model(tokens[0])
+        second, mems = model(tokens[1], mems)
+    out['forward'] = (first, second, torch.stack(mems))
+    out['heads'] = model.decoder.layers[0].dec_attn.qkv_net.weight.shape[0]
+    try:
+        model.init_decode_cache(2, 16)
+        out['decode'] = None
+    except NotImplementedError as e:
+        out['decode'] = str(e)
+    out['train'] = stage1_steps(shard_params(txl(state, shape), mesh), batches,
+                                cfg, pad, mesh)
+    out['segmented'] = segmented_steps(*segmented, mesh=mesh)
+    return out
 
 
 def leg_train(rank, meshes, V, state, omegas, batches, cfg, pad):
