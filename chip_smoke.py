@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``emo_disentanger_tpu_torch/csrc`` and
 holds each against its plain PyTorch version at the main paths' shapes, then
-drives thirteen paths at full width with random weights from a seed.  Three run
+drives fourteen paths at full width with random weights from a seed.  Three run
 the flagship stage-2 Performer (12 layers, 8 heads, d_model 512, d_ff 2048,
 128 FAVOR+ features):
 
@@ -33,7 +33,8 @@ Two run the stage-2 GPT-2 of ``configs/stage2/pop1k7_pretrain_gpt2.yaml``
   songs outgrow the 4096-position cache and re-anchor over a 2048-token
   window, the lockstep ``generate`` through the (1024, 2048) cache ladder,
   one host-driven ``Stage2Generator`` song that re-anchors, and the
-  reference-exact replay past its 2048-token window.  Before it, the f32
+  reference-exact replay past its 2048-token window (these two on a
+  4-layer GPT-2 of the same width).  Before it, the f32
   forward with the flash-attention kernel is held against the einsum path
   and the KV-cache decode against the forward.
 
@@ -55,7 +56,8 @@ einsums in the JAX package too, and so in the port.
   weights in ``infer/run_stage1.py``'s lead_sheet mode, the lockstep
   ``Stage1BatchGenerator.generate`` at B=16 through the 768 -> 1536 cache
   ladder, ``serve`` of 24 jobs in 16 slots and one ``Stage1Generator``
-  song, every song held to the key-mode and beat rules;
+  song (on a 4-layer model of the same width), every song held to the
+  key-mode and beat rules;
 * stage1_training: full-model f32 gradients, ``train_stage1.run`` at the
   config's values (f32, B=4, L=512) for 3 steps, a fixed batch whose loss
   must fall, and a segmented step with 512 memories over two segments.
@@ -82,8 +84,9 @@ is checked, and stage 1 launches no kernel.
 
 The twelfth, multi_device, runs the port's mesh (``parallel/``) with two
 ranks that share the one card over gloo: two bf16 Performer train steps at
-B=16 L=3072 data-parallel (8 rows a rank) and tensor-parallel (4 heads a
-rank), each against one rank on the whole batch, whose PAD rows fall on
+B=16 L=3072 (at 6 of the 12 layers since phase 14 was added)
+data-parallel (8 rows a rank) and tensor-parallel (4 heads a rank), each
+against one rank on the whole batch, whose PAD rows fall on
 one rank only; the Performer's ``serve`` of 32 jobs in 16 slots (8 a rank,
 the decode-layer kernel) and stage 1's at two layers, whose streams must
 equal one rank's bit for bit; then ``train_stage2.run`` through the mesh
@@ -100,6 +103,25 @@ profiled in each layout (einsum and copy device time); GPT-2's cache ladder
 in 'dk'; kernel #12 with the 'md' state against its plain version and
 against the 'dm' launch on the transposed state, timed in both; and the
 Performer's serve with the 'md' state against 'dm'.
+
+The fourteenth, widths, runs the widths the JAX package runs off the
+repo's configs' tiles.  14a holds each widened kernel against its plain
+version and times it: the FAVOR+ kernels #1-#4 and #8-#11 at (Dh, Dv, M)
+= (8, 8, 16), (40, 40, 36), (48, 48, 100), (128, 128, 256) beside the
+configs' (64, 64, 128), f32 and bf16,
+B=2 H=8, L=1024 and 1001; #12 at (D, H, M, F) = (32, 2, 16, 64), (384, 6,
+128, 1536), (480, 12, 100, 1920), (1280, 16, 128, 5120), (2048, 16, 256,
+8192), B=16, f32 and bf16 weights, both state layouts; #13 at Dh = 32,
+48, 96, 128 beside 64, B=4 H=8 L=2048; the composed op's #5-#7 at (M, Dv) = (34,
+18), (100, 42).  14b takes ``configs/stage2/
+pop1k7_pretrain.yaml`` with only its widths changed to an 'odd' Performer
+(d_model 480, 12 heads, d_ff 1920, 100 features: its f32 decode against
+the forward, a bf16 ``serve`` of 16 jobs, a bf16 train step at B=16
+L=3072 in each attention layout) and a 'wide' one (1280, 16 heads, d_ff
+5120, 128 features: a bf16 ``serve``), and ``pop1k7_pretrain_gpt2.yaml``
+to GPT-2 'Dh128' (1024, 8 heads, d_ff 4096: the eval forward at B=2
+L=2048 against the einsum path, and one re-anchor of ``generate``), all
+at 12 layers.
 
 It checks that every kernel of each path was launched on it, times each
 kernel, its plain version and its bound (and, for flash attention, PyTorch's
@@ -167,6 +189,10 @@ GPT2_TIERS, GPT2_TIER_EVENTS = (1024, 2048), 1200
 # the host generator's least legal cache, to keep its one song short
 GPT2_HOST_CACHE = GPT2_WINDOW + GPT2_BAR_TOKENS + 2
 GPT2_HOST_EVENTS = 2400
+# the host generator's song (5i) and the reference-exact replay (5j) run a
+# GPT-2 of GPT2_HOST_LAYERS layers at full width: host-paced one-song paths,
+# cut in depth to pay for phase 14
+GPT2_HOST_LAYERS = 4
 GPT2_DECODE_STEPS = 64
 # stage 1: configs/stage1/emopia_finetune.yaml (tgt_len 512, batch_size 4)
 # and infer/run_stage1.py's lead_sheet mode (temp 1.2, top_p 0.97,
@@ -176,6 +202,9 @@ S1_B, S1_L = 4, 512
 S1_TEMP, S1_TOP_P, S1_EVENTS, S1_MAX_BARS = 1.2, 0.97, 512, 128
 S1_REJECT_SLACK, S1_FAST_SLACK = 1024, 256
 S1_SERVE_B, S1_JOBS = 16, 24
+# the one Stage1Generator song (5u) runs a Transformer-XL of S1_HOST_LAYERS
+# layers at full width, cut in depth to pay for phase 14
+S1_HOST_LAYERS = 4
 # random weights give near-uniform logits, under which songs end at an EOS
 # after ~150 events and a song needs ~1.07 iterations a token, so none
 # outgrows the 768-row tier.  For serving, the head's EOS logit is lowered
@@ -279,6 +308,11 @@ REMI_FULL_GROUPS, REMI_FULL_EVENTS = 2, 512
 # between two bf16 runs; with a smooth activation in their place the f32
 # runs agree to rounding.  A dropped reduction is off by ~0.6 either way
 MD_B, MD_STEPS, MD_LR, MD_PAD_ROWS = BF16_B, 2, 1e-4, 3
+# the Performer's dp=2 / tp=2 train legs and their one-rank reference run at
+# MD_LAYERS of the flagship's 12 layers (full width): the depth cut that pays
+# for phase 14 (the legs' collectives go through the host over gloo, ~6 s a
+# tp=2 step at 12 layers)
+MD_LAYERS = 6
 MD_TOL_LOSS, MD_TOL_GRAD, MD_TOL_PARAM = 1e-3, 3e-2, 4.2 * MD_LR
 MD_JOBS, MD_EVENTS = 32, 400
 MD_S1_LAYERS, MD_S1_JOBS, MD_S1_EVENTS = 2, 24, 160
@@ -1901,9 +1935,9 @@ def phase_kernel_flash(dev, rec, smi):
                'scaled_dot_product_attention')
 
 
-def build_gpt2(vocab, dev):
+def build_gpt2(vocab, dev, n_layer=N_LAYER):
     from emo_disentanger_tpu_torch.models import MusicGPT2
-    return MusicGPT2(n_token=vocab.size, n_layer=N_LAYER, n_head=N_HEAD,
+    return MusicGPT2(n_token=vocab.size, n_layer=n_layer, n_head=N_HEAD,
                      d_model=D_MODEL, d_ff=D_FF, d_embed=D_MODEL,
                      max_len=GPT2_MAX_LEN, device=dev,
                      generator=torch.Generator().manual_seed(2)).eval()
@@ -1980,17 +2014,20 @@ def check_streams(streams, primers, sheets, vocab, what):
 
 
 def phase_gpt2_serve(model, vocab, dev, smi):
-    """The gpt2_serving path with bf16 weights.  Returns the number of
-    forwards at L = GPT2_WINDOW it ran (each should launch
-    flash_attention_fwd once a layer)."""
+    """The gpt2_serving path with bf16 weights (5i and 5j on a model of
+    GPT2_HOST_LAYERS layers).  Returns the flash_attention_fwd launches its
+    forwards at L = GPT2_WINDOW should make, one a layer."""
     from emo_disentanger_tpu_torch.infer.reference_exact import (
         generate_stage2_reference_exact)
     from emo_disentanger_tpu_torch.infer.stage2 import Stage2Generator
     from emo_disentanger_tpu_torch.infer.stage2_batch import (
         STATUS_IDLE, STATUS_RUNNING, Stage2BatchGenerator)
-    windows = []
-    hook = model.register_forward_pre_hook(
-        lambda mod, args: windows.append(args[0].shape[1]))
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    shallow = cast_params(build_gpt2(vocab, dev, GPT2_HOST_LAYERS))
+    windows = []                             # (L, layers) of each forward
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: windows.append((args[0].shape[1], mod.n_layer)))
+        for m in (model, shallow)]
     kw = dict(temp=1.1, top_p=0.99, gpt2_cache_len=GPT2_CACHE,
               gpt2_window=GPT2_WINDOW, reanchor_margin=GPT2_MARGIN,
               max_bar_tokens=GPT2_BAR_TOKENS, device=dev)
@@ -2031,13 +2068,13 @@ def phase_gpt2_serve(model, vocab, dev, smi):
         expect(lstats['tier_resumes'] >= 1, 'the cache ladder resumed')
         check_streams(lstreams, primers, sheets, vocab, 'ladder')
 
-        host = Stage2Generator(model, vocab, temp=1.1, top_p=0.99,
+        host = Stage2Generator(shallow, vocab, temp=1.1, top_p=0.99,
                                max_events=GPT2_HOST_EVENTS,
                                gpt2_cache_len=GPT2_HOST_CACHE,
                                gpt2_window=GPT2_WINDOW,
                                reanchor_margin=GPT2_MARGIN, device=dev)
         hstream, hstats = host.generate(primers[0], sheets[0], seed=11)
-        print(f'phase 5i GPT-2 Stage2Generator, cache {GPT2_HOST_CACHE}: '
+        print(f'phase 5i GPT-2 Stage2Generator {GPT2_HOST_LAYERS}L, cache {GPT2_HOST_CACHE}: '
               f'{hstats["n_events"]} events in {hstats["seconds"]:.2f} s, '
               f'{hstats["reanchors"]} re-anchors, status {hstats["status"]}')
         expect(hstats['reanchors'] >= 1, 'Stage2Generator re-anchored')
@@ -2046,20 +2083,22 @@ def phase_gpt2_serve(model, vocab, dev, smi):
         np.random.seed(12)
         t0 = time.time()
         rstream, rsteps = generate_stage2_reference_exact(
-            model, vocab, lead_sheet_events=sheets[1], primer=primers[1],
+            shallow, vocab, lead_sheet_events=sheets[1], primer=primers[1],
             max_events=GPT2_WINDOW + 16, temp=1.2, top_p=0.9,
             window=GPT2_WINDOW)
-        print(f'phase 5j GPT-2 reference-exact replay, window {GPT2_WINDOW}: '
+        print(f'phase 5j GPT-2 reference-exact replay {GPT2_HOST_LAYERS}L, window '
+              f'{GPT2_WINDOW}: '
               f'{len(rstream)} tokens, {rsteps} accepted samples in '
               f'{time.time() - t0:.2f} s')
         expect(len(rstream) >= GPT2_WINDOW, 'the replay passed its window')
         check_streams([rstream], primers[1:2], sheets[1:2], vocab, 'replay')
     finally:
-        hook.remove()
-    n = sum(w == GPT2_WINDOW for w in windows)
+        for hook in hooks:
+            hook.remove()
+    n = sum(w == GPT2_WINDOW for w, _ in windows)
     print(f'gpt2_serving forwards: {len(windows)}, {n} at L={GPT2_WINDOW}')
     expect(n > 0 and n == len(windows), 'every GPT-2 path forward ran at the window')
-    return n
+    return sum(layers for _, layers in windows)
 
 
 def profile_gpt2_serve(model, vocab, dev, layout='khd', record=None):
@@ -2161,9 +2200,9 @@ def s1_dictionary():
                                 num_emotion=2, relative=True)
 
 
-def build_txl(vocab, dev, **kw):
+def build_txl(vocab, dev, n_layer=N_LAYER, **kw):
     from emo_disentanger_tpu_torch.models import PlainTransformer
-    return PlainTransformer(vocab.size, d_embed=D_MODEL, n_layer=N_LAYER,
+    return PlainTransformer(vocab.size, d_embed=D_MODEL, n_layer=n_layer,
                             n_head=N_HEAD, d_model=D_MODEL, d_ff=D_FF,
                             pad_id=vocab.pad_id, device=dev,
                             generator=torch.Generator().manual_seed(3), **kw)
@@ -2300,10 +2339,15 @@ def phase_s1_serve(model, vocab, dev, smi):
     expect(all(st != STATUS_RUNNING or b >= S1_MAX_BARS
                for st, b in zip(sst['status'], sst['bars'])),
            'every stage-1 job has a final status')
-    single = Stage1Generator(model, vocab, **kw)
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    shallow = cast_params(build_txl(vocab, dev, S1_HOST_LAYERS))
+    with torch.no_grad():
+        shallow.dec_out_proj.bias[beats] += S1_BEAT_BIAS
+        shallow.dec_out_proj.bias[vocab.eos_id] += S1_EOS_BIAS
+    single = Stage1Generator(shallow.eval(), vocab, **kw)
     song, hst = single.generate('Negative', 23)
     s1_check_songs([song], ['Negative'], vocab, 'Stage1Generator')
-    print(f'phase 5u stage-1 Stage1Generator (chunked attention, cache '
+    print(f'phase 5u stage-1 Stage1Generator {S1_HOST_LAYERS}L (chunked attention, cache '
           f'{single.max_klen}): {hst["n_events"]} events in {hst["seconds"]:.2f} s, '
           f'status {hst["status"]}, bars {hst["bars"]}')
     return gen
@@ -2532,7 +2576,7 @@ def two_stage_configs(root):
     import yaml
     from emo_disentanger_tpu_torch.utils.io import load_yaml
     conf_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            'emo_disentanger_tpu', 'configs')
+                            'emo_disentanger_tpu_torch', 'configs')
     paths = {}
     for stage, section, dictionary in (('stage1', 'data', s1_dictionary()),
                                        ('stage2', 'data_loader',
@@ -2930,7 +2974,7 @@ def user_config(root, stage, **changes):
     set in the sections they name (section -> dict)."""
     from emo_disentanger_tpu_torch.utils.io import load_yaml
     conf_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            'emo_disentanger_tpu', 'configs')
+                            'emo_disentanger_tpu_torch', 'configs')
     config = load_yaml(os.path.join(conf_dir, stage, 'emopia_finetune.yaml'))
     for section in config.values():
         if isinstance(section, dict):
@@ -3188,7 +3232,7 @@ def md_train(vocab, dev, mesh=None):
         stage2_performer_loss_fn)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model = MusicPerformer(n_token=vocab.size, n_layer=N_LAYER, n_head=N_HEAD,
+    model = MusicPerformer(n_token=vocab.size, n_layer=MD_LAYERS, n_head=N_HEAD,
                            d_model=D_MODEL, d_ff=D_FF, d_embed=D_MODEL,
                            favor_dims=FAVOR, dropout=0.0, heads_last=False,
                            compute_dtype=torch.bfloat16, device=dev,
@@ -3435,7 +3479,7 @@ def phase_multi_device(dev, smi):
     one_s1_train = md_s1_train(dev)
     one_s1_f32 = md_s1_train(dev, None, torch.float32, 1)
     torch.cuda.empty_cache()
-    print(f'phase 12a one rank, bf16 B={MD_B} L={TRAIN_L} [{smi}]: losses '
+    print(f'phase 12a one rank, bf16 {MD_LAYERS}L B={MD_B} L={TRAIN_L} [{smi}]: losses '
           f'{[round(x, 5) for x in one["losses"]]}, step walls '
           f'{[round(x, 3) for x in one["walls"]]} s; serve {MD_JOBS} jobs '
           f'{one_serve["wall"]:.2f} s, {one_serve["stats"]["steps"]} steps; '
@@ -3475,7 +3519,7 @@ def phase_multi_device(dev, smi):
         expect(loss_err <= MD_TOL_LOSS, f'{leg}=2 losses match one rank')
         expect(g_err <= MD_TOL_GRAD, f'{leg}=2 gradients match one rank')
         expect(err <= MD_TOL_PARAM, f'{leg}=2 parameters match one rank')
-        expect(all(g['launches'][k] == N_LAYER * MD_STEPS == g['profiled'][k]
+        expect(all(g['launches'][k] == MD_LAYERS * MD_STEPS == g['profiled'][k]
                    for g in got for k in HEAD_MAJOR),
                f'#1-#4 launched once a layer a step in each {leg} rank')
         expect(got[0]['heads'] == (N_HEAD if leg == 'dp' else N_HEAD // 2),
@@ -3771,6 +3815,439 @@ def phase_cache_layouts(s1_model, s1_vocab, gpt2_model, model, omegas, vocab,
     return dict(_build.LAUNCHES)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the widths the JAX package runs off the repo's configs' tiles
+# ---------------------------------------------------------------------------
+
+# 14a: (Dh, Dv, M) of the FAVOR+ kernels (the configs' own (64, 64, 128)
+# first, the baseline the others are timed beside, then JAX's own test
+# shape), at B=2 H=8 and two lengths; (D, H, M, F) of #12 at B=16 (phase
+# 6 times the configs' (512, 8, 128, 2048) there); Dh of #13 (64 the
+# baseline)
+WIDTH_FAVOR = ((64, 64, 128), (8, 8, 16), (40, 40, 36), (48, 48, 100), (128, 128, 256))
+WIDTH_FAVOR_B, WIDTH_FAVOR_L = 2, (1024, 1001)
+WIDTH_DECODE = ((32, 2, 16, 64), (384, 6, 128, 1536), (480, 12, 100, 1920),
+                (1280, 16, 128, 5120), (2048, 16, 256, 8192))
+WIDTH_DECODE_STEPS = 4
+WIDTH_FLASH = (64, 32, 48, 96, 128)
+WIDTH_FLASH_B, WIDTH_FLASH_L = 4, 2048
+
+
+def width_tag(*dims):
+    return ' '.join(f'{n}={v}' for n, v in dims)
+
+
+def phase_widths_favor(dev, rec):
+    """14a: #1-#4 and #8-#11 at each (Dh, Dv, M) of WIDTH_FAVOR, both
+    layouts, f32 and bf16, L=1024 and an odd L, against their plain versions
+    (the key max and the composed forward at the true widths; the plain
+    passes at the kernels' dot dtype, pass B fed the kernel's own (u, w)).
+    Each kernel's time at L=1024 goes into its record's ``widths_ms``."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(41)
+    B, H, C = WIDTH_FAVOR_B, N_HEAD, la.KERNEL_CHUNK
+    for Dh, Dv, M in WIDTH_FAVOR:
+        omega = la.draw_orthogonal_features(Dh, M, gen).to(dev)
+        for L in WIDTH_FAVOR_L:
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+                for hl in (False, True):
+                    shape_x = (B, L, H * Dh) if hl else (B * H, L, Dh)
+                    shape_v = (B, L, H * Dv) if hl else (B * H, L, Dv)
+                    q, k = [(0.5 * torch.randn(shape_x, generator=gen)).to(dev, dtype)
+                            for _ in range(2)]
+                    v, g = [(0.5 * torch.randn(shape_v, generator=gen)).to(dev, dtype)
+                            for _ in range(2)]
+                    extra = (H,) if hl else ()
+                    sfx = '_hl' if hl else ''
+                    kmax_k = getattr(la, f'_favor_kmax{sfx}_cuda')
+                    fwd_k = getattr(la, f'_favor_fwd{sfx}_cuda')
+                    bwd_a_k = getattr(la, f'_favor_bwd_a{sfx}_cuda')
+                    bwd_b_k = getattr(la, f'_favor_bwd_b{sfx}_cuda')
+                    part = kmax_k(k, omega, *extra)
+                    out = fwd_k(q, k, v, omega, part, *extra)
+                    dq, u, w = bwd_a_k(q, k, v, g, omega, part, *extra)
+                    dk, dv = bwd_b_k(q, k, v, u, w, omega, part, *extra)
+                    sp = (lambda t: la._split_heads(t, H)) if hl else (lambda t: t)
+                    mg = (lambda t: la._merge_heads(t, B)) if hl else (lambda t: t)
+                    kmax, dt = part.amax(1), la._dot_dtype_for(q)
+                    ref_m = la._key_max_plain(sp(k), omega)
+                    ref_o = mg(la._favor_compose(sp(q), sp(k), sp(v), omega))
+                    rdq, ru, rw = la._favor_bwd_a_plain(sp(q), sp(k), sp(v), sp(g),
+                                                        omega, kmax, C, dot_dtype=dt)
+                    rdk, rdv = la._favor_bwd_b_plain(sp(q), sp(k), sp(v), sp(u), w,
+                                                     omega, kmax, C, dot_dtype=dt)
+                    torch.cuda.synchronize()
+                    pairs = {'kmax': (kmax, ref_m), 'out': (out, ref_o),
+                             'dq': (dq, mg(rdq)), 'u': (u, mg(ru)), 'w': (w, rw),
+                             'dk': (dk, mg(rdk)), 'dv': (dv, mg(rdv))}
+                    for n, (a, b) in pairs.items():
+                        expect(a.shape == b.shape and (n == 'kmax' or a.dtype == dtype)
+                               and bool(torch.isfinite(a.float()).all()),
+                               f'14a {n} dtype/shape/finite')
+                    errs = {n: rel_err(a, b) for n, (a, b) in pairs.items()}
+                    name = dtype_name(dtype)
+                    tag = width_tag(('Dh', Dh), ('Dv', Dv), ('M', M))
+                    layout = 'heads-last' if hl else 'head-major'
+                    print(f'phase 14a FAVOR+ {layout} {name} B={B} H={H} L={L} {tag}: '
+                          'rel err ' + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+                          + f' (tol {tol}, kmax {TOL_F32})')
+                    expect(errs['kmax'] <= TOL_F32 and max(errs.values()) <= tol,
+                           f'14a FAVOR+ {layout} {name} L={L} {tag}')
+                    names = [f'favor_{n}{sfx}' for n in ('kmax', 'fwd', 'bwd_a', 'bwd_b')]
+                    key = f'{tag} {name}'
+                    for kname, keys in zip(names, (('kmax',), ('out',), ('dq', 'u', 'w'),
+                                                   ('dk', 'dv'))):
+                        r = rec[kname].setdefault('widths_max_abs_err', {})
+                        r[key] = max(r.get(key, 0.0), max(max_abs(*pairs[n]) for n in keys))
+                    if L != WIDTH_FAVOR_L[0]:
+                        continue
+                    calls = (lambda: kmax_k(k, omega, *extra),
+                             lambda: fwd_k(q, k, v, omega, part, *extra),
+                             lambda: bwd_a_k(q, k, v, g, omega, part, *extra),
+                             lambda: bwd_b_k(q, k, v, u, w, omega, part, *extra))
+                    times = [time_ms(fn, iters=5, warmup=1) for fn in calls]
+                    for kname, t in zip(names, times):
+                        rec[kname].setdefault('widths_ms', {})[f'{key} B={B} L={L}'] = t
+                    print(f'phase 14a FAVOR+ {layout} {name} B={B} H={H} L={L} {tag}: '
+                          + ', '.join(f'{n} {t:.4f} ms' for n, t in zip(names, times)))
+
+
+# the composed op's widths off its kernels' multiple of 4 (M, Dv)
+WIDTH_CLA = ((34, 18), (100, 42))
+
+
+def phase_widths_cla(dev, rec):
+    """14a: the composed op at (M, Dv) of WIDTH_CLA, B=2 H=8 L=1001 f32:
+    ``causal_linear_attention``'s CUDA forward and backward branches (#5-#7
+    on inputs zero-padded to multiples of 4) against the plain forward and
+    passes at the true widths."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    gen = torch.Generator().manual_seed(53)
+    B, L = WIDTH_FAVOR_B, WIDTH_FAVOR_L[1]
+    for M, Dv in WIDTH_CLA:
+        q, k, v, g = cla_inputs(gen, B, L, dev, M, Dv)
+        out = la._cla_fwd_aligned_cuda(q, k, v)
+        dq, dk, dv = la._cla_bwd_cuda(q, k, v, g)
+        ref = la._cla_fwd_plain(q, k, v)
+        rdq, ru, rw = la._cla_bwd_a_plain(q, k, v, g)
+        rdk, rdv = la._cla_bwd_b_plain(q, k, v, ru, rw)
+        torch.cuda.synchronize()
+        pairs = {'out': (out, ref), 'dphi_q': (dq, rdq), 'dphi_k': (dk, rdk),
+                 'dv': (dv, rdv)}
+        errs = {n: rel_err(a, b) for n, (a, b) in pairs.items()}
+        print(f'phase 14a composed op f32 B={B} H={N_HEAD} L={L} M={M} Dv={Dv}: '
+              'rel err ' + ', '.join(f'{n} {e:.2e}' for n, e in errs.items())
+              + f' (tol {TOL_F32})')
+        expect(all(a.shape == b.shape for a, b in pairs.values())
+               and max(errs.values()) <= TOL_F32, f'14a composed op M={M} Dv={Dv}')
+        for name, keys in (('cla_fwd', ('out',)), ('cla_bwd_a', ('dphi_q',)),
+                           ('cla_bwd_b', ('dphi_k', 'dv'))):
+            rec[name].setdefault('widths_max_abs_err', {})[f'M={M} Dv={Dv}'] = max(
+                max_abs(*pairs[n]) for n in keys)
+
+
+def decode_width_params(gen, D, F, dtype, dev):
+    from emo_disentanger_tpu_torch.ops.performer_decode import PARAM_KEYS
+    shapes = {'wq': (D, D), 'wk': (D, D), 'wv': (D, D), 'wo': (D, D),
+              'w1': (F, D), 'w2': (D, F), 'b1': (F,)}
+    p = {}
+    for key in PARAM_KEYS:
+        t = torch.randn(shapes.get(key, (D,)), generator=gen)
+        scale = 1.0 / math.sqrt(shapes.get(key, (1, D))[1]) if key[0] == 'w' else 0.04
+        t = 1.0 + 0.1 * t if key in ('g1', 'g2') else scale * t
+        p[key] = t.to(dev, dtype).contiguous()
+    return p
+
+
+def phase_widths_decode(dev, rec):
+    """14a: #12 at each (D, H, M, F) of WIDTH_DECODE, B=16, f32 and bf16
+    weights, both state layouts: WIDTH_DECODE_STEPS masked steps against the
+    plain composed layer (out, S, z), then one step's time ('dm', bf16)."""
+    from emo_disentanger_tpu_torch.ops import linear_attention as la
+    from emo_disentanger_tpu_torch.ops import performer_decode as pd
+    gen = torch.Generator().manual_seed(43)
+    B = SERVE_B
+    for D, H, M, F in WIDTH_DECODE:
+        Dh = D // H
+        omega = la.draw_orthogonal_features(Dh, M, gen).to(dev)
+        tag = width_tag(('D', D), ('H', H), ('M', M), ('F', F))
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            p = decode_width_params(gen, D, F, dtype, dev)
+            for layout in ('dm', 'md'):
+                sdims = (B, H, Dh, M) if layout == 'dm' else (B, H, M, Dh)
+                S = [torch.zeros(sdims, device=dev) for _ in range(2)]
+                z = [torch.zeros(B, H, M, device=dev) for _ in range(2)]
+                worst = {'out': 0.0, 'S': 0.0, 'z': 0.0}
+                abs_err = 0.0
+                for _ in range(WIDTH_DECODE_STEPS):
+                    x = torch.randn(B, D, generator=gen).to(dev, dtype)
+                    mask = (torch.rand(B, generator=gen) > 0.3).to(dev)
+                    got = pd._decode_layer_cuda(x, S[0], z[0], p, omega, mask, H, layout)
+                    ref = pd._decode_layer_plain(x, S[1], z[1], p, omega, mask, H, layout)
+                    torch.cuda.synchronize()
+                    expect(got.dtype == dtype and got.shape == ref.shape
+                           and bool(torch.isfinite(got.float()).all()),
+                           '14a performer_decode_layer dtype/shape/finite')
+                    for key, a, b in (('out', got, ref), ('S', S[0], S[1]),
+                                      ('z', z[0], z[1])):
+                        worst[key] = max(worst[key], rel_err(a, b))
+                    abs_err = max(abs_err, max_abs(got, ref))
+                name = dtype_name(dtype)
+                print(f'phase 14a #12 {name} weights B={B} {tag} {layout!r}, '
+                      f'{WIDTH_DECODE_STEPS} masked steps: rel err out '
+                      f'{worst["out"]:.2e} S {worst["S"]:.2e} z {worst["z"]:.2e} '
+                      f'(tol {tol})')
+                expect(max(worst.values()) <= tol, f'14a #12 {name} {tag} {layout}')
+                r = rec['performer_decode_layer'].setdefault('widths_max_abs_err', {})
+                r[f'{tag} {name} {layout}'] = abs_err
+                if dtype == torch.bfloat16 and layout == 'dm':
+                    x = torch.randn(B, D, generator=gen).to(dev, dtype)
+                    step = lambda: [pd._decode_layer_cuda(x, S[0], z[0], p, omega,
+                                                          None, H, layout)
+                                    for _ in range(N_LAYER)]
+                    t = decode_device_ms(step, reps=2)[0]
+                    if t is None:             # no device events: CUDA events
+                        t = time_ms(step, iters=5) / N_LAYER
+                    rec['performer_decode_layer'].setdefault('widths_ms', {})[
+                        f'{tag} bf16 B={B}'] = t
+                    print(f'phase 14a #12 bf16 weights B={B} {tag} \'dm\': '
+                          f'{t:.4f} ms a layer, device')
+
+
+def phase_widths_flash(dev, rec):
+    """14a: #13 at each Dh of WIDTH_FLASH (padded to its tile where it is
+    not one), B=4 H=8 L=2048 f32, against its plain version, and its time
+    beside SDPA's (a yardstick the port never calls)."""
+    from emo_disentanger_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(47)
+    B, H, L = WIDTH_FLASH_B, N_HEAD, WIDTH_FLASH_L
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for Dh in WIDTH_FLASH:
+        scale = 1.0 / Dh ** 0.5
+        q, k, v = [(FLASH_STD * torch.randn(B, H, L, Dh, generator=gen)).to(dev)
+                   for _ in range(3)]
+        got = fa._flash_attention_cuda(q, k, v, scale)
+        ref = fa._flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        expect(got.dtype == torch.float32 and got.shape == ref.shape
+               and bool(torch.isfinite(got).all()), '14a #13 dtype/shape/finite')
+        t_k = time_ms(lambda: fa._flash_attention_cuda(q, k, v, scale), iters=5)
+        t_l = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), iters=5)
+        b_k, by = flash_bound(B, H, L, Dh)
+        print(f'phase 14a #13 f32 B={B} H={H} L={L} Dh={Dh} (tile {fa.head_tile(Dh)}): '
+              f'rel err {err:.2e} (tol {TOL_F32}); {t_k:.4f} ms, SDPA {t_l:.4f}, '
+              f'bound {b_k:.4f} {by}')
+        expect(err <= TOL_F32, f'14a #13 Dh={Dh}')
+        r = rec['flash_attention_fwd']
+        r.setdefault('widths_max_abs_err', {})[f'Dh={Dh}'] = max_abs(got, ref)
+        r.setdefault('widths_ms', {})[f'Dh={Dh} B={B} L={L}'] = t_k
+
+
+# 14b: the repo's configs/stage2/pop1k7_pretrain*.yaml with only the width
+# keys changed (d_model and d_embed, n_head, d_ff, feature_map.n_dims), at
+# their 12 layers with random weights, through the normal entry points
+WIDTH_CONFIGS = {
+    'odd': ('pop1k7_pretrain.yaml', dict(d_model=480, n_head=12, d_ff=1920, n_dims=100)),
+    'wide': ('pop1k7_pretrain.yaml', dict(d_model=1280, n_head=16, d_ff=5120, n_dims=128)),
+    'Dh128': ('pop1k7_pretrain_gpt2.yaml', dict(d_model=1024, n_head=8, d_ff=4096)),
+}
+WIDTH_SERVE_JOBS, WIDTH_SERVE_EVENTS = SERVE_B, 512
+WIDTH_DECODE_CHECK = 128            # f32 decode steps held against the forward
+# GPT-2's one re-anchor through generate at B=2: a 512-token window, the
+# shortest the flash kernel takes, in a 640-position cache
+WIDTH_REANCHOR = dict(gpt2_cache_len=640, gpt2_window=512, reanchor_margin=64,
+                      max_bar_tokens=64)
+WIDTH_REANCHOR_EVENTS = 700
+
+
+def width_config(name, root=None):
+    """The port's ``configs/stage2/<yaml>`` of WIDTH_CONFIGS[name] with its
+    width keys changed; with ``root``, its data paths those of the synthetic
+    corpus ``write_corpus`` writes there."""
+    from emo_disentanger_tpu_torch.utils.io import load_yaml
+    yaml_name, widths = WIDTH_CONFIGS[name]
+    config = load_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    'emo_disentanger_tpu_torch', 'configs', 'stage2',
+                                    yaml_name))
+    m = config['model']
+    m.update(d_model=widths['d_model'], d_embed=widths['d_model'],
+             n_head=widths['n_head'], d_ff=widths['d_ff'])
+    if 'n_dims' in widths:
+        m['feature_map']['n_dims'] = widths['n_dims']
+    if root is not None:
+        corpus = write_corpus(root, np.random.RandomState(9))
+        config['data_loader'] = corpus['data_loader']
+        config['training'] = corpus['training']
+    return config
+
+
+def config_tag(config, performer=True):
+    m = config['model']
+    return (f'{m["n_layer"]}L/{m["n_head"]}H/{m["d_model"]}d/{m["d_ff"]}ff'
+            + (f' M={m["feature_map"]["n_dims"]}' if performer else ''))
+
+
+def width_serve(name, model, omegas, vocab, dev, smi):
+    from emo_disentanger_tpu_torch.infer.stage2_batch import (
+        STATUS_IDLE, STATUS_RUNNING, Stage2BatchGenerator)
+    primers, sheets = synthetic_jobs(vocab, WIDTH_SERVE_JOBS, np.random.RandomState(23))
+    gen = Stage2BatchGenerator(model, vocab, batch=SERVE_B, temp=1.1, top_p=0.99,
+                               max_events=WIDTH_SERVE_EVENTS, omegas=omegas,
+                               device=dev)
+    streams, stats = gen.serve(primers, sheets, seed=29)
+    events = sum(stats['events'])
+    print(f'phase 14b {name} serve bf16 [{smi}]: {len(primers)} jobs in {SERVE_B} '
+          f'slots, {events} events in {stats["wall_seconds"]:.2f} s = '
+          f'{events / stats["wall_seconds"]:.1f} events/s, {stats["steps"]} steps '
+          f'({stats["wall_seconds"] * 1e3 / stats["steps"]:.3f} ms each)')
+    expect(all(s is not None for s in streams)
+           and all(st not in (STATUS_RUNNING, STATUS_IDLE) for st in stats['status']),
+           f'14b {name}: every job finished')
+    check_streams(streams, primers, sheets, vocab, f'14b {name} serve')
+
+
+def width_train_step(config, vocab, dev, smi, heads_last):
+    """One bf16 train step at B=16, L=3072 through trainer.py in the layout
+    ``EMODIS_HL_ATTN`` names, on the synthetic corpus; returns its loss."""
+    from emo_disentanger_tpu_torch.data.datasets import Stage2Dataset
+    from emo_disentanger_tpu_torch.train import train_stage2
+    from emo_disentanger_tpu_torch.train.trainer import (
+        OptimizerConfig, batch_to_device, make_optimizer, make_train_step,
+        stage2_performer_loss_fn)
+    from emo_disentanger_tpu_torch.utils.io import pickle_load
+    dconf = config['data_loader']
+    with heads_last_env(heads_last):
+        dset = Stage2Dataset(dconf['data_path'], vocab,
+                             pieces=pickle_load(dconf['train_split']),
+                             model_dec_seqlen=TRAIN_L)
+        batch = batch_to_device(next(dset.batches(BF16_B, shuffle=False)), dev)
+        model, omegas = train_stage2.build_model_and_params(
+            config, vocab, device=dev, compute_dtype=torch.bfloat16)
+    expect(all(layer.heads_last == heads_last for layer in model.layers),
+           '14b: EMODIS_HL_ATTN chose the layout')
+    step = make_train_step(stage2_performer_loss_fn(model, vocab.pad_id), model,
+                           make_optimizer(model.parameters(), OptimizerConfig()))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = float(step(batch, {'omegas': omegas})[0])
+    torch.cuda.synchronize()
+    layout = 'heads-last' if heads_last else 'head-major'
+    print(f'phase 14b odd bf16 train step {layout} B={BF16_B} L={TRAIN_L} [{smi}]: '
+          f'loss {loss:.5f} in {(time.time() - t0) * 1e3:.1f} ms (the first step, '
+          f'host clock, synchronized)')
+    expect(np.isfinite(loss), f'14b odd {layout} train step loss finite')
+    return loss
+
+
+def phase_widths_models(vocab, dev, smi):
+    """14b: the 'odd' and 'wide' Performers and GPT-2 'Dh128' of
+    WIDTH_CONFIGS through the normal entry points (module docstring's
+    fourteenth path).  Returns the launches of the path."""
+    from emo_disentanger_tpu_torch.core.vocab import Vocab
+    from emo_disentanger_tpu_torch.infer.stage2_batch import Stage2BatchGenerator
+    from emo_disentanger_tpu_torch.models import gpt2
+    from emo_disentanger_tpu_torch.ops import _build
+    from emo_disentanger_tpu_torch.train import train_stage2
+    from emo_disentanger_tpu_torch.utils.precision import cast_params
+    _build.LAUNCHES.clear()
+    walls = {}
+
+    # 'odd': the f32 decode against the forward, serve, a train step each layout
+    t0 = time.time()
+    config = width_config('odd')
+    model, omegas = train_stage2.build_model_and_params(config, vocab, device=dev)
+    model.eval()
+    gen = torch.Generator().manual_seed(31)
+    with torch.no_grad():
+        tokens = torch.randint(0, vocab.size - 1, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+        seg = torch.randint(0, 2, (ENTRY_B, ENTRY_L), generator=gen).to(dev)
+        ref = model(tokens, omegas, seg)
+        state = model.init_decode_state(ENTRY_B)
+        dec = torch.stack([model.decode_step(tokens[:, t], seg[:, t], t, omegas,
+                                             state)[0]
+                           for t in range(WIDTH_DECODE_CHECK)], 1)
+        e_dec = rel_err(dec, ref[:, :WIDTH_DECODE_CHECK])
+    print(f'phase 14b odd {config_tag(config)} f32: decode of {WIDTH_DECODE_CHECK} '
+          f'tokens vs the forward (B={ENTRY_B} L={ENTRY_L}) rel err {e_dec:.2e} '
+          f'(tol {TOL_DECODE_VS_FORWARD})')
+    expect(bool(torch.isfinite(ref).all()) and e_dec <= TOL_DECODE_VS_FORWARD,
+           '14b odd: f32 decode matches the forward')
+    cast_params(model)
+    width_serve('odd', model, omegas, vocab, dev, smi)
+    del model, ref
+    with tempfile.TemporaryDirectory() as root:
+        tconfig = width_config('odd', root)
+        tvocab = Vocab.load(tconfig['data_loader']['vocab_path'])
+        for heads_last in (False, True):
+            width_train_step(tconfig, tvocab, dev, smi, heads_last)
+    torch.cuda.synchronize()
+    walls['odd'] = time.time() - t0
+
+    # 'wide': serve
+    t0 = time.time()
+    config = width_config('wide')
+    model, omegas = train_stage2.build_model_and_params(config, vocab, device=dev)
+    cast_params(model.eval())
+    print(f'phase 14b wide {config_tag(config)}')
+    width_serve('wide', model, omegas, vocab, dev, smi)
+    del model
+    torch.cuda.synchronize()
+    walls['wide'] = time.time() - t0
+
+    # GPT-2 'Dh128': the eval forward at B=2, L=2048 against the einsum
+    # path, then one re-anchor through generate
+    t0 = time.time()
+    config = width_config('Dh128')
+    config['model']['max_len'] = GPT2_MAX_LEN
+    model, _ = train_stage2.build_model_and_params(config, vocab, 'gpt2', device=dev)
+    model.eval()
+    with torch.no_grad():
+        tokens = torch.randint(0, vocab.size - 1, (ENTRY_B, GPT2_WINDOW),
+                               generator=gen).to(dev)
+        seg = torch.randint(0, 2, (ENTRY_B, GPT2_WINDOW), generator=gen).to(dev)
+        n0 = _build.LAUNCHES['flash_attention_fwd']
+        out = model(tokens, seg)
+        n_flash = _build.LAUNCHES['flash_attention_fwd'] - n0
+        real = gpt2._flash_applies
+        gpt2._flash_applies = lambda training, q: False
+        try:
+            ein = model(tokens, seg)
+        finally:
+            gpt2._flash_applies = real
+    e_path = rel_err(out, ein)
+    print(f'phase 14b Dh128 GPT-2 {config_tag(config, False)} f32 B={ENTRY_B} '
+          f'L={GPT2_WINDOW}: forward through flash_attention_fwd ({n_flash} '
+          f'launches) vs the einsum path rel err {e_path:.2e} (tol '
+          f'{TOL_GPT2_KERNEL_PATH})')
+    expect(n_flash == N_LAYER and e_path <= TOL_GPT2_KERNEL_PATH,
+           '14b Dh128: the eval forward ran the kernel and matches einsum')
+    cast_params(model)
+    primers, sheets = synthetic_jobs(vocab, ENTRY_B, np.random.RandomState(37),
+                                     bars=GPT2_JOB_BARS)
+    n0 = _build.LAUNCHES['flash_attention_fwd']
+    streams, stats = Stage2BatchGenerator(
+        model, vocab, batch=ENTRY_B, temp=1.1, top_p=0.99,
+        max_events=WIDTH_REANCHOR_EVENTS, device=dev, **WIDTH_REANCHOR).generate(
+        primers, sheets, seed=41)
+    n_flash = _build.LAUNCHES['flash_attention_fwd'] - n0
+    print(f'phase 14b Dh128 GPT-2 generate bf16 B={ENTRY_B}, cache '
+          f'{WIDTH_REANCHOR["gpt2_cache_len"]}, window {WIDTH_REANCHOR["gpt2_window"]}: '
+          f'{sum(stats["events"])} events, re-anchors {stats["reanchors"]}, '
+          f'flash_attention_fwd launches {n_flash}')
+    expect(sum(stats['reanchors']) >= 1 and n_flash >= N_LAYER,
+           '14b Dh128: a re-anchor ran the kernel')
+    check_streams(streams, primers, sheets, vocab, '14b Dh128 generate')
+    del model
+    torch.cuda.synchronize()
+    walls['Dh128'] = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    print('phase 14b walls: ' + ', '.join(f'{n} {s:.1f} s' for n, s in walls.items())
+          + f'; launches {launches}')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3837,7 +4314,11 @@ def main():
              'multi_device': HEAD_MAJOR + ('performer_decode_layer',),
              # stage 1's and GPT-2's layouts run no kernel (no re-anchor
              # there); the Performer's serve in 'md' and 'dm': #12
-             'cache_layouts': ('performer_decode_layer',)}
+             'cache_layouts': ('performer_decode_layer',),
+             # the 'odd' Performer's train steps in both layouts (#1-#4,
+             # #8-#11), both Performers' serves (#12), GPT-2 Dh128 (#13)
+             'widths': HEAD_MAJOR + HEADS_LAST + ('performer_decode_layer',
+                                                  'flash_attention_fwd')}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
@@ -3887,11 +4368,11 @@ def main():
 
     gpt2_model = phase_gpt2_model(vocab, dev)
     _build.LAUNCHES.clear()                  # the GPT-2 serving path starts here
-    n_windows = phase_gpt2_serve(gpt2_model, vocab, dev, smi)
+    n_flash = phase_gpt2_serve(gpt2_model, vocab, dev, smi)
     torch.cuda.synchronize()
     launches['gpt2_serving'] = dict(_build.LAUNCHES)
     expect(launches['gpt2_serving'].get('flash_attention_fwd', 0)
-           == N_LAYER * n_windows,
+           == n_flash,
            'flash_attention_fwd launched once a layer per L=2048 forward')
 
     _build.LAUNCHES.clear()                  # the GPT-2 training path starts here
@@ -3949,6 +4430,15 @@ def main():
     launches['cache_layouts'] = phase_cache_layouts(
         s1_model, s1_vocab, gpt2_model, model, omegas, vocab, dev, smi, bitwise)
     print(f'cache-layouts path took {time.time() - t_lay:.0f} s')
+    t_wid = time.time()
+    phase_widths_flash(dev, rec)
+    phase_widths_decode(dev, rec)
+    phase_widths_favor(dev, rec)
+    phase_widths_cla(dev, rec)
+    t_wid_b = time.time()
+    launches['widths'] = phase_widths_models(vocab, dev, smi)
+    print(f'widths path took {time.time() - t_wid:.0f} s (14a {t_wid_b - t_wid:.0f} s, '
+          f'14b {time.time() - t_wid_b:.0f} s)')
     for path, names in paths.items():
         print(f'{path} path launches: {launches[path]}')
         for name in names:
@@ -3958,6 +4448,7 @@ def main():
         r['launches'] = launches[owner.get(name, 'serving')][name]
         r['launches_multi_device'] = launches['multi_device'].get(name, 0)
         r['launches_cache_layouts'] = launches['cache_layouts'].get(name, 0)
+        r['launches_widths'] = launches['widths'].get(name, 0)
 
     phase_timing(dev, rec, smi)
     phase_timing_cla(dev, rec, smi)

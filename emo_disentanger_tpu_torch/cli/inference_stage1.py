@@ -11,8 +11,8 @@ stage 2 reads; ``-r remi`` (no key step) writes ``.mid`` and ``.txt``, and
 stage 2 reads the ``.txt``.  ``-r remi -m full_song`` is the one-stage
 baseline.
 
-A bare config name is looked up among the JAX package's stage-1 YAMLs,
-read by path (this package imports nothing of it).
+A bare config name is looked up among the port's own stage-1 YAMLs
+(``configs/stage1/``, copies of the JAX package's).
 """
 
 import argparse

@@ -5,8 +5,8 @@ reference ``stage2_accompaniment/inference.py:330-355``): ``-m``, ``-c``,
     python -m emo_disentanger_tpu_torch infer-stage2 -m performer \\
         -c emopia_finetune.yaml -r functional --batch 16 --serve
 
-A bare config name is looked up among the JAX package's stage-2 YAMLs,
-read by path (this package imports nothing of it).
+A bare config name is looked up among the port's own stage-2 YAMLs
+(``configs/stage2/``, copies of the JAX package's).
 """
 
 import argparse

@@ -12,15 +12,15 @@ A data-parallel run starts one rank a card under torchrun, each rank on
     torchrun --nproc_per_node N -m emo_disentanger_tpu_torch train-stage1 \\
         -c emopia_finetune.yaml -r functional --n_devices N
 
-A bare config name is looked up among the JAX package's stage-1 YAMLs,
-read by path (this package imports nothing of it).
+A bare config name is looked up among the port's own stage-1 YAMLs
+(``configs/stage1/``, copies of the JAX package's).
 """
 
 import argparse
 import os
 
-CONFIG_DIR = os.path.join(os.path.dirname(__file__), '..', '..',
-                          'emo_disentanger_tpu', 'configs', 'stage1')
+# the port's own copies of the JAX package's stage-1 YAMLs
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), '..', 'configs', 'stage1')
 KNOWN = ['hooktheory_pretrain.yaml', 'emopia_finetune.yaml',
          'pop1k7_pretrain.yaml', 'emopia_finetune_full.yaml']
 

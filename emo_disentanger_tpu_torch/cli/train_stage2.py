@@ -14,15 +14,15 @@ A data-parallel run starts one rank a card under torchrun, each rank on
         -m performer -c pop1k7_pretrain.yaml -r functional --n_devices N
 
 ``EMODIS_HL_ATTN=1`` in the environment trains the Performer in the
-heads-last attention layout.  A bare config name is looked up among the JAX
-package's stage-2 YAMLs, read by path (this package imports nothing of it).
+heads-last attention layout.  A bare config name is looked up among the
+port's own stage-2 YAMLs (``configs/stage2/``, copies of the JAX package's).
 """
 
 import argparse
 import os
 
-CONFIG_DIR = os.path.join(os.path.dirname(__file__), '..', '..',
-                          'emo_disentanger_tpu', 'configs', 'stage2')
+# the port's own copies of the JAX package's stage-2 YAMLs
+CONFIG_DIR = os.path.join(os.path.dirname(__file__), '..', 'configs', 'stage2')
 KNOWN = ['pop1k7_pretrain.yaml', 'pop1k7_pretrain_gpt2.yaml',
          'emopia_finetune.yaml', 'emopia_finetune_gpt2.yaml']
 

@@ -89,12 +89,14 @@
 namespace {
 
 // phi[i][m] = exp(h_im - stab_i) / sqrt(M) for rows i < n and 0 beyond, with
-// h = xs . omega - sq and stab_i = max_m h_im (queries) or kmax (keys).
-// omega is [Dh][M+1] in shared memory.  Ends with __syncthreads().
-template <bool QUERY>
+// h = xs . omega - sq and stab_i = max_{m<Mt} h_im (queries) or kmax (keys);
+// with MASK, columns m >= Mt (the true feature count, g_width) are 0
+// (favor_common.cuh's note on widths).  omega is [Dh][M+1] in shared
+// memory.  Ends with __syncthreads().
+template <bool QUERY, bool MASK>
 __device__ void features(float* phi, const float* xs, const float* sq, const float* om,
                          int n, int Dh, int M, float kmax, float rsqm) {
-  const int MP = M + 1, NT = M / 4;
+  const int MP = M + 1, NT = M / 4, Mt = true_features<MASK>(M);
   for (int t = threadIdx.x; t < (C / 4) * NT; t += blockDim.x) {
     const int it = t / NT, jt = t - it * NT;
     float acc[4][4];
@@ -106,7 +108,7 @@ __device__ void features(float* phi, const float* xs, const float* sq, const flo
       for (int c = 0; c < 4; ++c) {
         const int i = it + r * (C / 4), m = jt + c * NT;
         const float h = acc[r][c] - sq[i];
-        phi[i * MP + m] = QUERY ? h : (i < n ? expf(h - kmax) * rsqm : 0.f);
+        phi[i * MP + m] = QUERY ? h : (i < n && (!MASK || m < Mt) ? expf(h - kmax) * rsqm : 0.f);
       }
   }
   __syncthreads();
@@ -114,10 +116,10 @@ __device__ void features(float* phi, const float* xs, const float* sq, const flo
     const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
     for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
       float mx = -INFINITY;
-      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, phi[i * MP + m]);
+      for (int m = lane; m < (MASK ? Mt : M); m += 32) mx = fmaxf(mx, phi[i * MP + m]);
       mx = warp_max(mx);
       for (int m = lane; m < M; m += 32)
-        phi[i * MP + m] = i < n ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
+        phi[i * MP + m] = i < n && (!MASK || m < Mt) ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
     }
     __syncthreads();
   }
@@ -213,7 +215,7 @@ __device__ void chain_rule_tc(__nv_bfloat16* dx, const float* t, const float* xs
   });
 }
 
-template <class T, bool HL>
+template <class T, bool HL, int MODE>
 __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const T* __restrict__ g,
                                    const float* __restrict__ omega,
@@ -222,9 +224,12 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
                                    int Dh, int Dv, int M, int n_head, int np, float scale,
                                    float rsqm, float eps) {
   // bf16: the bf16-operand products on the tensor cores (Dh, Dv, M
-  // multiples of 16, which the wrappers check)
+  // multiples of 16, which the wrappers see to)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ float smem[];
+  extern __shared__ float smem_[];
+  float* smem = smem_;
+  if constexpr (MODE == WORKSPACE) smem = g_width.ws + (size_t)blockIdx.x * g_width.ws_floats;
+  constexpr bool MASK = MODE != ALIGNED;
   const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M+1]
@@ -263,14 +268,14 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
       load_rows_tc(gu, g + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<false, MASK>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
       load_rows_tc(xs, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<true, MASK>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
     } else {
       load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
-      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features<false, MASK>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
       for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
         const int i = idx / Dv, d = idx - i * Dv;
         const size_t at = (size_t)(r0 + i) * ldv + d;
@@ -278,7 +283,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
         gu[i * DVP + d] = i < n ? to_f<T>(g[at]) : 0.f;
       }
       load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
-      features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features<true, MASK>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
     }
 
     if constexpr (TC) {
@@ -429,7 +434,7 @@ __global__ void favor_bwd_a_kernel(const T* __restrict__ q, const T* __restrict_
   }
 }
 
-template <class T, bool HL>
+template <class T, bool HL, int MODE>
 __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    const T* __restrict__ v, const T* __restrict__ u,
                                    const T* __restrict__ w, const float* __restrict__ omega,
@@ -437,9 +442,12 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
                                    T* __restrict__ dv, int L, int Dh, int Dv, int M,
                                    int n_head, int np, float scale, float rsqm) {
   // bf16: pass A's tensor-core design (Dh, Dv, M multiples of 16, which
-  // the wrappers check)
+  // the wrappers see to)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
-  extern __shared__ float smem[];
+  extern __shared__ float smem_[];
+  float* smem = smem_;
+  if constexpr (MODE == WORKSPACE) smem = g_width.ws + (size_t)blockIdx.x * g_width.ws_floats;
+  constexpr bool MASK = MODE != ALIGNED;
   const int H = HL ? n_head : 1;
   const int MP = M + 1, DVP = Dv + 1, XP = Dh + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M+1]
@@ -477,11 +485,11 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
       for (int i = tid; i < C; i += blockDim.x) wv[i] = i < n ? to_f<T>(w[r0 + i]) : 0.f;
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<true, MASK>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
       load_rows_tc(xs, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<false, MASK>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
 
       // sc = phi_q phi_k^T, masked to j <= i
       tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
@@ -537,9 +545,9 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
       add_wcol_sums_tc(r, pq, wv, M);
     } else {
       load_scaled<T>(xs, sq, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
-      features<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features<true, MASK>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
       load_scaled<T>(xs, sq, k + (size_t)r0 * ldx, n, Dh, ldx, scale);
-      features<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features<false, MASK>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
       for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
         const int i = idx / Dv, d = idx - i * Dv;
         const size_t at = (size_t)(r0 + i) * ldv + d;
@@ -615,35 +623,60 @@ __global__ void favor_bwd_b_kernel(const T* __restrict__ q, const T* __restrict_
   }
 }
 
+// floats of a pass's block tiles (pass A keeps g, u and g * out, pass B v
+// and u; the launches' shared memory, or a row's slice of the workspace)
+size_t bwd_floats(int Dh, int Dv, int M, bool pass_a) {
+  return (size_t)Dh * (M + 1) + (size_t)M * (Dv + 1) + M + 2 * C * (M + 1) + C * (Dh + 1) +
+         (pass_a ? 3 : 2) * C * (Dv + 1) + C * (C + 1) + (pass_a ? 4 : 3) * C;
+}
+
 template <class T, bool HL>
 int launch_bwd_a(const void* q, const void* k, const void* v, const void* g,
                  const float* omega, const float* partial, void* dq, void* u, void* w, int BH,
-                 int H, int L, int Dh, int Dv, int M, int np, float eps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (Dh * (M + 1) + M * (Dv + 1) + M + 2 * C * (M + 1) +
-                                       C * (Dh + 1) + 3 * C * (Dv + 1) + C * (C + 1) + 4 * C);
-  cudaError_t err = allow_smem(favor_bwd_a_kernel<T, HL>, smem);
+                 int H, int L, int Dh, int Dv, int M, int np, float eps, int Dt, int Mt,
+                 float* ws, long long ws_floats, cudaStream_t stream) {
+  const size_t floats = bwd_floats(Dh, Dv, M, true);
+  const float scale = feature_scale(Dt), rsqm = (float)(1.0 / sqrt((double)Mt));
+  const int mode = width_mode(floats, M, Mt);
+  const bool big = mode == WORKSPACE;
+  if (big && (!ws || ws_floats < (long long)BH * (long long)floats))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = big ? favor_bwd_a_kernel<T, HL, WORKSPACE>
+                      : mode == MASKED ? favor_bwd_a_kernel<T, HL, MASKED>
+                                       : favor_bwd_a_kernel<T, HL, ALIGNED>;
+  const size_t smem = big ? 0 : sizeof(float) * floats;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = set_width_args(mode, Mt, ws, floats, stream);
   if (err != cudaSuccess) return (int)err;
-  favor_bwd_a_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
+  kernel<<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), omega, partial, static_cast<T*>(dq), static_cast<T*>(u),
-      static_cast<T*>(w), L, Dh, Dv, M, H, np, feature_scale(Dh),
-      (float)(1.0 / sqrt((double)M)), eps);
+      static_cast<T*>(w), L, Dh, Dv, M, H, np, scale, rsqm, eps);
   return (int)cudaGetLastError();
 }
 
 template <class T, bool HL>
 int launch_bwd_b(const void* q, const void* k, const void* v, const void* u, const void* w,
                  const float* omega, const float* partial, void* dk, void* dv, int BH, int H,
-                 int L, int Dh, int Dv, int M, int np, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (Dh * (M + 1) + M * (Dv + 1) + M + 2 * C * (M + 1) +
-                                       C * (Dh + 1) + 2 * C * (Dv + 1) + C * (C + 1) + 3 * C);
-  cudaError_t err = allow_smem(favor_bwd_b_kernel<T, HL>, smem);
+                 int L, int Dh, int Dv, int M, int np, int Dt, int Mt, float* ws,
+                 long long ws_floats, cudaStream_t stream) {
+  const size_t floats = bwd_floats(Dh, Dv, M, false);
+  const float scale = feature_scale(Dt), rsqm = (float)(1.0 / sqrt((double)Mt));
+  const int mode = width_mode(floats, M, Mt);
+  const bool big = mode == WORKSPACE;
+  if (big && (!ws || ws_floats < (long long)BH * (long long)floats))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = big ? favor_bwd_b_kernel<T, HL, WORKSPACE>
+                      : mode == MASKED ? favor_bwd_b_kernel<T, HL, MASKED>
+                                       : favor_bwd_b_kernel<T, HL, ALIGNED>;
+  const size_t smem = big ? 0 : sizeof(float) * floats;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = set_width_args(mode, Mt, ws, floats, stream);
   if (err != cudaSuccess) return (int)err;
-  favor_bwd_b_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
+  kernel<<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(u), static_cast<const T*>(w), omega, partial,
-      static_cast<T*>(dk), static_cast<T*>(dv), L, Dh, Dv, M, H, np, feature_scale(Dh),
-      (float)(1.0 / sqrt((double)M)));
+      static_cast<T*>(dk), static_cast<T*>(dv), L, Dh, Dv, M, H, np, scale, rsqm);
   return (int)cudaGetLastError();
 }
 
@@ -653,17 +686,23 @@ extern "C" {
 
 const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Every entry point takes Dh, Dv and M at the instantiation's tile, the
+// true head width Dt and feature count Mt, and a workspace as favor_fwd.cu's
+// entry points do (its note; bwd_floats a row).
+
 // q, k [BH, L, Dh], v, g [BH, L, Dv] (one dtype: f32, or bf16 when bf16 != 0),
 // omega [Dh, M] f32, partial [BH, np] f32 from favor_kmax ->
 // dq [BH, L, Dh], u [BH, L, Dv], w [BH, L] in the inputs' dtype.
 int favor_bwd_a(const void* q, const void* k, const void* v, const void* g,
                 const float* omega, const float* partial, void* dq, void* u, void* w, int BH,
-                int L, int Dh, int Dv, int M, int np, int bf16, float eps, void* stream) {
+                int L, int Dh, int Dv, int M, int np, int bf16, float eps, int Dt, int Mt,
+                float* ws, long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd_a<__nv_bfloat16, false>(q, k, v, g, omega, partial, dq, u, w, BH, 1,
-                                                   L, Dh, Dv, M, np, eps, s)
+                                                   L, Dh, Dv, M, np, eps, Dt, Mt, ws,
+                                                   ws_floats, s)
               : launch_bwd_a<float, false>(q, k, v, g, omega, partial, dq, u, w, BH, 1, L, Dh,
-                                           Dv, M, np, eps, s);
+                                           Dv, M, np, eps, Dt, Mt, ws, ws_floats, s);
 }
 
 // heads-last: q, k, v, g [B, L, H * Dh] (one dtype), omega [Dh, M] f32, partial
@@ -671,36 +710,40 @@ int favor_bwd_a(const void* q, const void* k, const void* v, const void* g,
 // the inputs' dtype.
 int favor_bwd_a_hl(const void* q, const void* k, const void* v, const void* g,
                    const float* omega, const float* partial, void* dq, void* u, void* w, int B,
-                   int H, int L, int Dh, int M, int np, int bf16, float eps, void* stream) {
+                   int H, int L, int Dh, int M, int np, int bf16, float eps, int Dt, int Mt,
+                   float* ws, long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd_a<__nv_bfloat16, true>(q, k, v, g, omega, partial, dq, u, w, B * H,
-                                                  H, L, Dh, Dh, M, np, eps, s)
+                                                  H, L, Dh, Dh, M, np, eps, Dt, Mt, ws,
+                                                  ws_floats, s)
               : launch_bwd_a<float, true>(q, k, v, g, omega, partial, dq, u, w, B * H, H, L,
-                                          Dh, Dh, M, np, eps, s);
+                                          Dh, Dh, M, np, eps, Dt, Mt, ws, ws_floats, s);
 }
 
 // q, k, v as for favor_bwd_a, u [BH, L, Dv] and w [BH, L] from it ->
 // dk [BH, L, Dh], dv [BH, L, Dv] in the inputs' dtype.
 int favor_bwd_b(const void* q, const void* k, const void* v, const void* u, const void* w,
                 const float* omega, const float* partial, void* dk, void* dv, int BH, int L,
-                int Dh, int Dv, int M, int np, int bf16, void* stream) {
+                int Dh, int Dv, int M, int np, int bf16, int Dt, int Mt, float* ws,
+                long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd_b<__nv_bfloat16, false>(q, k, v, u, w, omega, partial, dk, dv, BH, 1,
-                                                   L, Dh, Dv, M, np, s)
+                                                   L, Dh, Dv, M, np, Dt, Mt, ws, ws_floats, s)
               : launch_bwd_b<float, false>(q, k, v, u, w, omega, partial, dk, dv, BH, 1, L, Dh,
-                                           Dv, M, np, s);
+                                           Dv, M, np, Dt, Mt, ws, ws_floats, s);
 }
 
 // heads-last: q, k, v, u [B, L, H * Dh] and w [B * H, L] as favor_bwd_a_hl gives
 // them -> dk, dv [B, L, H * Dh] in the inputs' dtype.
 int favor_bwd_b_hl(const void* q, const void* k, const void* v, const void* u, const void* w,
                    const float* omega, const float* partial, void* dk, void* dv, int B, int H,
-                   int L, int Dh, int M, int np, int bf16, void* stream) {
+                   int L, int Dh, int M, int np, int bf16, int Dt, int Mt, float* ws,
+                   long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd_b<__nv_bfloat16, true>(q, k, v, u, w, omega, partial, dk, dv, B * H,
-                                                  H, L, Dh, Dh, M, np, s)
+                                                  H, L, Dh, Dh, M, np, Dt, Mt, ws, ws_floats, s)
               : launch_bwd_b<float, true>(q, k, v, u, w, omega, partial, dk, dv, B * H, H, L,
-                                          Dh, Dh, M, np, s);
+                                          Dh, Dh, M, np, Dt, Mt, ws, ws_floats, s);
 }
 
 }  // extern "C"

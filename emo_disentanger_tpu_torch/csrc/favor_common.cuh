@@ -103,6 +103,68 @@ __device__ void load_scaled(float* xs, float* sq, const T* x, int n, int D, int 
 // d^-1/4, rounded once from double as the reference computes it
 float feature_scale(int Dh) { return (float)pow((double)Dh, -0.25); }
 
+// Widths.  The wrappers pad Dh, Dv and M up to the instantiation's tile (16
+// under bf16, 4 in f32) with zeros, and pass the true Dh (for d^-1/4) and
+// the true M as Mt: feature columns m >= Mt are set to 0 (a zero omega
+// column alone would still give exp(-||x||^2/2 - max) / sqrt(M)), the query
+// max and the key max are taken over m < Mt and 1/sqrt(M) is 1/sqrt(Mt), so
+// the padded call gives the true widths' result exactly; zero columns of
+// q, k and v add nothing to any product.
+//
+// A block whose tiles exceed SMEM_MAX bytes of shared memory (M or the
+// head widths past the model's: at Dh = Dv = 128, M = 256 the forward
+// holds ~480 KB) keeps the same tiles in a slice of a global workspace
+// that the wrapper allocates (the WORKSPACE instantiations): the same code
+// on generic pointers, __syncthreads() ordering the block's global
+// accesses as it orders its shared ones.
+constexpr size_t SMEM_MAX = 227 * 1024;
+
+// Each kernel is instantiated for three width modes, chosen per launch, so
+// that the aligned widths run the code they ran before the masks existed:
+// ALIGNED (M is the true feature count: no mask), MASKED (features from
+// Mt on masked) and WORKSPACE (masked, the tiles in the workspace).
+enum WidthMode { ALIGNED = 0, MASKED = 1, WORKSPACE = 2 };
+
+int width_mode(size_t tile_floats, int M, int Mt) {
+  return sizeof(float) * tile_floats > SMEM_MAX ? WORKSPACE : Mt < M ? MASKED : ALIGNED;
+}
+
+// The true feature count and the workspace of a MASKED or WORKSPACE launch,
+// written on the launch's stream just before it (set_width_args).  The
+// kernels keep the parameters they had before the widths, and the ALIGNED
+// instantiations read none of this, so they compile to the code they had.
+// Launches of these two modes from one library on two streams at once
+// would share it.
+struct WidthArgs {
+  int Mt;         // the true feature count
+  int ws_floats;  // floats of one block's tiles in the workspace
+  float* ws;      // the workspace (WORKSPACE), else null
+};
+__constant__ WidthArgs g_width;
+
+cudaError_t set_width_args(int mode, int Mt, float* ws, size_t floats, cudaStream_t stream) {
+  if (mode == ALIGNED) return cudaSuccess;
+  const WidthArgs a = {Mt, mode == WORKSPACE ? (int)floats : 0, mode == WORKSPACE ? ws : nullptr};
+  return cudaMemcpyToSymbolAsync(g_width, &a, sizeof a, 0, cudaMemcpyHostToDevice, stream);
+}
+
+// the true feature count, M itself without MASK (if constexpr: a ?: that
+// names g_width in its dead arm changes the ALIGNED kernels' code)
+template <bool MASK>
+__device__ __forceinline__ int true_features(int M) {
+  if constexpr (MASK)
+    return g_width.Mt;
+  else
+    return M;
+}
+
+// The kernels take their tiles as
+//   float* smem = smem_;
+//   if constexpr (MODE == WORKSPACE) smem = g_width.ws + block * g_width.ws_floats;
+// written out in each: reached through a helper's parameter, even an
+// inlined one, the shared array gave the ALIGNED kernels other code (the
+// bf16 key max 129 registers where it had 128, and one block an SM).
+
 template <class K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -161,9 +161,11 @@ __device__ __forceinline__ void store_block_max(float mx, float* red, float* dst
 // registers (kmax_omega_in_registers): warp w keeps its 16 columns split to
 // TF32 for all the chunks, as tc_mma_f32 would split them at each use; the
 // rows come in by cp.async, the next chunk's while this one computes.
+template <bool MASK>
 __device__ void kmax_chunks_regs(float* smem, const __nv_bfloat16* k, const float* omega,
                                  float* partial, int c0, int c1, int L, int Dh, int M,
                                  int ld, float scale) {
+  const int Mt = true_features<MASK>(M);
   __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][C][Dh]
   uint32_t* xh = reinterpret_cast<uint32_t*>(smem + C * Dh);     // [C][Dh+1]
   uint32_t* xl = xh + C * (Dh + 1);                              // [C][Dh+1]
@@ -217,8 +219,8 @@ __device__ void kmax_chunks_regs(float* smem, const __nv_bfloat16* k, const floa
         }
 #pragma unroll
       for (int q = 0; q < G; ++q)
-        tc_each<2>(acc[q], 16 * q, j0, [&](int i, int, float x) {
-          if (i < n) mx = fmaxf(mx, x - sq[i]);
+        tc_each<2>(acc[q], 16 * q, j0, [&](int i, int m, float x) {
+          if (i < n && (!MASK || m < Mt)) mx = fmaxf(mx, x - sq[i]);
         });
     }
     store_block_max(mx, red, partial + c);
@@ -227,9 +229,11 @@ __device__ void kmax_chunks_regs(float* smem, const __nv_bfloat16* k, const floa
 
 // The same at other widths: omega padded to [Dh][M+1] in shared memory,
 // the rows by load_rows_tc, the product through tc_mma_f32.
+template <bool MASK>
 __device__ void kmax_chunks_smem(float* smem, const __nv_bfloat16* k, const float* omega,
                                  float* partial, int c0, int c1, int L, int Dh, int M,
                                  int ld, float scale) {
+  const int Mt = true_features<MASK>(M);
   float* om = smem;                    // [Dh][M+1]
   float* xs = om + Dh * (M + 1);       // [C][Dh+1]
   float* sq = xs + C * (Dh + 1);       // [C]
@@ -243,25 +247,29 @@ __device__ void kmax_chunks_smem(float* smem, const __nv_bfloat16* k, const floa
     float mx = -INFINITY;
     tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
       tc_mma_f32<2>(acc, xs, Dh + 1, 1, i0, om, M + 1, 1, j0, Dh);
-      tc_each<2>(acc, i0, j0, [&](int i, int, float x) {
-        if (i < n) mx = fmaxf(mx, x - sq[i]);
+      tc_each<2>(acc, i0, j0, [&](int i, int m, float x) {
+        if (i < n && (!MASK || m < Mt)) mx = fmaxf(mx, x - sq[i]);
       });
     });
     store_block_max(mx, red, partial + c);
   }
 }
 
-template <class T, bool HL>
+template <class T, bool HL, int MODE>
 __global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restrict__ omega,
                                   float* __restrict__ partial, int L, int Dh, int M,
                                   int n_head, float scale, int per_block) {
   // bf16: h on the tensor cores, per_block consecutive chunks of the row a
   // block (Dh and M multiples of 16 and k 16-byte aligned, which the
-  // wrappers check); f32: one chunk a block on 4x4 tiles
+  // wrappers see to); f32: one chunk a block on 4x4 tiles (WORKSPACE: a
+  // block loops over the row's chunks, one workspace slice a row)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool MASK = MODE != ALIGNED, BIG = MODE == WORKSPACE;
   const int H = HL ? n_head : 1;
-  extern __shared__ float smem[];
+  extern __shared__ float smem_[];
   const int row = blockIdx.y, nch = (L + C - 1) / C;
+  float* smem = smem_;
+  if constexpr (MODE == WORKSPACE) smem = g_width.ws + (size_t)row * g_width.ws_floats;
 
   if constexpr (TC) {
     // either path computes h bit for bit as features_tc does (the note at
@@ -269,55 +277,69 @@ __global__ void favor_kmax_kernel(const T* __restrict__ k, const float* __restri
     const int c0 = blockIdx.x * per_block, c1 = min(nch, c0 + per_block);
     k += row_base(row, H, L, Dh);
     partial += (size_t)row * nch;
-    if (kmax_omega_in_registers(Dh, M))
-      kmax_chunks_regs(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
+    if (!BIG && kmax_omega_in_registers(Dh, M))
+      kmax_chunks_regs<MASK>(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
     else
-      kmax_chunks_smem(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
+      kmax_chunks_smem<MASK>(smem, k, omega, partial, c0, c1, L, Dh, M, H * Dh, scale);
   } else {
     float* om = smem;                    // [Dh][M]
     float* xs = om + Dh * M;             // [C][Dh+1]
     float* sq = xs + C * (Dh + 1);       // [C]
     float* red = sq + C;                 // [32]
-    const int chunk = blockIdx.x;
-    const int r0 = chunk * C, n = min(C, L - r0);
-    for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
-    // the head-major address keeps its original form: through row_base this
-    // short kernel measured 4.6% slower on the H100 (kernel_ab.py)
-    load_scaled<T>(xs, sq,
-                   HL ? k + row_base(row, H, L, Dh) + (size_t)r0 * H * Dh
-                      : k + ((size_t)row * L + r0) * Dh,
-                   n, Dh, H * Dh, scale);
+    const int Mt = true_features<MASK>(M);
+    auto one_chunk = [&](int chunk) {
+      const int r0 = chunk * C, n = min(C, L - r0);
+      for (int i = threadIdx.x; i < Dh * M; i += blockDim.x) om[i] = omega[i];
+      // the head-major address keeps its original form: through row_base this
+      // short kernel measured 4.6% slower on the H100 (kernel_ab.py)
+      load_scaled<T>(xs, sq,
+                     HL ? k + row_base(row, H, L, Dh) + (size_t)r0 * H * Dh
+                        : k + ((size_t)row * L + r0) * Dh,
+                     n, Dh, H * Dh, scale);
 
-    float mx = -INFINITY;
-    const int RT = C / 4, NT = M / 4;
-    for (int t = threadIdx.x; t < RT * NT; t += blockDim.x) {
-      const int it = t / NT, jt = t - it * NT;
-      float acc[4][4];
-      zero4x4(acc);
-      mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, RT, om, M, 1, jt, NT, Dh);
+      float mx = -INFINITY;
+      const int RT = C / 4, NT = M / 4;
+      for (int t = threadIdx.x; t < RT * NT; t += blockDim.x) {
+        const int it = t / NT, jt = t - it * NT;
+        float acc[4][4];
+        zero4x4(acc);
+        mma4x4<float, false, false>(acc, xs, Dh + 1, 1, it, RT, om, M, 1, jt, NT, Dh);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = it + r * RT;
-        if (i < n)
+        for (int r = 0; r < 4; ++r) {
+          const int i = it + r * RT;
+          if (i < n)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) mx = fmaxf(mx, acc[r][c] - sq[i]);
+            for (int c = 0; c < 4; ++c)
+              if (!MASK || jt + c * NT < Mt) mx = fmaxf(mx, acc[r][c] - sq[i]);
+        }
       }
+      store_block_max(mx, red, partial + (size_t)row * nch + chunk);
+    };
+    if constexpr (BIG) {
+      for (int chunk = 0; chunk < nch; ++chunk) {
+        one_chunk(chunk);
+        __syncthreads();
+      }
+    } else {
+      one_chunk(blockIdx.x);
     }
-    store_block_max(mx, red, partial + (size_t)row * nch + chunk);
   }
 }
 
-template <class T, bool HL>
+template <class T, bool HL, int MODE>
 __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const float* __restrict__ omega,
                                  const float* __restrict__ partial, T* __restrict__ out,
                                  int L, int Dh, int Dv, int M, int n_head, float scale,
                                  float rsqm, float eps) {
   // bf16: the chunk products on the tensor cores (Dh, Dv, M multiples of
-  // 16, which the wrappers check)
+  // 16, which the wrappers see to)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
-  const int H = HL ? n_head : 1;
-  extern __shared__ float smem[];
+  constexpr bool MASK = MODE != ALIGNED;
+  const int H = HL ? n_head : 1, Mt = true_features<MASK>(M);
+  extern __shared__ float smem_[];
+  float* smem = smem_;
+  if constexpr (MODE == WORKSPACE) smem = g_width.ws + (size_t)blockIdx.x * g_width.ws_floats;
   const int MP = M + 1, DVP = Dv + 1, CP = C + 1;
   float* om = smem;                    // [Dh][M] ([Dh][M+1] under TC)
   float* S = om + Dh * (TC ? MP : M);  // [M][Dv+1]   running sum phi_k v^T
@@ -357,11 +379,11 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
       load_rows_tc(vv, v + (size_t)r0 * ldv, n, Dv, ldv, 1.f);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<false>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<false, MASK>(pk, xs, sq, om, n, Dh, M, kmax, rsqm);
       load_rows_tc(xs, q + (size_t)r0 * ldx, n, Dh, ldx, scale);
       __syncthreads();
       row_sq_tc(sq, xs, Dh);
-      features_tc<true>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
+      features_tc<true, MASK>(pq, xs, sq, om, n, Dh, M, kmax, rsqm);
 
       // sc = phi_q phi_k^T, masked to j <= i
       tc_groups(C, C, [&](float (*acc)[4], int i0, int j0) {
@@ -428,10 +450,11 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
       __syncthreads();
       for (int i = warp; i < C; i += nwarp) {
         float mx = -INFINITY;
-        for (int m = lane; m < M; m += 32) mx = fmaxf(mx, pq[i * MP + m]);
+        for (int m = lane; m < (MASK ? Mt : M); m += 32) mx = fmaxf(mx, pq[i * MP + m]);
         mx = warp_max(mx);
         for (int m = lane; m < M; m += 32)
-          pq[i * MP + m] = i < n ? rnd<T>(expf(pq[i * MP + m] - mx) * rsqm) : 0.f;
+          pq[i * MP + m] =
+              i < n && (!MASK || m < Mt) ? rnd<T>(expf(pq[i * MP + m] - mx) * rsqm) : 0.f;
       }
       __syncthreads();
 
@@ -447,7 +470,8 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int i = it + r * (C / 4), m = jt + c * (M / 4);
-            pk[i * MP + m] = i < n ? expf(acc[r][c] - sq[i] - kmax) * rsqm : 0.f;
+            pk[i * MP + m] =
+                i < n && (!MASK || m < Mt) ? expf(acc[r][c] - sq[i] - kmax) * rsqm : 0.f;
           }
       }
       for (int idx = tid; idx < C * Dv; idx += blockDim.x) {
@@ -523,9 +547,28 @@ __global__ void favor_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
   }
 }
 
+// floats of a kmax block's tiles: f32 omega [Dh][M] and the rows [C][Dh+1];
+// bf16 the same with omega [Dh][M+1], or two chunks' raw rows and their
+// TF32 split (kmax_omega_in_registers)
+size_t kmax_floats(int Dh, int M, bool tc) {
+  const size_t rows = !tc ? (size_t)Dh * M + C * (Dh + 1)
+                      : kmax_omega_in_registers(Dh, M) ? (size_t)C * Dh + 2 * C * (Dh + 1)
+                                                       : (size_t)Dh * (M + 1) + C * (Dh + 1);
+  return rows + C + 32;
+}
+
+// floats of a forward block's tiles (omega padded to [Dh][M+1] under bf16,
+// favor_tc.cuh's features_tc)
+size_t fwd_floats(int Dh, int Dv, int M, bool tc) {
+  const int om_cols = tc ? M + 1 : M;
+  return (size_t)Dh * om_cols + (size_t)M * (Dv + 1) + M + 2 * C * (M + 1) + C * (Dv + 1) +
+         C * (Dh + 1) + C * (C + 1) + 2 * C + 32;
+}
+
 template <class T, bool HL>
 int launch_kmax(const void* k, const float* omega, float* partial, int BH, int H, int L,
-                int Dh, int M, cudaStream_t stream) {
+                int Dh, int M, int Dt, int Mt, float* ws, long long ws_floats,
+                cudaStream_t stream) {
   // bf16: per consecutive chunks a block, so that omega is read and split
   // once for them and the next chunk's rows load while one computes: the
   // most of 8, 4 and 2 that still leaves 512 blocks, about two waves at
@@ -533,37 +576,50 @@ int launch_kmax(const void* k, const float* omega, float* partial, int BH, int H
   // L=2048 and 3072, 1 and 2 at the serving path's 256 chunks)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
   const int nch = (L + C - 1) / C;
+  const size_t floats = kmax_floats(Dh, M, TC);
+  const int mode = width_mode(floats, M, Mt);
+  if (mode == WORKSPACE && (!ws || ws_floats < (long long)BH * (long long)floats))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_width_args(mode, Mt, ws, floats, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (mode == WORKSPACE) {
+    // a block a row, over all its chunks, its tiles in the workspace
+    favor_kmax_kernel<T, HL, WORKSPACE><<<dim3(1, BH), THREADS, 0, stream>>>(
+        static_cast<const T*>(k), omega, partial, L, Dh, M, H, feature_scale(Dt), nch);
+    return (int)cudaGetLastError();
+  }
   int per = 1;
   while (TC && per < 8 && BH * nch / (2 * per) >= 512) per *= 2;
-  // f32: omega [Dh][M] and the rows [C][Dh+1]; bf16: the same with omega
-  // [Dh][M+1], or two chunks' raw rows and their TF32 split
-  const int rows = !TC ? Dh * M + C * (Dh + 1)
-                       : kmax_omega_in_registers(Dh, M) ? C * Dh + 2 * C * (Dh + 1)
-                                                        : Dh * (M + 1) + C * (Dh + 1);
-  const size_t smem = sizeof(float) * (rows + C + 32);
-  cudaError_t err = allow_smem(favor_kmax_kernel<T, HL>, smem);
+  const size_t smem = sizeof(float) * floats;
+  const auto kernel =
+      mode == MASKED ? favor_kmax_kernel<T, HL, MASKED> : favor_kmax_kernel<T, HL, ALIGNED>;
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nch + per - 1) / per, BH);
-  favor_kmax_kernel<T, HL><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega,
-                                                        partial, L, Dh, M, H,
-                                                        feature_scale(Dh), per);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(k), omega, partial, L, Dh, M,
+                                          H, feature_scale(Dt), per);
   return (int)cudaGetLastError();
 }
 
 template <class T, bool HL>
 int launch_fwd(const void* q, const void* k, const void* v, const float* omega,
                const float* partial, void* out, int BH, int H, int L, int Dh, int Dv, int M,
-               float eps, cudaStream_t stream) {
-  // omega padded to [Dh][M+1] under bf16 (favor_tc.cuh's features_tc)
-  const int om_cols = std::is_same<T, __nv_bfloat16>::value ? M + 1 : M;
-  const size_t smem = sizeof(float) * (Dh * om_cols + M * (Dv + 1) + M + 2 * C * (M + 1) +
-                                       C * (Dv + 1) + C * (Dh + 1) + C * (C + 1) + 2 * C + 32);
-  cudaError_t err = allow_smem(favor_fwd_kernel<T, HL>, smem);
+               int Dt, int Mt, float eps, float* ws, long long ws_floats, cudaStream_t stream) {
+  const size_t floats = fwd_floats(Dh, Dv, M, std::is_same<T, __nv_bfloat16>::value);
+  const int mode = width_mode(floats, M, Mt);
+  if (mode == WORKSPACE && (!ws || ws_floats < (long long)BH * (long long)floats))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = mode == WORKSPACE ? favor_fwd_kernel<T, HL, WORKSPACE>
+                      : mode == MASKED  ? favor_fwd_kernel<T, HL, MASKED>
+                                        : favor_fwd_kernel<T, HL, ALIGNED>;
+  const size_t smem = mode == WORKSPACE ? 0 : sizeof(float) * floats;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = set_width_args(mode, Mt, ws, floats, stream);
   if (err != cudaSuccess) return (int)err;
-  favor_fwd_kernel<T, HL><<<BH, THREADS, smem, stream>>>(
+  kernel<<<BH, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), omega,
-      partial, static_cast<T*>(out), L, Dh, Dv, M, H, feature_scale(Dh),
-      (float)(1.0 / sqrt((double)M)), eps);
+      partial, static_cast<T*>(out), L, Dh, Dv, M, H, feature_scale(Dt),
+      (float)(1.0 / sqrt((double)Mt)), eps);
   return (int)cudaGetLastError();
 }
 
@@ -573,45 +629,58 @@ extern "C" {
 
 const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Every entry point takes Dh, Dv and M at the instantiation's tile (16
+// under bf16, 4 in f32; the wrappers zero-pad other widths), the true head
+// width Dt and feature count Mt (the note in favor_common.cuh), and a
+// workspace of ws_floats floats, used (and then required: the launch
+// refuses less) only when a block's tiles exceed shared memory, one slice
+// of kmax_floats / fwd_floats a row (ops/linear_attention.py
+// _favor_workspace computes the same).
+
 // k [BH, L, Dh] (f32, or bf16 when bf16 != 0), omega [Dh, M] f32 ->
 // partial [BH, ceil(L/64)] f32: the key max of each 64-row chunk.
 int favor_kmax(const void* k, const float* omega, float* partial, int BH, int L, int Dh,
-               int M, int bf16, void* stream) {
+               int M, int bf16, int Dt, int Mt, float* ws, long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kmax<__nv_bfloat16, false>(k, omega, partial, BH, 1, L, Dh, M, s)
-              : launch_kmax<float, false>(k, omega, partial, BH, 1, L, Dh, M, s);
+  return bf16 ? launch_kmax<__nv_bfloat16, false>(k, omega, partial, BH, 1, L, Dh, M, Dt, Mt,
+                                                  ws, ws_floats, s)
+              : launch_kmax<float, false>(k, omega, partial, BH, 1, L, Dh, M, Dt, Mt, ws,
+                                          ws_floats, s);
 }
 
 // heads-last: k [B, L, H * Dh] -> partial [B * H, ceil(L/64)] f32, row b * H + h.
 int favor_kmax_hl(const void* k, const float* omega, float* partial, int B, int H, int L,
-                  int Dh, int M, int bf16, void* stream) {
+                  int Dh, int M, int bf16, int Dt, int Mt, float* ws, long long ws_floats,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_kmax<__nv_bfloat16, true>(k, omega, partial, B * H, H, L, Dh, M, s)
-              : launch_kmax<float, true>(k, omega, partial, B * H, H, L, Dh, M, s);
+  return bf16 ? launch_kmax<__nv_bfloat16, true>(k, omega, partial, B * H, H, L, Dh, M, Dt, Mt,
+                                                 ws, ws_floats, s)
+              : launch_kmax<float, true>(k, omega, partial, B * H, H, L, Dh, M, Dt, Mt, ws,
+                                         ws_floats, s);
 }
 
 // q, k [BH, L, Dh], v [BH, L, Dv] (one dtype), omega [Dh, M] f32, partial from
 // favor_kmax -> out [BH, L, Dv] in the inputs' dtype.
 int favor_fwd(const void* q, const void* k, const void* v, const float* omega,
               const float* partial, void* out, int BH, int L, int Dh, int Dv, int M, int bf16,
-              float eps, void* stream) {
+              float eps, int Dt, int Mt, float* ws, long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<__nv_bfloat16, false>(q, k, v, omega, partial, out, BH, 1, L, Dh,
-                                                 Dv, M, eps, s)
-              : launch_fwd<float, false>(q, k, v, omega, partial, out, BH, 1, L, Dh, Dv, M,
-                                         eps, s);
+                                                 Dv, M, Dt, Mt, eps, ws, ws_floats, s)
+              : launch_fwd<float, false>(q, k, v, omega, partial, out, BH, 1, L, Dh, Dv, M, Dt,
+                                         Mt, eps, ws, ws_floats, s);
 }
 
 // heads-last: q, k, v [B, L, H * Dh] (one dtype), omega [Dh, M] f32, partial
 // from favor_kmax_hl -> out [B, L, H * Dh] in the inputs' dtype.
 int favor_fwd_hl(const void* q, const void* k, const void* v, const float* omega,
                  const float* partial, void* out, int B, int H, int L, int Dh, int M, int bf16,
-                 float eps, void* stream) {
+                 float eps, int Dt, int Mt, float* ws, long long ws_floats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<__nv_bfloat16, true>(q, k, v, omega, partial, out, B * H, H, L,
-                                                Dh, Dh, M, eps, s)
+                                                Dh, Dh, M, Dt, Mt, eps, ws, ws_floats, s)
               : launch_fwd<float, true>(q, k, v, omega, partial, out, B * H, H, L, Dh, Dh, M,
-                                        eps, s);
+                                        Dt, Mt, eps, ws, ws_floats, s);
 }
 
 }  // extern "C"

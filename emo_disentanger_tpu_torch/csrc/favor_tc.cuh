@@ -215,16 +215,19 @@ __device__ __forceinline__ int tf32_k(int s, int K, int t) {
 }
 
 // features' function for the bf16 instantiations, its h = xs . omega in
-// 3xTF32 (tc_mma_f32).  Ends with __syncthreads().
-template <bool QUERY>
+// 3xTF32 (tc_mma_f32).  With MASK, columns m >= Mt (the true feature
+// count, favor_common.cuh's g_width: the rest are the zero-padded features
+// of a width off the tile) are 0, and a query's max is taken over m < Mt.
+// Ends with __syncthreads().
+template <bool QUERY, bool MASK>
 __device__ void features_tc(float* phi, const float* xs, const float* sq, const float* om, int n,
                             int Dh, int M, float kmax, float rsqm) {
-  const int MP = M + 1;
+  const int MP = M + 1, Mt = true_features<MASK>(M);
   tc_groups(C, M, [&](float (*acc)[4], int i0, int j0) {
     tc_mma_f32<2>(acc, xs, Dh + 1, 1, i0, om, MP, 1, j0, Dh);
     tc_each<2>(acc, i0, j0, [&](int i, int m, float x) {
       const float h = x - sq[i];
-      phi[i * MP + m] = QUERY ? h : (i < n ? expf(h - kmax) * rsqm : 0.f);
+      phi[i * MP + m] = QUERY ? h : (i < n && (!MASK || m < Mt) ? expf(h - kmax) * rsqm : 0.f);
     });
   });
   __syncthreads();
@@ -232,10 +235,10 @@ __device__ void features_tc(float* phi, const float* xs, const float* sq, const 
     const int lane = threadIdx.x & 31, nwarp = blockDim.x >> 5;
     for (int i = threadIdx.x >> 5; i < C; i += nwarp) {
       float mx = -INFINITY;
-      for (int m = lane; m < M; m += 32) mx = fmaxf(mx, phi[i * MP + m]);
+      for (int m = lane; m < (MASK ? Mt : M); m += 32) mx = fmaxf(mx, phi[i * MP + m]);
       mx = warp_max(mx);
       for (int m = lane; m < M; m += 32)
-        phi[i * MP + m] = i < n ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
+        phi[i * MP + m] = i < n && (!MASK || m < Mt) ? expf(phi[i * MP + m] - mx) * rsqm : 0.f;
     }
     __syncthreads();
   }

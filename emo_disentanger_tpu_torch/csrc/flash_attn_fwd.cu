@@ -47,6 +47,23 @@
 // leave SMs idle at the tail.  Shared memory: 119 KB a block.  The pitch of
 // 68 floats keeps the tile copies, the split and the ldmatrix reads free of
 // bank conflicts.
+//
+// Other head widths.  The kernel above is the Dh = 64 tile.  Tiles of 32,
+// 128 and 256 run flash_attn_wide_kernel<D>, the same function and
+// arithmetic (3xTF32 products, log2-domain online softmax, the 0 4 1 5 2 6
+// 3 7 key order that lets p feed the second product from the score
+// accumulators, longest query tiles first, diagonal tiles masked), built
+// for widths whose q fragments, hi/lo tiles and accumulators would not fit
+// the Dh = 64 design's registers and shared memory: q, k and v stay raw f32
+// in shared memory (k and v double-buffered by cp.async) and every fragment
+// is read by scalar shared loads and split to hi and lo where it is used
+// (pitches D + 4 for q and k, D + 8 for v keep those loads conflict-free);
+// at D = 256 two warps share 16 query rows, each computing the scores and
+// half of the output columns (64 query rows a block, 32 keys a tile).
+// A head width below a tile (Dh = 40 in the 64 tile, 96 in the 128 tile)
+// is zero-padded by the wrapper (ops/flash_attention.py), which leaves
+// q . k and the kept columns of o exactly as they are; sm_scale is the
+// caller's, at the true Dh.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -307,24 +324,213 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// Causal attention for a head-width tile DT of 32, 128 or 256 (the note at
+// the top): WARPS warps a block, OSPLIT of them sharing 16 query rows,
+// each taking DT / OSPLIT output columns; BKT keys a tile.
+template <int DT, int BKT, int OSPLIT>
+struct Wide {
+  static constexpr int WARPS = 8;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int BQ = 16 * WARPS / OSPLIT;   // query rows a block
+  static constexpr int DO = DT / OSPLIT;            // output columns a warp
+  static constexpr int PQ = DT + 4, PK = DT + 4, PV = DT + 8;
+  static constexpr size_t SMEM = sizeof(float) * (BQ * PQ + 2 * BKT * (PK + PV));
+};
+
+template <int DT, int BKT, int OSPLIT>
+__device__ __forceinline__ void wide_rows(float* dst, const float* src, int rows, int pitch,
+                                          int tid) {
+  using W = Wide<DT, BKT, OSPLIT>;
+  for (int idx = tid; idx < rows * (DT / 4); idx += W::THREADS) {
+    const int r = idx / (DT / 4), c = (idx % (DT / 4)) * 4;
+    cp_async16(dst + r * pitch + c, src + (size_t)r * DT + c);
+  }
+}
+
+template <int DT, int BKT, int OSPLIT>
+__global__ void __launch_bounds__(Wide<DT, BKT, OSPLIT>::THREADS, 1)
+flash_attn_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int BH, int L,
+                       float scale_log2) {
+  using W = Wide<DT, BKT, OSPLIT>;
+  constexpr int BQ = W::BQ, DO = W::DO, PQ = W::PQ, PK = W::PK, PV = W::PV;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);      // [BQ][PQ]
+  float* stage0 = qs + BQ * PQ;                     // stage s: k [BKT][PK], v [BKT][PV]
+
+  const int blk = blockIdx.x;
+  const int qtile = L / BQ - 1 - blk / BH;   // longest first
+  const int bh = blk % BH;
+  const size_t row0 = (size_t)bh * L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / OSPLIT, c0 = (warp % OSPLIT) * DO;
+  const int qr0 = qtile * BQ + rg * 16;      // this warp's first query row
+  const int nkb = (qtile + 1) * BQ / BKT;
+  const int kperm = (g >> 1) + 4 * (g & 1);  // key order 0 4 1 5 2 6 3 7
+
+  wide_rows<DT, BKT, OSPLIT>(qs, q + (row0 + (size_t)qtile * BQ) * DT, BQ, PQ, tid);
+  wide_rows<DT, BKT, OSPLIT>(stage0, k + row0 * DT, BKT, PK, tid);
+  wide_rows<DT, BKT, OSPLIT>(stage0 + BKT * PK, v + row0 * DT, BKT, PV, tid);
+  asm volatile("cp.async.commit_group;");
+
+  float acc[DO / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DO / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const float* qa = qs + (rg * 16 + g) * PQ + t;
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    asm volatile("cp.async.wait_group 0;");
+    __syncthreads();                         // tile kb is in; tile kb - 1 is done with
+    if (kb + 1 < nkb) {
+      float* next = stage0 + ((kb + 1) & 1) * BKT * (PK + PV);
+      const size_t r = row0 + (size_t)(kb + 1) * BKT;
+      wide_rows<DT, BKT, OSPLIT>(next, k + r * DT, BKT, PK, tid);
+      wide_rows<DT, BKT, OSPLIT>(next + BKT * PK, v + r * DT, BKT, PV, tid);
+      asm volatile("cp.async.commit_group;");
+    }
+    const float* ks = stage0 + (kb & 1) * BKT * (PK + PV);
+    const float* vs = ks + BKT * PK;
+    const int key0 = kb * BKT;
+    if (key0 > qr0 + 15) continue;           // every key of the tile is after these rows
+
+    // s = q k^T; column 2t + c of n-tile n holds key 8n + t + 4c
+    float s[BKT / 8][4];
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < DT / 8; ++j) {
+      uint32_t ah[4], al[4];
+      split(qa[8 * j], ah[0], al[0]);
+      split(qa[8 * PQ + 8 * j], ah[1], al[1]);
+      split(qa[8 * j + 4], ah[2], al[2]);
+      split(qa[8 * PQ + 8 * j + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < BKT / 8; ++n) {
+        const float* kp = ks + (8 * n + kperm) * PK + 8 * j + t;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(kp[0], bh0, bl0);
+        split(kp[4], bh1, bl1);
+        mma3(s[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+
+    // log2-domain scores; mask keys after the row on the diagonal tiles
+    const bool diag = key0 + BKT - 1 > qr0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[n][i] * scale_log2;
+        if (diag && key0 + n * 8 + t + 4 * (i & 1) > qr0 + g + 8 * (i >> 1)) x = -INFINITY;
+        s[n][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every row sees key 0 in tile 0, so m is finite from then on
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < BKT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - m[i >> 1]);
+        rs[i >> 1] += s[n][i];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+#pragma unroll
+    for (int n = 0; n < DO / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // o += p v over 8 keys a step: p's K slots t and t + 4 are keys t and
+    // t + 4, the accumulator's columns 2t, 2t + 1
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split(s[j][0], ph[0], pl[0]);
+      split(s[j][2], ph[1], pl[1]);
+      split(s[j][1], ph[2], pl[2]);
+      split(s[j][3], ph[3], pl[3]);
+      const float* vp = vs + (8 * j + t) * PV + c0 + g;
+#pragma unroll
+      for (int n = 0; n < DO / 8; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vp[8 * n], bh0, bl0);
+        split(vp[4 * PV + 8 * n], bh1, bl1);
+        mma3(acc[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+  float* op = o + (row0 + qr0 + g) * DT + c0 + 2 * t;
+#pragma unroll
+  for (int n = 0; n < DO / 8; ++n) {
+    *reinterpret_cast<float2*>(op + n * 8) = make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<float2*>(op + 8 * DT + n * 8) =
+        make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+template <int DT, int BKT, int OSPLIT>
+int launch_wide(const float* q, const float* k, const float* v, float* o, int BH, int L,
+                float scale_log2, cudaStream_t stream) {
+  using W = Wide<DT, BKT, OSPLIT>;
+  const auto kernel = flash_attn_wide_kernel<DT, BKT, OSPLIT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<BH * (L / W::BQ), W::THREADS, W::SMEM, stream>>>(q, k, v, o, BH, L, scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* emodis_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// q, k, v [BH, L, Dh] f32, contiguous, Dh == 64, L a positive multiple of 128
-// -> o [BH, L, Dh] f32: causal softmax attention with scores sm_scale q.k.
+// q, k, v [BH, L, Dh] f32, contiguous, Dh a tile of 32, 64, 128 or 256 (the
+// wrapper zero-pads other widths), L a positive multiple of 128 -> o [BH, L,
+// Dh] f32: causal softmax attention with scores sm_scale q.k.
 int flash_attn_fwd(const float* q, const float* k, const float* v, float* o, int BH, int L,
                    int Dh, float sm_scale, void* stream) {
-  if (Dh != D || L <= 0 || L % BQ || BH <= 0 || (long long)BH * (L / BQ) > 0x7fffffffLL)
+  if (L <= 0 || L % BQ || BH <= 0 || (long long)BH * (L / 64) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const float scale_log2 = (float)((double)sm_scale * 1.4426950408889634);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 32: return launch_wide<32, 64, 1>(q, k, v, o, BH, L, scale_log2, s);
+    case 128: return launch_wide<128, 64, 1>(q, k, v, o, BH, L, scale_log2, s);
+    case 256: return launch_wide<256, 32, 2>(q, k, v, o, BH, L, scale_log2, s);
+    case D: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = (float)((double)sm_scale * 1.4426950408889634);
-  flash_attn_fwd_kernel<<<BH * (L / BQ), THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, BH, L, scale_log2);
+  flash_attn_fwd_kernel<<<BH * (L / BQ), THREADS, SMEM_BYTES, s>>>(q, k, v, o, BH, L,
+                                                                   scale_log2);
   return (int)cudaGetLastError();
 }
 

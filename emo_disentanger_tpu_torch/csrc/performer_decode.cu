@@ -50,6 +50,24 @@
 // Intermediates (q, k, v, attn, x1, y, FF hidden) go through scratch the
 // caller allocates (performer_decode_scratch_floats).  Batches above 16 run
 // as chunks of 16 rows.
+//
+// Widths.  The designs above take D and F in whole 16-byte steps for the 8
+// warps (multiples of 256 for bf16 weights, 128 for f32), K small enough
+// for x in shared memory, N <= 1024 for the register LayerNorm and an
+// (Dh, M) that state_split can place.  Every other width in the envelope
+// (D = H Dh <= 2048, Dh <= 256, F <= 8192, 1 <= M <= 512) takes a tail
+// form of the same launch, chosen per launch so that the aligned shapes
+// run the code they ran before:
+// * gemv_kernel<GEN>: K rounded up to the warps' steps, each lane's x
+//   fragments read from global memory (no staging, so any K fits) and its
+//   weight vector loaded whole where it lies inside the row on a 16-byte
+//   boundary, else value by value with zeros past K; rows past N load
+//   zeros and store nothing; ceil(N / 8) blocks a job.
+// * layernorm_rows_loop for N > 1024: three passes over the row in global
+//   memory (sum, squared deviations, output), a warp a row.
+// * favor_state_gen: one block of 256 threads per (b, h) loops over the
+//   features (a thread a feature, omega read along M) and then over d (a
+//   warp a d, the lanes along M), for any (Dh, M).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +84,10 @@ constexpr int U = 8;                // weight loads in flight per lane
 constexpr int LN_PER = 32;          // LayerNorm values per lane: N <= 1024
 constexpr int STATE_PER = 32;       // d per thread of the state kernel
 constexpr int STATE_THREADS = 512;  // the state kernel's block, at most
+constexpr int STATE_GEN_THREADS = 256;  // favor_state_gen's block
+constexpr size_t GEMV_SMEM_MAX = 200 * 1024;  // x staged in shared memory up to this
+// the envelope the entry point takes
+constexpr int MAX_D = 2048, MAX_F = 8192, MAX_DH = 256, MAX_M = 512;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -301,8 +323,93 @@ __device__ void layernorm_rows(const Gemv& p) {
   }
 }
 
-// grid njobs * N / NT, THREADS threads; LN: p.done_cnt is set
-template <class TW, bool LN>
+// the LayerNorm of layernorm_rows for N > 32 LN_PER: three passes over
+// each row in global memory, warp w taking rows w and w + 8
+template <class TW>
+__device__ void layernorm_rows_loop(const Gemv& p) {
+  const TW* g = static_cast<const TW*>(p.gamma);
+  const TW* be = static_cast<const TW*>(p.beta);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, N = p.N;
+  const float* y = static_cast<const float*>(p.y[0]);
+  for (int b = warp; b < p.B; b += WARPS) {
+    const float* yb = y + (size_t)b * N;
+    float s = 0.f;
+    for (int n = lane; n < N; n += 32) s += __ldcg(yb + n);
+    const float mu = warp_sum(s) / N;
+    float s2 = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      const float d = __ldcg(yb + n) - mu;
+      s2 = fmaf(d, d, s2);
+    }
+    const float inv = 1.f / sqrtf(warp_sum(s2) / N + p.ln_eps);
+    for (int n = lane; n < N; n += 32) {
+      const float o = (__ldcg(yb + n) - mu) * inv * to_f(g[n]) + to_f(be[n]);
+      if (p.ln_bf16)
+        static_cast<__nv_bfloat16*>(p.ln_out)[(size_t)b * N + n] = __float2bfloat16(o);
+      else
+        static_cast<float*>(p.ln_out)[(size_t)b * N + n] = o;
+    }
+  }
+}
+
+// 16 bytes of TW from EPV f32 values (bf16: rounded to nearest even, the
+// first value in the low half, as stage_x stores them)
+template <class TW>
+__device__ __forceinline__ uint4 pack16(const float* v) {
+  if constexpr (sizeof(TW) == 2) {
+    uint32_t o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      o[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  } else {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+}
+
+// the tail form's A fragment: x[b][k .. k + EPV) rounded to TW, zero past
+// K or for rows from B on
+template <class TW>
+__device__ __forceinline__ uint4 load_x_gen(const Gemv& p, int b, int k) {
+  constexpr int EPV = 16 / sizeof(TW);
+  float v[EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e)
+    v[e] = b < p.B && k + e < p.K ? load_act(p.x, p.x_bf16, (size_t)b * p.K + k + e) : 0.f;
+  return pack16<TW>(v);
+}
+
+// the tail form's B fragment: W[n][k .. k + EPV), one 16-byte load where
+// it lies inside the row on a 16-byte boundary, else value by value with
+// zeros past K; zeros for rows from N on
+template <class TW>
+__device__ __forceinline__ uint4 load_w_gen(const TW* W, int n, int k, int N, int K) {
+  constexpr int EPV = 16 / sizeof(TW);
+  if (n >= N) return make_uint4(0, 0, 0, 0);
+  const TW* row = W + (size_t)n * K;
+  if (K % EPV == 0 && k + EPV <= K) return load_stream(row + k);
+  uint32_t o[4] = {0, 0, 0, 0};
+  if constexpr (sizeof(TW) == 2) {
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      if (k + e < K) o[e / 2] |= (uint32_t)r[k + e] << (16 * (e & 1));
+  } else {
+    const uint32_t* r = reinterpret_cast<const uint32_t*>(row);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      if (k + e < K) o[e] = r[k + e];
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// grid njobs * ceil(N / NT), THREADS threads.  LN: 0 none, 1 the register
+// LayerNorm (N <= 32 LN_PER), 2 the looping one; p.done_cnt is set for
+// both.  GEN: the tail form (note at the top), any K and N.
+template <class TW, int LN, bool GEN>
 __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
   extern __shared__ uint4 smem_u4[];
   constexpr int EPV = 16 / sizeof(TW);   // elements per 16-byte vector
@@ -310,20 +417,24 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
   __shared__ float red[WARPS][BM][NT];
   __shared__ int s_last;
 
-  const int tiles_per_job = p.N / NT;
+  const int tiles_per_job = GEN ? (p.N + NT - 1) / NT : p.N / NT;
   const int tile = blockIdx.x;
   const int job = tile / tiles_per_job, n0 = (tile % tiles_per_job) * NT;
   const int pitch = p.K + EPV;           // +16 bytes a row: conflict-free reads
   TW* xs = reinterpret_cast<TW*>(smem_u4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int KW = p.K / WARPS, kw0 = warp * KW, steps = KW / KSTEP;
-  const TW* wrow = static_cast<const TW*>(p.W[job]) + (size_t)(n0 + g) * p.K + kw0 + EPV * t;
+  // the tail form rounds K up to whole steps for the 8 warps
+  const int KP = GEN ? (p.K + WARPS * KSTEP - 1) / (WARPS * KSTEP) * (WARPS * KSTEP) : p.K;
+  const int KW = KP / WARPS, kw0 = warp * KW, steps = KW / KSTEP;
+  const TW* W = static_cast<const TW*>(p.W[job]);
+  const TW* wrow = W + (size_t)(n0 + g) * p.K + kw0 + EPV * t;
+  const int kl = kw0 + EPV * t;          // the tail form's first k of this lane
 
   // threads < BM * NT own one output (b, n0 + n); its bias and residual,
   // and the first U weight vectors, are in flight while x is staged
   const int b = tid / NT, n = tid % NT, nn = n0 + n;
-  const bool owner = tid < BM * NT && b < p.B;
+  const bool owner = tid < BM * NT && b < p.B && (!GEN || nn < p.N);
   float bias = 0.f, res = 0.f;
   if (owner) {
     bias = to_f(static_cast<const TW*>(p.bias[job])[nn]);
@@ -332,9 +443,13 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
   uint4 w[U];
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    if (u < steps) w[u] = load_stream(wrow + u * KSTEP);
-  stage_x<TW>(xs, p, pitch);
-  __syncthreads();
+    if (u < steps)
+      w[u] = GEN ? load_w_gen<TW>(W, n0 + g, kl + u * KSTEP, p.N, p.K)
+                 : load_stream(wrow + u * KSTEP);
+  if constexpr (!GEN) {
+    stage_x<TW>(xs, p, pitch);
+    __syncthreads();
+  }
 
   const TW* x0 = xs + g * pitch + kw0 + EPV * t;
   const TW* x8 = x0 + 8 * pitch;
@@ -343,13 +458,19 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
     if (s0)
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (s0 + u < steps) w[u] = load_stream(wrow + (s0 + u) * KSTEP);
+        if (s0 + u < steps)
+          w[u] = GEN ? load_w_gen<TW>(W, n0 + g, kl + (s0 + u) * KSTEP, p.N, p.K)
+                     : load_stream(wrow + (s0 + u) * KSTEP);
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (s0 + u < steps) {
         const int o = (s0 + u) * KSTEP;
-        Step<TW>::run(acc, *reinterpret_cast<const uint4*>(x0 + o),
-                      *reinterpret_cast<const uint4*>(x8 + o), w[u]);
+        if constexpr (GEN)
+          Step<TW>::run(acc, load_x_gen<TW>(p, g, kl + o), load_x_gen<TW>(p, g + 8, kl + o),
+                        w[u]);
+        else
+          Step<TW>::run(acc, *reinterpret_cast<const uint4*>(x0 + o),
+                        *reinterpret_cast<const uint4*>(x8 + o), w[u]);
       }
   }
   // C fragment: acc[0..1] = C[g][2t, 2t+1], acc[2..3] = C[g+8][2t, 2t+1]
@@ -372,14 +493,17 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(const Gemv p) {
     else
       static_cast<float*>(p.y[job])[at] = yv;
   }
-  if constexpr (LN) {
+  if constexpr (LN != 0) {
     __threadfence();
     __syncthreads();
     if (tid == 0) s_last = atomicAdd(p.done_cnt, 1) == (int)gridDim.x - 1;
     __syncthreads();
     if (!s_last) return;
     __threadfence();
-    layernorm_rows<TW>(p);
+    if constexpr (LN == 1)
+      layernorm_rows<TW>(p);
+    else
+      layernorm_rows_loop<TW>(p);
     if (tid == 0) *p.done_cnt = 0;
   }
 }
@@ -486,20 +610,104 @@ __global__ void favor_state_kernel(const float* __restrict__ qkv, const float* _
   }
 }
 
+// favor_state_kernel's function for any (Dh, M): one block of
+// STATE_GEN_THREADS per (b, h); a thread a feature m (its h(q), h(k) summed
+// over d in order, omega read along M), then a warp a d (the lanes along M,
+// S read, updated and written in either layout, S phi_q summed by the warp)
+template <bool MD>
+__global__ void favor_state_gen(const float* __restrict__ qkv, const float* __restrict__ omega,
+                                const float* __restrict__ mask, float* __restrict__ S,
+                                float* __restrict__ z, float* __restrict__ attn, int B, int H,
+                                int Dh, int M, float scale, float rsqm, float eps) {
+  extern __shared__ float smem[];
+  float* xq = smem;                  // [Dh]
+  float* xk = xq + Dh;               // [Dh]
+  float* vh = xk + Dh;               // [Dh]
+  float* pq = vh + Dh;               // [M]  h(q), then phi_q
+  float* pk = pq + M;                // [M]  phi_k
+  float* red = pk + M;               // [32]
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H, D = H * Dh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, T = blockDim.x;
+  const size_t bh = (size_t)b * H + h;
+  float* Sb = S + bh * Dh * M;
+  const float* q = qkv;
+  const float* k = qkv + (size_t)B * D;
+  const float* v = qkv + (size_t)2 * B * D;
+  for (int d = tid; d < Dh; d += T) {
+    xq[d] = q[(size_t)b * D + h * Dh + d] * scale;
+    xk[d] = k[(size_t)b * D + h * Dh + d] * scale;
+    vh[d] = v[(size_t)b * D + h * Dh + d];
+  }
+  __syncthreads();
+  float sqq = 0.f, sqk = 0.f;
+  for (int d = 0; d < Dh; ++d) {
+    sqq = fmaf(xq[d], xq[d], sqq);
+    sqk = fmaf(xk[d], xk[d], sqk);
+  }
+  const float mk = mask ? mask[b] : 1.f;
+  float mx = -INFINITY;
+  for (int m = tid; m < M; m += T) {
+    float uq = 0.f, uk = 0.f;
+    for (int d = 0; d < Dh; ++d) {
+      const float o = omega[(size_t)d * M + m];
+      uq = fmaf(xq[d], o, uq);
+      uk = fmaf(xk[d], o, uk);
+    }
+    const float hq = uq - 0.5f * sqq;
+    pq[m] = hq;
+    mx = fmaxf(mx, hq);
+    // a masked row adds exactly 0 to S and z, so they keep their bits
+    pk[m] = expf(uk - 0.5f * sqk) * rsqm * mk;
+  }
+  mx = block_max(mx, red);
+  float part = 0.f;
+  for (int m = tid; m < M; m += T) {
+    const float p = expf(pq[m] - mx) * rsqm;
+    pq[m] = p;
+    const float zn = z[bh * M + m] + pk[m];
+    z[bh * M + m] = zn;
+    part = fmaf(p, zn, part);
+  }
+  const float den = block_sum(part, red) + eps;   // its barriers publish pq
+  for (int d = warp; d < Dh; d += T >> 5) {
+    const float vd = vh[d];
+    float num = 0.f;
+    for (int m = lane; m < M; m += 32) {
+      float* sp = Sb + state_at<MD>(d, m, Dh, M);
+      const float sn = *sp + vd * pk[m];
+      *sp = sn;
+      num = fmaf(pq[m], sn, num);
+    }
+    num = warp_sum(num);
+    if (lane == 0) attn[(size_t)b * D + h * Dh + d] = num / den;
+  }
+}
+
 template <class TW>
 size_t gemv_smem(int K) {
   return sizeof(TW) * (size_t)BM * (K + 16 / sizeof(TW));
 }
 
-template <class TW>
-cudaError_t launch_gemv(const Gemv& p, cudaStream_t s) {
-  const size_t smem = gemv_smem<TW>(p.K);
-  const auto kernel = p.done_cnt ? gemv_kernel<TW, true> : gemv_kernel<TW, false>;
+template <class TW, bool GEN>
+cudaError_t launch_gemv_as(const Gemv& p, size_t smem, cudaStream_t s) {
+  const auto kernel = !p.done_cnt ? gemv_kernel<TW, 0, GEN>
+                      : p.N <= 32 * LN_PER ? gemv_kernel<TW, 1, GEN>
+                                           : gemv_kernel<TW, 2, GEN>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<p.njobs * p.N / NT, THREADS, smem, s>>>(p);
+  kernel<<<p.njobs * ((p.N + NT - 1) / NT), THREADS, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// the aligned design where K is whole steps for the 8 warps, N whole
+// tiles and x fits in shared memory; the tail form otherwise
+template <class TW>
+cudaError_t launch_gemv(const Gemv& p, cudaStream_t s) {
+  const size_t smem = gemv_smem<TW>(p.K);
+  if (p.K % (Step<TW>::K * WARPS) || p.N % NT || smem > GEMV_SMEM_MAX)
+    return launch_gemv_as<TW, true>(p, 0, s);
+  return launch_gemv_as<TW, false>(p, smem, s);
 }
 
 // the state kernel's threads per feature: Dh / DS d each, at most
@@ -509,6 +717,12 @@ int state_split(int Dh, int M) {
     if (M * ds <= STATE_THREADS && Dh % ds == 0 && Dh / ds <= STATE_PER && M * ds >= Dh)
       return ds;
   return 0;
+}
+
+// favor_state_kernel's shapes: M a multiple of 16 in [32, 512] that
+// state_split places; favor_state_gen takes the rest
+bool state_aligned(int Dh, int M) {
+  return M % 16 == 0 && M >= 32 && M <= STATE_THREADS && state_split(Dh, M);
 }
 
 enum { WQ, BQ, WK, BK, WV, BV, WO, BO, W1, B1, W2, B2, G1, BE1, G2, BE2, NPARAM };
@@ -546,13 +760,21 @@ cudaError_t decode_chunk(const void* x, bool x_bf16, const void* const* p, const
   cudaError_t err = launch_gemv<TW>(g, s);
   if (err != cudaSuccess) return err;
 
-  const int T = M * state_split(Dh, M);
-  const size_t smem = sizeof(float) * (3 * Dh + 32 + 4 * T + M * (Dh + 1) + (T / Dh) * Dh);
-  const auto state_kernel = s_md ? favor_state_kernel<true> : favor_state_kernel<false>;
-  err = cudaFuncSetAttribute(state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  state_kernel<<<B * H, T, smem, s>>>(qkv, omega, mask, S, z, attn, B, H, Dh, M, scale, rsqm,
-                                      eps);
+  if (state_aligned(Dh, M)) {
+    const int T = M * state_split(Dh, M);
+    const size_t smem = sizeof(float) * (3 * Dh + 32 + 4 * T + M * (Dh + 1) + (T / Dh) * Dh);
+    const auto state_kernel = s_md ? favor_state_kernel<true> : favor_state_kernel<false>;
+    err = cudaFuncSetAttribute(state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    state_kernel<<<B * H, T, smem, s>>>(qkv, omega, mask, S, z, attn, B, H, Dh, M, scale, rsqm,
+                                        eps);
+  } else {
+    const size_t smem = sizeof(float) * (3 * Dh + 2 * M + 32);
+    const auto state_kernel = s_md ? favor_state_gen<true> : favor_state_gen<false>;
+    state_kernel<<<B * H, STATE_GEN_THREADS, smem, s>>>(qkv, omega, mask, S, z, attn, B, H, Dh,
+                                                        M, scale, rsqm, eps);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // x1 = x + attn Wo + bo, then y = LN1(x1)
@@ -646,17 +868,15 @@ int performer_decode_counter_ints() { return 2; }
 // S [B, H, D/H, M] ('dm'; [B, H, M, D/H] 'md' when s_md) and z [B, H, M] f32,
 // updated in place; out [B, D] in x's
 // dtype; scratch and counters as sized above, the counters zero before the
-// first call (each launch leaves them zero).  D and F multiples of 8 x the
-// weights' 16-byte step (256 for bf16, 128 for f32 weights), D <= 1024, M a
-// multiple of 16 in [32, 512] with Dh = D / H such that state_split finds a
-// split.  One stream at a time may use one counters buffer.
+// first call (each launch leaves them zero).  D = H Dh <= 2048, Dh <= 256,
+// 1 <= F <= 8192, 1 <= M <= 512, any of them off the aligned designs' steps
+// (the note at the top).  One stream at a time may use one counters buffer.
 int performer_decode_layer(const void* x, int x_bf16, const void* const* p, int w_bf16,
                            const float* omega, const float* mask, float* S, int s_md,
                            float* z, void* out, float* scratch, int* counters, int B, int D,
                            int H, int M, int F, float eps, float ln_eps, void* stream) {
-  const int kmin = (w_bf16 ? Step<__nv_bfloat16>::K : Step<float>::K) * WARPS;
-  if (B <= 0 || H <= 0 || D % H || D % kmin || F % kmin || D > 32 * LN_PER || M % 16 ||
-      M < 32 || M > STATE_THREADS || !state_split(D / H, M))
+  if (B <= 0 || H <= 0 || D % H || D > MAX_D || D / H > MAX_DH || F <= 0 || F > MAX_F ||
+      M <= 0 || M > MAX_M)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return w_bf16 ? decode_layer<__nv_bfloat16>(x, x_bf16, p, omega, mask, S, s_md != 0, z, out,

@@ -99,24 +99,35 @@ def draw_orthogonal_features(d_head: int, n_dims: int,
 
 
 def favor_features(x: torch.Tensor, omega: torch.Tensor, *, is_query: bool,
-                   key_stabilizer: Optional[float] = None) -> torch.Tensor:
+                   key_stabilizer: Optional[float] = None,
+                   d_head: Optional[int] = None,
+                   n_features: Optional[int] = None) -> torch.Tensor:
     """phi(x) for x [..., L, D] -> [..., L, M] (float32; float64 for float64
     x).
 
     Queries subtract their per-position max over features; keys subtract one
     scalar per batch*head (their max over (L, M)), or ``key_stabilizer``
     when given (0 during decode, so the running state keeps one scale; a
-    tensor broadcasts against h [..., L, M])."""
+    tensor broadcasts against h [..., L, M]).
+
+    ``d_head`` and ``n_features`` give the true widths of zero-padded x and
+    omega (the kernels' padded launches): x is scaled by d_head^-1/4, the
+    feature columns from n_features on are 0 and take no part in a max, and
+    the features are divided by sqrt(n_features)."""
     acc = _acc_dtype(x)
-    xs = x.to(acc) * x.shape[-1] ** -0.25
+    M = omega.shape[-1]
+    xs = x.to(acc) * (d_head or x.shape[-1]) ** -0.25
     h = xs @ omega.to(acc) - 0.5 * (xs * xs).sum(-1, keepdim=True)
+    if n_features is not None and n_features < M:
+        h = h.masked_fill(torch.arange(M, device=h.device) >= n_features,
+                          float('-inf'))
     if is_query:                     # stabilizers carry no gradient
         h = h - h.amax(-1, keepdim=True).detach()
     elif key_stabilizer is None:
         h = h - h.amax(dim=(-2, -1), keepdim=True).detach()
     else:
         h = h - key_stabilizer
-    return torch.exp(h) / math.sqrt(omega.shape[-1])
+    return torch.exp(h) / math.sqrt(n_features or M)
 
 
 # ---------------------------------------------------------------------------
@@ -174,24 +185,30 @@ def _padded_call(impl, phi_q, phi_k, v, chunk, eps):
     return out[:, :L].reshape(*lead, L, Dv)
 
 
-def _favor_compose(q, k, v, omega, chunk=CHUNK, eps=EPS, kmax=None):
+def _favor_compose(q, k, v, omega, chunk=CHUNK, eps=EPS, kmax=None,
+                   d_head=None, n_features=None):
     """Plain version of the fused forward: favor_features + the chunked
     scan, float32 out (float64 for float64 inputs).  Differentiable by
     autograd, so it is also the reference for the backward.  ``kmax``, the
-    key maxima [BH] of :func:`_key_max_plain`, spares recomputing them."""
-    phi_q = favor_features(q, omega, is_query=True)
+    key maxima [BH] of :func:`_key_max_plain`, spares recomputing them;
+    ``d_head`` and ``n_features`` as :func:`favor_features` takes them."""
+    widths = dict(d_head=d_head, n_features=n_features)
+    phi_q = favor_features(q, omega, is_query=True, **widths)
     phi_k = favor_features(k, omega, is_query=False, key_stabilizer=(
-        None if kmax is None else kmax[:, None, None]))
+        None if kmax is None else kmax[:, None, None]), **widths)
     return _padded_call(_scan_impl, phi_q, phi_k, v.to(phi_q.dtype), chunk, eps)
 
 
-def _key_max_plain(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
+def _key_max_plain(k2: torch.Tensor, omega: torch.Tensor, d_head=None,
+                   n_features=None) -> torch.Tensor:
     """Plain version of the key-stabilizer pass: [BH, L, Dh] -> [BH], the
-    max over (L, M) of h = ks @ omega - ||ks||^2/2."""
+    max over (L, M) of h = ks @ omega - ||ks||^2/2 (over the first
+    ``n_features`` columns, ks = k2 d_head^-1/4, when the widths are
+    padded)."""
     acc = _acc_dtype(k2)
-    ks = k2.to(acc) * k2.shape[-1] ** -0.25
+    ks = k2.to(acc) * (d_head or k2.shape[-1]) ** -0.25
     h = ks @ omega.to(acc) - 0.5 * (ks * ks).sum(-1, keepdim=True)
-    return h.amax(dim=(1, 2))
+    return h[..., :n_features or h.shape[-1]].amax(dim=(1, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -204,15 +221,17 @@ def _dot_dtype_for(x: torch.Tensor) -> Optional[torch.dtype]:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else None
 
 
-def _features_padded(x, omega, stab, L_pad):
+def _features_padded(x, omega, stab, L_pad, d_head=None, n_features=None):
     """(phi [BH, L_pad, M], xs [BH, L_pad, D]) in the accumulation type, with
     ``stab`` None for queries (per-position max) or the key maxima [BH];
-    rows past the true L are zero in both."""
+    rows past the true L are zero in both.  ``d_head`` and ``n_features``
+    as :func:`favor_features` takes them."""
     acc = _acc_dtype(x)
     phi = favor_features(x, omega, is_query=stab is None,
                          key_stabilizer=None if stab is None
-                         else stab.to(acc)[:, None, None])
-    xs = x.to(acc) * x.shape[-1] ** -0.25
+                         else stab.to(acc)[:, None, None],
+                         d_head=d_head, n_features=n_features)
+    xs = x.to(acc) * (d_head or x.shape[-1]) ** -0.25
     pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, L_pad - x.shape[1]))
     return pad(phi), pad(xs)
 
@@ -239,18 +258,20 @@ def _pad_chunks(chunk, *ts):
     return [torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad)) for t in ts], tri
 
 
-def _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, extra=()):
+def _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, extra=(), d_head=None,
+               n_features=None):
     acc = _acc_dtype(q)
     L = q.shape[1]
     Lp = L + (-L) % chunk
     om = omega.to(acc)
-    phi_q, qs = _features_padded(q, om, None, Lp)
-    phi_k, ks = _features_padded(k, om, kmax, Lp)
+    widths = dict(d_head=d_head, n_features=n_features)
+    phi_q, qs = _features_padded(q, om, None, Lp, **widths)
+    phi_k, ks = _features_padded(k, om, kmax, Lp, **widths)
     c = ((lambda t: t.to(dot_dtype).to(acc)) if dot_dtype is not None
          else _exact)
     (v, *extra), tri = _pad_chunks(chunk, v, *extra)
     return (acc, L, Lp, om, phi_q, qs, phi_k, ks, v, extra, c, tri,
-            q.shape[-1] ** -0.25)
+            (d_head or q.shape[-1]) ** -0.25)
 
 
 def _bwd_a_scan(phi_q, phi_k, v, g, chunk, eps, c, tri):
@@ -301,7 +322,8 @@ def _bwd_b_scan(phi_q, phi_k, v, u, w, chunk, c, tri):
 
 
 def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
-                       eps: float = EPS, dot_dtype: Optional[torch.dtype] = None):
+                       eps: float = EPS, dot_dtype: Optional[torch.dtype] = None,
+                       d_head=None, n_features=None):
     """Plain version of ``favor_bwd_a`` (pass A): replay the forward scan
     over chunks carrying (S, z), and return dq [BH, L, Dh] (accumulation
     type), u = g/den [BH, L, Dv] and w = -(g . out)/den [BH, L], the last
@@ -309,9 +331,11 @@ def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
     kernel) and in the accumulation type otherwise.  q/k [BH, L, Dh],
     v/g [BH, L, Dv], omega [Dh, M], kmax [BH] the key maxima.
     ``dot_dtype`` rounds exactly the operands of the products that the TPU
-    kernel rounds (``_fused_bwd_a_kernel``); omega's product stays exact."""
+    kernel rounds (``_fused_bwd_a_kernel``); omega's product stays exact.
+    ``d_head`` and ``n_features`` as :func:`favor_features` takes them."""
     (acc, L, Lp, om, phi_q, qs, phi_k, _, v, (g,), c, tri,
-     scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, (g,))
+     scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype, (g,),
+                         d_head, n_features)
     res = dot_dtype or acc
     dqs, us, ws = [], [], []
     for c0, dphi, u, w in _bwd_a_scan(phi_q, phi_k, v, g, chunk, eps, c, tri):
@@ -324,15 +348,17 @@ def _favor_bwd_a_plain(q, k, v, g, omega, kmax, chunk: int = CHUNK,
 
 
 def _favor_bwd_b_plain(q, k, v, u, w, omega, kmax, chunk: int = CHUNK,
-                       dot_dtype: Optional[torch.dtype] = None):
+                       dot_dtype: Optional[torch.dtype] = None, d_head=None,
+                       n_features=None):
     """Plain version of ``favor_bwd_b`` (pass B): scan the chunks in reverse
     carrying the suffix states R = sum phi_q u^T [M, Dv] and
     r = sum w phi_q [M]; return dk [BH, L, Dh] and dv [BH, L, Dv] in the
     accumulation type.  u [BH, L, Dv] and w [BH, L] come from pass A;
-    ``dot_dtype`` rounds the operands ``_fused_bwd_b_kernel`` rounds."""
+    ``dot_dtype`` rounds the operands ``_fused_bwd_b_kernel`` rounds;
+    ``d_head`` and ``n_features`` as :func:`favor_features` takes them."""
     (acc, L, Lp, om, phi_q, _, phi_k, ks, v, (u, w), c, tri,
      scale) = _bwd_setup(q, k, v, omega, kmax, chunk, dot_dtype,
-                         (u, w[..., None]))
+                         (u, w[..., None]), d_head, n_features)
     dks, dvs = [], []
     for c0, dphi, dv in _bwd_b_scan(phi_q, phi_k, v, u, w[..., 0], chunk, c, tri):
         dvs.append(dv)
@@ -346,19 +372,23 @@ def _favor_bwd_b_plain(q, k, v, u, w, omega, kmax, chunk: int = CHUNK,
 # CUDA kernels (csrc/favor_fwd.cu)
 # ---------------------------------------------------------------------------
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# every FAVOR+ entry point ends (..., Dt, Mt, ws, ws_floats, stream): the
+# true head width and feature count of padded inputs and the workspace
+# (_favor_workspace)
+_WIDTHS = [_I, _I, _P, _LL, _P]
 _SIGNATURES = {
-    # (k, omega, partial, BH, L, Dh, M, bf16, stream)
-    'favor_kmax': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (q, k, v, omega, partial, out, BH, L, Dh, Dv, M, bf16, eps, stream)
+    # (k, omega, partial, BH, L, Dh, M, bf16, ...)
+    'favor_kmax': [_P, _P, _P, _I, _I, _I, _I, _I] + _WIDTHS,
+    # (q, k, v, omega, partial, out, BH, L, Dh, Dv, M, bf16, eps, ...)
     'favor_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  ctypes.c_float, _P],
-    # heads-last: (k, omega, partial, B, H, L, Dh, M, bf16, stream)
-    'favor_kmax_hl': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                  ctypes.c_float] + _WIDTHS,
+    # heads-last: (k, omega, partial, B, H, L, Dh, M, bf16, ...)
+    'favor_kmax_hl': [_P, _P, _P, _I, _I, _I, _I, _I, _I] + _WIDTHS,
     # heads-last: (q, k, v, omega, partial, out, B, H, L, Dh, M, bf16, eps,
-    #  stream)
+    #  ...)
     'favor_fwd_hl': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _P],
+                     ctypes.c_float] + _WIDTHS,
 }
 
 
@@ -387,16 +417,163 @@ def _check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None
                          f'contiguous={t.is_contiguous()})')
 
 
+# ---------------------------------------------------------------------------
+# widths: the FAVOR+ kernels' tiles, the padding to them, the workspace
+# ---------------------------------------------------------------------------
+
+# the widths the FAVOR+ key max, forward and both passes take, in both
+# layouts and both dtypes; any L
+MAX_HEAD_WIDTH = 256         # Dh and Dv
+MAX_FEATURES = 512           # M
+# shared memory a block may use; a block whose tiles need more keeps them
+# in a slice of a global workspace (csrc/favor_common.cuh)
+SMEM_MAX = 227 * 1024
+
+
 def _favor_tile(dtype) -> int:
-    """The multiple the FAVOR+ key max, forward and both backward passes
-    take for Dh, Dv and M: 16 under bf16, whose products run on the tensor
-    cores in 16-wide steps (mma m16n8k16), 4 in f32 (4 x 4 register
-    tiles)."""
+    """The multiple the FAVOR+ kernels' instantiations take for Dh, Dv and
+    M: 16 under bf16, whose products run on the tensor cores in 16-wide
+    steps (mma m16n8k16), 4 in f32 (4 x 4 register tiles).  Other widths
+    are zero-padded to it (:func:`_pad_cols`, :func:`_pad_omega`)."""
     return 16 if dtype == torch.bfloat16 else 4
 
 
 def _width_rule(tile) -> str:
     return f'multiples of {tile}' + (' under bf16' if tile == 16 else '')
+
+
+def _tile_up(n: int, tile: int) -> int:
+    return -(-n // tile) * tile
+
+
+def _pad_cols(t: torch.Tensor, width: int, n_head: Optional[int] = None):
+    """Zero-pad the last dim of [..., D] (or each head's D columns of
+    heads-last [B, L, H * D], given ``n_head``) to ``width``; t itself when
+    D is the width."""
+    D = t.shape[-1] // (n_head or 1)
+    if D == width:
+        return t
+    if n_head is None:
+        return torch.nn.functional.pad(t, (0, width - D))
+    B, L, _ = t.shape
+    return torch.nn.functional.pad(t.reshape(B, L, n_head, D),
+                                   (0, width - D)).reshape(B, L, n_head * width)
+
+
+def _unpad_cols(t: torch.Tensor, width: int, n_head: Optional[int] = None):
+    """The first ``width`` columns (of each head, given ``n_head``) of a
+    padded result, contiguous; t itself when nothing was padded."""
+    D = t.shape[-1] // (n_head or 1)
+    if D == width:
+        return t
+    if n_head is None:
+        return t[..., :width].contiguous()
+    B, L, _ = t.shape
+    return t.reshape(B, L, n_head, D)[..., :width].reshape(B, L, n_head * width)
+
+
+def _pad_omega(omega: torch.Tensor, Dh: int, M: int) -> torch.Tensor:
+    """omega [Dh0, M0] zero-padded to [Dh, M]."""
+    d0, m0 = omega.shape
+    if (d0, m0) == (Dh, M):
+        return omega
+    return torch.nn.functional.pad(omega, (0, M - m0, 0, Dh - d0))
+
+
+def _tile_floats(kind: str, Dh: int, Dv: int, M: int, bf16: bool) -> int:
+    """Floats of one block's tiles for ``kind`` ('kmax', 'fwd', 'bwd_a',
+    'bwd_b') at tile widths: the launches' shared memory, as
+    ``kmax_floats``, ``fwd_floats`` and ``bwd_floats`` in the sources
+    count it."""
+    C = KERNEL_CHUNK
+    if kind == 'kmax':
+        if not bf16:
+            rows = Dh * M + C * (Dh + 1)
+        elif Dh <= 64 and M <= 128:          # kmax_omega_in_registers
+            rows = C * Dh + 2 * C * (Dh + 1)
+        else:
+            rows = Dh * (M + 1) + C * (Dh + 1)
+        return rows + C + 32
+    if kind == 'fwd':
+        return (Dh * (M + 1 if bf16 else M) + M * (Dv + 1) + M + 2 * C * (M + 1)
+                + C * (Dv + 1) + C * (Dh + 1) + C * (C + 1) + 2 * C + 32)
+    a = kind == 'bwd_a'
+    return (Dh * (M + 1) + M * (Dv + 1) + M + 2 * C * (M + 1) + C * (Dh + 1)
+            + (3 if a else 2) * C * (Dv + 1) + C * (C + 1) + (4 if a else 3) * C)
+
+
+def _favor_workspace(kind, BH, Dh, Dv, M, dtype, device):
+    """(workspace pointer or None, its floats, the tensor that holds it) for
+    a launch of ``kind`` over BH rows at tile widths: none when a block's
+    tiles fit in shared memory, else a row's slice of [BH, _tile_floats]
+    float32 each."""
+    floats = _tile_floats(kind, Dh, Dv, M, dtype == torch.bfloat16)
+    if 4 * floats <= SMEM_MAX:
+        return None, 0, None
+    ws = torch.empty(BH * floats, dtype=torch.float32, device=device)
+    return ws.data_ptr(), BH * floats, ws
+
+
+def _check_widths(name: str, Dh: int, Dv: int, M: int) -> None:
+    if not (1 <= Dh <= MAX_HEAD_WIDTH and 1 <= Dv <= MAX_HEAD_WIDTH
+            and 1 <= M <= MAX_FEATURES):
+        raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must lie in '
+                         f'1 <= Dh, Dv <= {MAX_HEAD_WIDTH} and '
+                         f'1 <= M <= {MAX_FEATURES}')
+
+
+# The padded launches.  Each takes a ``launch`` with the kernel's own
+# signature at tile widths plus the true head width and feature count (the
+# CUDA launches below, or a plain version in the CPU tests), pads its
+# inputs to the dtype's tile, calls it and returns the true widths' columns.
+# Aligned widths pass the inputs through untouched.
+
+def _padded_widths(dtype, Dh, Dv, M):
+    tile = _favor_tile(dtype)
+    return _tile_up(Dh, tile), _tile_up(Dv, tile), _tile_up(M, tile)
+
+
+def _kmax_padded(launch, k, omega, n_head=None):
+    """``launch(k, omega, Dh, M)`` on k and omega padded to the tile."""
+    Dh, M = omega.shape
+    Dhp, _, Mp = _padded_widths(k.dtype, Dh, Dh, M)
+    return launch(_pad_cols(k, Dhp, n_head), _pad_omega(omega, Dhp, Mp), Dh, M)
+
+
+def _fwd_padded(launch, q, k, v, omega, partial, eps, n_head=None):
+    """``launch(q, k, v, omega, partial, eps, Dh, M)`` at tile widths; the
+    output's true Dv columns."""
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[-1]
+    Dhp, Dvp, Mp = _padded_widths(q.dtype, Dh, Dv, M)
+    out = launch(_pad_cols(q, Dhp, n_head), _pad_cols(k, Dhp, n_head),
+                 _pad_cols(v, Dvp, n_head), _pad_omega(omega, Dhp, Mp), partial,
+                 eps, Dh, M)
+    return _unpad_cols(out, Dv, n_head)
+
+
+def _bwd_a_padded(launch, q, k, v, g, omega, partial, eps, n_head=None):
+    """``launch(q, k, v, g, omega, partial, eps, Dh, M)`` at tile widths;
+    (dq, u) at their true widths and w."""
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[-1]
+    Dhp, Dvp, Mp = _padded_widths(q.dtype, Dh, Dv, M)
+    dq, u, w = launch(_pad_cols(q, Dhp, n_head), _pad_cols(k, Dhp, n_head),
+                      _pad_cols(v, Dvp, n_head), _pad_cols(g, Dvp, n_head),
+                      _pad_omega(omega, Dhp, Mp), partial, eps, Dh, M)
+    return _unpad_cols(dq, Dh, n_head), _unpad_cols(u, Dv, n_head), w
+
+
+def _bwd_b_padded(launch, q, k, v, u, w, omega, partial, n_head=None):
+    """``launch(q, k, v, u, w, omega, partial, Dh, M)`` at tile widths; (dk,
+    dv) at their true widths."""
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[-1]
+    Dhp, Dvp, Mp = _padded_widths(q.dtype, Dh, Dv, M)
+    dk, dv = launch(_pad_cols(q, Dhp, n_head), _pad_cols(k, Dhp, n_head),
+                    _pad_cols(v, Dvp, n_head), _pad_cols(u, Dvp, n_head), w,
+                    _pad_omega(omega, Dhp, Mp), partial, Dh, M)
+    return _unpad_cols(dk, Dh, n_head), _unpad_cols(dv, Dv, n_head)
 
 
 _BF16_ALIGN = {torch.bfloat16: 16}
@@ -419,9 +596,8 @@ def _check_aligned(name, tensors, align=_BF16_ALIGN) -> None:
 
 def _check_kmax_inputs(k2, omega):
     """Raise unless ``favor_kmax`` takes these, on k's device; (BH, L, Dh,
-    M).  Under bf16 the kernel runs on the tensor cores with 16-byte loads,
-    as the forward does: Dh and M multiples of 16, k 16-byte aligned; in
-    f32, M a multiple of 4."""
+    M).  Any widths up to Dh = 256, M = 512 (padded to the dtype's tile
+    by the launch); under bf16, k 16-byte aligned."""
     dev = k2.device
     _check_tensor('k', k2, (torch.float32, torch.bfloat16), 3, dev)
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
@@ -429,33 +605,49 @@ def _check_kmax_inputs(k2, omega):
     M = omega.shape[1]
     if omega.shape[0] != Dh:
         raise ValueError(f'favor_kmax: omega {tuple(omega.shape)} vs Dh={Dh}')
-    if _favor_tile(k2.dtype) == 16 and (Dh % 16 or M % 16):
-        raise ValueError(f'favor_kmax: Dh={Dh} and M={M} must be '
-                         f'{_width_rule(16)}')
-    if M % 4:
-        raise ValueError(f'favor_kmax: M={M} must be a multiple of 4')
+    _check_widths('favor_kmax', Dh, Dh, M)
     _check_aligned('favor_kmax', (('k', k2),))
     return BH, L, Dh, M
+
+
+def _launch_kmax(k, omega, Dt, Mt, n_head=None):
+    """One ``favor_kmax`` (``_hl`` given ``n_head``) launch at tile widths:
+    per-chunk key maxima [BH, ceil(L/64)] f32."""
+    H = n_head or 1
+    B, L, Dh = k.shape[0], k.shape[1], omega.shape[0]
+    M = omega.shape[1]
+    dev = k.device
+    partial = torch.empty(B * H, -(-L // KERNEL_CHUNK), dtype=torch.float32,
+                          device=dev)
+    ws, n, _keep = _favor_workspace('kmax', B * H, Dh, Dh, M, k.dtype, dev)
+    bf16 = int(k.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    if n_head is None:
+        name = 'favor_kmax'
+        err = lib.favor_kmax(k.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+                             B, L, Dh, M, bf16, Dt, Mt, ws, n, stream)
+    else:
+        name = 'favor_kmax_hl'
+        err = lib.favor_kmax_hl(k.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+                                B, H, L, Dh, M, bf16, Dt, Mt, ws, n, stream)
+    _build.check(lib, err, name)
+    _build.LAUNCHES[name] += 1
+    return partial
 
 
 def _favor_kmax_cuda(k2: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """Launch ``favor_kmax``: per-chunk key maxima [BH, ceil(L/64)] f32 (the
     row's stabilizer is their max, taken by ``favor_fwd``)."""
-    dev = k2.device
-    _require_cuda(dev)
-    BH, L, Dh, M = _check_kmax_inputs(k2, omega)
-    partial = torch.empty(BH, -(-L // KERNEL_CHUNK), dtype=torch.float32,
-                          device=dev)
-    lib = _lib()
-    err = lib.favor_kmax(k2.data_ptr(), omega.data_ptr(), partial.data_ptr(),
-                         BH, L, Dh, M, int(k2.dtype == torch.bfloat16),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, 'favor_kmax')
-    _build.LAUNCHES['favor_kmax'] += 1
-    return partial
+    _require_cuda(k2.device)
+    _check_kmax_inputs(k2, omega)
+    return _kmax_padded(_launch_kmax, k2, omega)
 
 
-def _check_favor_shapes(name, q2, k2, v2, omega, partial, tile=4):
+def _check_favor_shapes(name, q2, k2, v2, omega, partial, tile=1):
+    """(BH, L, Dh, Dv, M) of head-major q, k [BH, L, Dh], v [BH, L, Dv],
+    omega [Dh, M] and partial [BH, n]; the widths in the envelope and
+    multiples of ``tile`` (1: any)."""
     BH, L, Dh = q2.shape
     Dv, M = v2.shape[2], omega.shape[1]
     if (k2.shape != q2.shape or v2.shape[:2] != q2.shape[:2]
@@ -466,6 +658,7 @@ def _check_favor_shapes(name, q2, k2, v2, omega, partial, tile=4):
     if M % tile or Dv % tile or Dh % tile:
         raise ValueError(f'{name}: Dh={Dh}, Dv={Dv} and M={M} must be '
                          f'{_width_rule(tile)}')
+    _check_widths(name, Dh, Dv, M)
     return BH, L, Dh, Dv, M
 
 
@@ -479,47 +672,65 @@ def _check_fwd_inputs(q2, k2, v2, omega, partial):
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
     BH, L, Dh, Dv, M = dims = _check_favor_shapes('favor_fwd', q2, k2, v2, omega,
-                                                  partial, _favor_tile(q2.dtype))
+                                                  partial)
     if partial.shape[1] != -(-L // KERNEL_CHUNK):
         raise ValueError(f'favor_fwd: partial {tuple(partial.shape)} for L={L}')
     _check_aligned('favor_fwd', (('q', q2), ('k', k2), ('v', v2)))
     return dims
 
 
+def _launch_fwd(q, k, v, omega, partial, eps, Dt, Mt, n_head=None):
+    """One ``favor_fwd`` (``_hl`` given ``n_head``) launch at tile widths;
+    out of v's shape in q's dtype."""
+    H = n_head or 1
+    B, L = q.shape[0], q.shape[1]
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[2]
+    dev = q.device
+    out = torch.empty_like(v)
+    ws, n, _keep = _favor_workspace('fwd', B * H, Dh, Dv, M, q.dtype, dev)
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), omega.data_ptr(),
+            partial.data_ptr(), out.data_ptr())
+    lib = _lib()
+    if n_head is None:
+        name = 'favor_fwd'
+        err = lib.favor_fwd(*ptrs, B, L, Dh, Dv, M, bf16, eps, Dt, Mt, ws, n, stream)
+    else:
+        name = 'favor_fwd_hl'
+        err = lib.favor_fwd_hl(*ptrs, B, H, L, Dh, M, bf16, eps, Dt, Mt, ws, n,
+                               stream)
+    _build.check(lib, err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 def _favor_fwd_cuda(q2, k2, v2, omega, partial, eps=EPS) -> torch.Tensor:
     """Launch ``favor_fwd`` on [BH, L, Dh] q/k, [BH, L, Dv] v and the key
     maxima of :func:`_favor_kmax_cuda`; returns [BH, L, Dv] in q's dtype."""
-    dev = q2.device
-    _require_cuda(dev)
-    BH, L, Dh, Dv, M = _check_fwd_inputs(q2, k2, v2, omega, partial)
-    out = torch.empty(BH, L, Dv, dtype=q2.dtype, device=dev)
-    lib = _lib()
-    err = lib.favor_fwd(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
-                        omega.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                        BH, L, Dh, Dv, M, int(q2.dtype == torch.bfloat16),
-                        eps, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, 'favor_fwd')
-    _build.LAUNCHES['favor_fwd'] += 1
-    return out
+    _require_cuda(q2.device)
+    _check_fwd_inputs(q2, k2, v2, omega, partial)
+    return _fwd_padded(_launch_fwd, q2, k2, v2, omega, partial, eps)
 
 
 _BWD_SIGNATURES = {
     # (q, k, v, g, omega, partial, dq, u, w, BH, L, Dh, Dv, M, n_partial,
-    #  bf16, eps, stream)
+    #  bf16, eps, ...)
     'favor_bwd_a': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _I, _I, ctypes.c_float, _P],
+                    _I, _I, ctypes.c_float] + _WIDTHS,
     # (q, k, v, u, w, omega, partial, dk, dv, BH, L, Dh, Dv, M, n_partial,
-    #  bf16, stream)
+    #  bf16, ...)
     'favor_bwd_b': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _I, _I, _P],
+                    _I, _I] + _WIDTHS,
     # heads-last: (q, k, v, g, omega, partial, dq, u, w, B, H, L, Dh, M,
-    #  n_partial, bf16, eps, stream)
+    #  n_partial, bf16, eps, ...)
     'favor_bwd_a_hl': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, ctypes.c_float, _P],
+                       _I, _I, ctypes.c_float] + _WIDTHS,
     # heads-last: (q, k, v, u, w, omega, partial, dk, dv, B, H, L, Dh, M,
-    #  n_partial, bf16, stream)
+    #  n_partial, bf16, ...)
     'favor_bwd_b_hl': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _P],
+                       _I, _I] + _WIDTHS,
 }
 
 
@@ -535,8 +746,7 @@ def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
         _check_tensor(name, t, (q2.dtype,), 3, dev)
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
-    dims = _check_favor_shapes('favor_bwd_a', q2, k2, v2, omega, partial,
-                               _favor_tile(q2.dtype))
+    dims = _check_favor_shapes('favor_bwd_a', q2, k2, v2, omega, partial)
     if g2.shape != v2.shape:
         raise ValueError(f'favor_bwd_a: g {tuple(g2.shape)} vs v '
                          f'{tuple(v2.shape)}')
@@ -544,27 +754,45 @@ def _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial):
     return dims
 
 
+def _launch_bwd_a(q, k, v, g, omega, partial, eps, Dt, Mt, n_head=None):
+    """One pass A launch (``_hl`` given ``n_head``) at tile widths: dq of
+    q's shape, u of v's, w [BH, L], all in q's dtype."""
+    H = n_head or 1
+    B, L = q.shape[0], q.shape[1]
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[2]
+    dev = q.device
+    dq = torch.empty_like(q)
+    u = torch.empty_like(v)
+    w = torch.empty(B * H, L, dtype=q.dtype, device=dev)
+    ws, n, _keep = _favor_workspace('bwd_a', B * H, Dh, Dv, M, q.dtype, dev)
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            omega.data_ptr(), partial.data_ptr(), dq.data_ptr(), u.data_ptr(),
+            w.data_ptr())
+    lib = _bwd_lib()
+    if n_head is None:
+        name = 'favor_bwd_a'
+        err = lib.favor_bwd_a(*ptrs, B, L, Dh, Dv, M, partial.shape[1], bf16, eps,
+                              Dt, Mt, ws, n, stream)
+    else:
+        name = 'favor_bwd_a_hl'
+        err = lib.favor_bwd_a_hl(*ptrs, B, H, L, Dh, M, partial.shape[1], bf16,
+                                 eps, Dt, Mt, ws, n, stream)
+    _build.check(lib, err, name)
+    _build.LAUNCHES[name] += 1
+    return dq, u, w
+
+
 def _favor_bwd_a_cuda(q2, k2, v2, g2, omega, partial, eps=EPS):
     """Launch ``favor_bwd_a`` (pass A) on [BH, L, Dh] q/k, [BH, L, Dv] v and
     g (one dtype), omega [Dh, M] f32 and the key maxima of
     :func:`_favor_kmax_cuda` [BH, n] f32.  Returns dq [BH, L, Dh] in q's
     dtype, u [BH, L, Dv] and w [BH, L] in q's dtype (bf16 under bf16)."""
-    dev = q2.device
-    _require_cuda(dev)
-    BH, L, Dh, Dv, M = _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial)
-    dq = torch.empty_like(q2)
-    u = torch.empty_like(v2)
-    w = torch.empty(BH, L, dtype=q2.dtype, device=dev)
-    lib = _bwd_lib()
-    err = lib.favor_bwd_a(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
-                          g2.data_ptr(), omega.data_ptr(), partial.data_ptr(),
-                          dq.data_ptr(), u.data_ptr(), w.data_ptr(),
-                          BH, L, Dh, Dv, M, partial.shape[1],
-                          int(q2.dtype == torch.bfloat16), eps,
-                          torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, 'favor_bwd_a')
-    _build.LAUNCHES['favor_bwd_a'] += 1
-    return dq, u, w
+    _require_cuda(q2.device)
+    _check_bwd_a_inputs(q2, k2, v2, g2, omega, partial)
+    return _bwd_a_padded(_launch_bwd_a, q2, k2, v2, g2, omega, partial, eps)
 
 
 def _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial):
@@ -577,8 +805,7 @@ def _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial):
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
     BH, L, Dh, Dv, M = dims = _check_favor_shapes('favor_bwd_b', q2, k2, v2,
-                                                  omega, partial,
-                                                  _favor_tile(q2.dtype))
+                                                  omega, partial)
     if u.shape != v2.shape or tuple(w.shape) != (BH, L):
         raise ValueError(f'favor_bwd_b: u {tuple(u.shape)} w {tuple(w.shape)} '
                          f'vs v {tuple(v2.shape)}')
@@ -586,24 +813,41 @@ def _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial):
     return dims
 
 
+def _launch_bwd_b(q, k, v, u, w, omega, partial, Dt, Mt, n_head=None):
+    """One pass B launch (``_hl`` given ``n_head``) at tile widths: dk of
+    k's shape and dv of v's, in q's dtype."""
+    H = n_head or 1
+    B, L = q.shape[0], q.shape[1]
+    Dh, M = omega.shape
+    Dv = Dh if n_head else v.shape[2]
+    dev = q.device
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    ws, n, _keep = _favor_workspace('bwd_b', B * H, Dh, Dv, M, q.dtype, dev)
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), u.data_ptr(), w.data_ptr(),
+            omega.data_ptr(), partial.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    lib = _bwd_lib()
+    if n_head is None:
+        name = 'favor_bwd_b'
+        err = lib.favor_bwd_b(*ptrs, B, L, Dh, Dv, M, partial.shape[1], bf16, Dt,
+                              Mt, ws, n, stream)
+    else:
+        name = 'favor_bwd_b_hl'
+        err = lib.favor_bwd_b_hl(*ptrs, B, H, L, Dh, M, partial.shape[1], bf16,
+                                 Dt, Mt, ws, n, stream)
+    _build.check(lib, err, name)
+    _build.LAUNCHES[name] += 1
+    return dk, dv
+
+
 def _favor_bwd_b_cuda(q2, k2, v2, u, w, omega, partial):
     """Launch ``favor_bwd_b`` (pass B) on the inputs of pass A and its
     (u, w); returns dk [BH, L, Dh] and dv [BH, L, Dv] in q's dtype."""
-    dev = q2.device
-    _require_cuda(dev)
-    BH, L, Dh, Dv, M = _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial)
-    dk = torch.empty_like(k2)
-    dv = torch.empty_like(v2)
-    lib = _bwd_lib()
-    err = lib.favor_bwd_b(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(),
-                          u.data_ptr(), w.data_ptr(), omega.data_ptr(),
-                          partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                          BH, L, Dh, Dv, M, partial.shape[1],
-                          int(q2.dtype == torch.bfloat16),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, 'favor_bwd_b')
-    _build.LAUNCHES['favor_bwd_b'] += 1
-    return dk, dv
+    _require_cuda(q2.device)
+    _check_bwd_b_inputs(q2, k2, v2, u, w, omega, partial)
+    return _bwd_b_padded(_launch_bwd_b, q2, k2, v2, u, w, omega, partial)
 
 
 class _FavorAttention(torch.autograd.Function):
@@ -655,8 +899,10 @@ def favor_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``favor_bwd_b`` backward, which mask the ragged last chunk themselves.
     Under bf16 inputs the kernels round the chunk products' operands to bf16
     with float32 accumulation, as the TPU kernels do, and keep the (u, w)
-    residual in bf16; there they run on the tensor cores and take Dh, Dv
-    and M multiples of 16 (4 in f32), raising otherwise."""
+    residual in bf16; there they run on the tensor cores.  They take any
+    Dh, Dv <= 256 and M <= 512 (raising beyond): widths off the dtype's
+    tile (16 under bf16, 4 in f32) are zero-padded to it by the launches,
+    and the kernels mask the padded features (``_fwd_padded``)."""
     *lead, L, Dh = q.shape
     Dv = v.shape[-1]
     bh = math.prod(lead)
@@ -673,8 +919,9 @@ def favor_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # the JAX heads-last kernels keep each head's key max in one 128-lane tile
-# and refuse more features (``ops/linear_attention.py:1295-1299`` there); the
-# CUDA path refuses the same configurations
+# and refuse more features (``ops/linear_attention.py:1295-1299`` there);
+# the port's heads-last op refuses the same configurations on the card, as
+# JAX's does, though its kernels take up to MAX_FEATURES
 HL_MAX_FEATURES = 128
 
 
@@ -701,31 +948,23 @@ def _hl_compose(q, k, v, omega, n_head, chunk=CHUNK, eps=EPS, kmax=None):
     return _merge_heads(out, q.shape[0]).to(q.dtype)
 
 
-def _hl_shapes(name, q, omega, n_head, tile=4):
-    """(B, L, Dh, M) of heads-last q [B, L, H * Dh] and omega [Dh, M]; Dh
-    and M multiples of ``tile``."""
+def _hl_shapes(name, q, omega, n_head):
+    """(B, L, Dh, M) of heads-last q [B, L, H * Dh] and omega [Dh, M]; the
+    widths in the envelope."""
     B, L, D = q.shape
     Dh, M = D // n_head, omega.shape[1]
-    if M > HL_MAX_FEATURES:
-        raise NotImplementedError(
-            f'{name}: the heads-last kernels take favor_dims <= '
-            f'{HL_MAX_FEATURES} (got {M}); use favor_causal_attention')
     if D % n_head or omega.shape[0] != Dh:
         raise ValueError(f'{name}: width {D} with {n_head} heads vs omega '
                          f'{tuple(omega.shape)}')
-    if M % tile or Dh % tile:
-        raise ValueError(f'{name}: Dh={Dh} and M={M} must be '
-                         f'{_width_rule(tile)}')
+    _check_widths(name, Dh, Dh, M)
     return B, L, Dh, M
 
 
 def _check_kmax_hl_inputs(k, omega, n_head):
     """Raise unless ``favor_kmax_hl`` takes these, on k's device; (B, L, Dh,
-    M).  The shape check (M <= 128 first) comes first, since the op's first
-    launch is this one; the widths and alignment as
-    :func:`_check_kmax_inputs`, but Dh a multiple of 4 in f32 too."""
-    B, L, Dh, M = _hl_shapes('favor_kmax_hl', k, omega, n_head,
-                             _favor_tile(k.dtype))
+    M).  The shape check comes first, since the op's first launch is this
+    one; the widths and alignment as :func:`_check_kmax_inputs`."""
+    B, L, Dh, M = _hl_shapes('favor_kmax_hl', k, omega, n_head)
     _check_tensor('k', k, (torch.float32, torch.bfloat16), 3, k.device)
     _check_tensor('omega', omega, (torch.float32,), 2, k.device)
     _check_aligned('favor_kmax_hl', (('k', k),))
@@ -735,21 +974,13 @@ def _check_kmax_hl_inputs(k, omega, n_head):
 def _favor_kmax_hl_cuda(k, omega, n_head):
     """Launch ``favor_kmax_hl`` on heads-last k [B, L, H * Dh]: per-chunk key
     maxima [B * H, ceil(L/64)] f32, row b * H + h."""
-    B, L, Dh, M = _check_kmax_hl_inputs(k, omega, n_head)
-    dev = k.device
-    _require_cuda(dev)
-    partial = torch.empty(B * n_head, -(-L // KERNEL_CHUNK), dtype=torch.float32,
-                          device=dev)
-    lib = _lib()
-    err = lib.favor_kmax_hl(k.data_ptr(), omega.data_ptr(), partial.data_ptr(),
-                            B, n_head, L, Dh, M, int(k.dtype == torch.bfloat16),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, 'favor_kmax_hl')
-    _build.LAUNCHES['favor_kmax_hl'] += 1
-    return partial
+    _check_kmax_hl_inputs(k, omega, n_head)
+    _require_cuda(k.device)
+    return _kmax_padded(lambda *a: _launch_kmax(*a, n_head=n_head), k, omega,
+                        n_head)
 
 
-def _check_hl_inputs(name, q, others, omega, partial, n_head, tile=4):
+def _check_hl_inputs(name, q, others, omega, partial, n_head):
     """Raise unless a heads-last kernel takes q, the (name, tensor) pairs
     ``others`` of q's shape, omega and partial, on q's device; (B, L, Dh, M)."""
     dev = q.device
@@ -760,7 +991,7 @@ def _check_hl_inputs(name, q, others, omega, partial, n_head, tile=4):
             raise ValueError(f'{name}: {n} {tuple(t.shape)} vs q {tuple(q.shape)}')
     _check_tensor('omega', omega, (torch.float32,), 2, dev)
     _check_tensor('partial', partial, (torch.float32,), 2, dev)
-    B, L, Dh, M = _hl_shapes(name, q, omega, n_head, tile)
+    B, L, Dh, M = _hl_shapes(name, q, omega, n_head)
     if tuple(partial.shape) != (B * n_head, -(-L // KERNEL_CHUNK)):
         raise ValueError(f'{name}: partial {tuple(partial.shape)} for B={B}, '
                          f'H={n_head}, L={L}')
@@ -771,8 +1002,7 @@ def _check_fwd_hl_inputs(q, k, v, omega, partial, n_head):
     """Raise unless ``favor_fwd_hl`` takes these, on q's device;
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v))
-    dims = _check_hl_inputs('favor_fwd_hl', q, others, omega, partial, n_head,
-                            _favor_tile(q.dtype))
+    dims = _check_hl_inputs('favor_fwd_hl', q, others, omega, partial, n_head)
     _check_aligned('favor_fwd_hl', (('q', q),) + others)
     return dims
 
@@ -782,24 +1012,16 @@ def _favor_fwd_hl_cuda(q, k, v, omega, partial, n_head, eps=EPS):
     key maxima of :func:`_favor_kmax_hl_cuda`; returns [B, L, H * Dh] in
     q's dtype."""
     _require_cuda(q.device)
-    B, L, Dh, M = _check_fwd_hl_inputs(q, k, v, omega, partial, n_head)
-    out = torch.empty_like(q)
-    lib = _lib()
-    err = lib.favor_fwd_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           omega.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                           B, n_head, L, Dh, M, int(q.dtype == torch.bfloat16),
-                           eps, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, 'favor_fwd_hl')
-    _build.LAUNCHES['favor_fwd_hl'] += 1
-    return out
+    _check_fwd_hl_inputs(q, k, v, omega, partial, n_head)
+    return _fwd_padded(lambda *a: _launch_fwd(*a, n_head=n_head), q, k, v,
+                       omega, partial, eps, n_head)
 
 
 def _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head):
     """Raise unless heads-last pass A takes these, on q's device;
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v), ('g', g))
-    dims = _check_hl_inputs('favor_bwd_a_hl', q, others, omega, partial, n_head,
-                            _favor_tile(q.dtype))
+    dims = _check_hl_inputs('favor_bwd_a_hl', q, others, omega, partial, n_head)
     _check_aligned('favor_bwd_a_hl', (('q', q),) + others)
     return dims
 
@@ -809,20 +1031,9 @@ def _favor_bwd_a_hl_cuda(q, k, v, g, omega, partial, n_head, eps=EPS):
     [B, L, H * Dh].  Returns dq and u [B, L, H * Dh] and w [B * H, L], all
     in q's dtype (bf16 under bf16)."""
     _require_cuda(q.device)
-    B, L, Dh, M = _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head)
-    dq = torch.empty_like(q)
-    u = torch.empty_like(v)
-    w = torch.empty(B * n_head, L, dtype=q.dtype, device=q.device)
-    lib = _bwd_lib()
-    err = lib.favor_bwd_a_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             g.data_ptr(), omega.data_ptr(), partial.data_ptr(),
-                             dq.data_ptr(), u.data_ptr(), w.data_ptr(),
-                             B, n_head, L, Dh, M, partial.shape[1],
-                             int(q.dtype == torch.bfloat16), eps,
-                             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, 'favor_bwd_a_hl')
-    _build.LAUNCHES['favor_bwd_a_hl'] += 1
-    return dq, u, w
+    _check_bwd_a_hl_inputs(q, k, v, g, omega, partial, n_head)
+    return _bwd_a_padded(lambda *a: _launch_bwd_a(*a, n_head=n_head), q, k, v,
+                         g, omega, partial, eps, n_head)
 
 
 def _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head):
@@ -830,7 +1041,7 @@ def _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head):
     (B, L, Dh, M)."""
     others = (('k', k), ('v', v), ('u', u))
     B, L, Dh, M = dims = _check_hl_inputs('favor_bwd_b_hl', q, others, omega,
-                                          partial, n_head, _favor_tile(q.dtype))
+                                          partial, n_head)
     _check_tensor('w', w, (q.dtype,), 2, q.device)
     if tuple(w.shape) != (B * n_head, L):
         raise ValueError(f'favor_bwd_b_hl: w {tuple(w.shape)} for B={B}, '
@@ -843,19 +1054,9 @@ def _favor_bwd_b_hl_cuda(q, k, v, u, w, omega, partial, n_head):
     """Launch ``favor_bwd_b_hl`` (pass B) on the inputs of pass A and its
     (u, w); returns dk and dv [B, L, H * Dh] in q's dtype."""
     _require_cuda(q.device)
-    B, L, Dh, M = _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = _bwd_lib()
-    err = lib.favor_bwd_b_hl(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             u.data_ptr(), w.data_ptr(), omega.data_ptr(),
-                             partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                             B, n_head, L, Dh, M, partial.shape[1],
-                             int(q.dtype == torch.bfloat16),
-                             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, 'favor_bwd_b_hl')
-    _build.LAUNCHES['favor_bwd_b_hl'] += 1
-    return dk, dv
+    _check_bwd_b_hl_inputs(q, k, v, u, w, omega, partial, n_head)
+    return _bwd_b_padded(lambda *a: _launch_bwd_b(*a, n_head=n_head), q, k, v,
+                         u, w, omega, partial, n_head)
 
 
 class _FavorAttentionHL(torch.autograd.Function):
@@ -907,9 +1108,16 @@ def favor_causal_attention_heads_last(q: torch.Tensor, k: torch.Tensor,
 
     CUDA tensors launch ``favor_kmax_hl`` and ``favor_fwd_hl`` forward and
     ``favor_bwd_a_hl`` and ``favor_bwd_b_hl`` backward, which read each
-    head's columns in place; they take M <= 128, as JAX's heads-last kernels
-    do, and raise NotImplementedError beyond.  CPU tensors run the
-    head-major plain versions on split copies."""
+    head's columns in place (a head width off the dtype's tile is
+    zero-padded into a copy first, as the head-major launches pad).  The
+    op takes M <= 128 there, as JAX's heads-last kernels do, and raises
+    NotImplementedError beyond, though the kernels themselves take M up to
+    512.  CPU tensors run the head-major plain versions on split copies."""
+    if q.device.type != 'cpu' and omega.shape[1] > HL_MAX_FEATURES:
+        raise NotImplementedError(
+            f'the heads-last kernel path takes favor_dims <= '
+            f'{HL_MAX_FEATURES} (got {omega.shape[1]}); use '
+            'favor_causal_attention')
     om = omega.to(_acc_dtype(q)).contiguous()
     return _FavorAttentionHL.apply(q.contiguous(), k.contiguous(),
                                    v.contiguous(), om, n_head, chunk, eps)
@@ -1077,22 +1285,38 @@ def _f32_aligned(t: torch.Tensor) -> torch.Tensor:
     return _aligned(t.to(torch.float32).contiguous(), _CLA_BWD_ALIGN)
 
 
+def _cla_padded(q2, k2, v2, *vs):
+    """M and Dv of the composed op's inputs zero-padded to the kernels'
+    multiple of 4 (``vs``: more tensors of v's width), and the true (M,
+    Dv): zero feature columns and zero columns of v add nothing to the
+    causal prefix sums, so the true columns of every result are exact."""
+    M, Dv = q2.shape[-1], v2.shape[-1]
+    Mp, Dvp = _tile_up(M, 4), _tile_up(Dv, 4)
+    return ((_pad_cols(q2, Mp), _pad_cols(k2, Mp), _pad_cols(v2, Dvp),
+             *(_pad_cols(t, Dvp) for t in vs)), M, Dv)
+
+
 def _cla_fwd_aligned_cuda(q2, k2, v2, eps=EPS) -> torch.Tensor:
     """The composed op's forward on the card: ``cla_fwd`` on the inputs in
-    their own dtypes, a view off the boundary its loads need
-    (``_CLA_FWD_ALIGN``) copied again first; returns out (float32)."""
-    return _cla_fwd_cuda(*(_aligned(t, _CLA_FWD_ALIGN) for t in (q2, k2, v2)), eps)
+    their own dtypes, M and Dv padded to multiples of 4 (``_cla_padded``)
+    and a view off the boundary its loads need (``_CLA_FWD_ALIGN``) copied
+    again first; returns out (float32) at the true Dv."""
+    ins, M, Dv = _cla_padded(q2, k2, v2)
+    out = _cla_fwd_cuda(*(_aligned(t, _CLA_FWD_ALIGN) for t in ins), eps)
+    return _unpad_cols(out, Dv)
 
 
 def _cla_bwd_cuda(q2, k2, v2, g, eps=EPS):
     """The composed op's backward on the card: ``cla_bwd_a`` then
     ``cla_bwd_b`` on float32 copies of the inputs and the gradient, as JAX
-    casts before its backward kernels, each aligned for their 16-byte
-    loads; returns dphi_q, dphi_k, dv (float32)."""
-    q, k, v, g = (_f32_aligned(t) for t in (q2, k2, v2, g))
+    casts before its backward kernels, M and Dv padded to multiples of 4
+    (``_cla_padded``), each aligned for their 16-byte loads; returns
+    dphi_q, dphi_k, dv (float32) at the true widths."""
+    ins, M, Dv = _cla_padded(q2, k2, v2, g)
+    q, k, v, g = (_f32_aligned(t) for t in ins)
     dq, u, w = _cla_bwd_a_cuda(q, k, v, g, eps)
     dk, dv = _cla_bwd_b_cuda(q, k, v, u, w)
-    return dq, dk, dv
+    return _unpad_cols(dq, M), _unpad_cols(dk, M), _unpad_cols(dv, Dv)
 
 
 class _CausalLinearAttention(torch.autograd.Function):
@@ -1139,9 +1363,10 @@ def causal_linear_attention(phi_q: torch.Tensor, phi_k: torch.Tensor,
     float32 casts of the inputs and the gradient, ``cla_bwd_a`` then
     ``cla_bwd_b`` backward, which load rows 16 bytes at a time.  A view
     off the boundary its loads need is copied again first (in its own
-    dtype forward).  The kernels take 64-row chunks whatever ``chunk`` is,
-    M and Dv multiples of 4, mask the ragged last chunk themselves, and
-    raise on what they cannot take."""
+    dtype forward).  The kernels take 64-row chunks whatever ``chunk`` is
+    and M and Dv multiples of 4, to which other widths are zero-padded
+    (``_cla_padded``), mask the ragged last chunk themselves, and raise on
+    what they cannot take."""
     *lead, L, M = phi_q.shape
     Dv = v.shape[-1]
     bh = math.prod(lead)

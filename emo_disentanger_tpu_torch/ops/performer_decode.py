@@ -8,6 +8,11 @@ LayerNorm, ReLU FF, LayerNorm); on CPU tensors it runs the plain version,
 :func:`_decode_layer_plain`, which is the composed decode path of
 ``emo_disentanger_tpu/models/performer.py:157-175``.
 
+Any width up to D = H * Dh <= 2048, Dh <= 256, F <= 8192 and M <= 512 runs
+on the kernel: shapes off its aligned designs' steps take the kernel's own
+tail forms (``csrc/performer_decode.cu``'s note on widths), never the plain
+version.
+
 The state is float32 in either of JAX's layouts (``state_layout``): S
 [B, H, Dh, M] in 'dm' or [B, H, M, Dh] in 'md' (the layout JAX's Pallas
 kernel carries), and z [B, H, M].  The kernel reads and writes S at
@@ -122,11 +127,16 @@ def _scratch(lib, dev, D, Fd):
     return bufs, stream.cuda_stream
 
 
+# the widths ``performer_decode_layer`` takes: D = H * Dh, D <= MAX_D,
+# Dh <= MAX_DH, F <= MAX_F, M <= MAX_M; any width in that range, the ones off
+# the aligned designs' steps through the kernel's tail forms
+MAX_D, MAX_DH, MAX_F, MAX_M = 2048, 256, 8192, 512
+
+
 def _check_inputs(x, S, z, p, omega, update_mask, n_head, state_layout='dm'):
     """Raise unless the inputs are what ``performer_decode_layer`` takes
-    (module docstring; D and F multiples of 256 for bf16 weights, 128 for
-    f32, D <= 1024, M a multiple of 16 in [32, 512], S in
-    ``state_layout``), all on x's device.
+    (module docstring; D = H * Dh <= 2048, Dh <= 256, F <= 8192,
+    1 <= M <= 512, S in ``state_layout``), all on x's device.
     Returns ((B, D, H, M, F), the weights' dtype, the parameters' pointer
     array, the f32 mask or None)."""
     dev = x.device
@@ -142,13 +152,11 @@ def _check_inputs(x, S, z, p, omega, update_mask, n_head, state_layout='dm'):
         raise ValueError(f'x must be contiguous f32 or bf16 (got {x.dtype})')
     if wdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f'weights must be f32 or bf16 (got {wdt})')
-    # the kernel's K split: whole 16-byte steps for 8 warps
-    kmin = 256 if wdt == torch.bfloat16 else 128
-    if (D % H or D % kmin or Fd % kmin or D > 1024 or M % 16
-            or not 32 <= M <= 512):
-        raise ValueError(f'unsupported D={D}, H={H}, M={M}, F={Fd} (D and F '
-                         f'multiples of {kmin} for {wdt} weights, D <= 1024, '
-                         'M a multiple of 16 in [32, 512])')
+    if (H <= 0 or D % H or not 0 < D <= MAX_D or Dh > MAX_DH
+            or not 0 < Fd <= MAX_F or not 0 < M <= MAX_M):
+        raise ValueError(f'unsupported D={D}, H={H}, M={M}, F={Fd} (D = H * Dh '
+                         f'with D <= {MAX_D} and Dh <= {MAX_DH}, F <= {MAX_F}, '
+                         f'1 <= M <= {MAX_M})')
     if state_layout not in ('dm', 'md'):
         raise ValueError(f"unknown state_layout {state_layout!r}; expected "
                          "'dm' or 'md'")

@@ -239,14 +239,36 @@ SAVERS = {'favor': (('favor_fwd', 'favor_bwd'), save_favor),
           'cla': (('linear_attn',), save_cla)}
 
 
+def kernel_keys(names):
+    """{mangled name: the name two checkouts' kernels are matched by}: the
+    demangled name (c++filt; the mangled one where it is missing) with the
+    width-mode template arguments of the aligned instantiations dropped --
+    the FAVOR+ kernels' ALIGNED ``, 0>`` and the decode GEMV's ``<T, 1|0,
+    false>`` (LN, GEN) written as its former ``<T, true|false>`` -- so that
+    these meet their kernels of before the widths."""
+    tool = shutil.which('c++filt')
+    if not tool or not names:
+        return {n: n for n in names}
+    plain = subprocess.run([tool], input='\n'.join(names), capture_output=True,
+                           text=True, check=True).stdout.split('\n')
+    keys = {}
+    for n, d in zip(names, plain):
+        d = d.replace(', 0>', '>')
+        d = re.sub(r'gemv_kernel<(.*), ([01]), false>',
+                   lambda m: f'gemv_kernel<{m.group(1)}, {"true" if m.group(2) == "1" else "false"}>',
+                   d)
+        keys[n] = d
+    return keys
+
+
 def sass_by_kernel(lib):
-    """{mangled kernel name: its SASS} of the built library ``lib``; the
-    hash nvcc puts in an anonymous namespace's name, which follows the
-    source's path, is dropped so that two checkouts' names match."""
+    """{kernel name: its SASS} of the built library ``lib``, each kernel
+    under ``kernel_keys``' name; the hash nvcc puts in an anonymous
+    namespace's name, which follows the source's path, is dropped so that
+    two checkouts' names match."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     text = subprocess.run([tool, '-sass', str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    text = re.sub(r'_GLOBAL__N__[0-9a-f]{8}_', '_GLOBAL__N__', text)
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r'Function : (\S+)', line)
@@ -255,7 +277,9 @@ def sass_by_kernel(lib):
             out[name] = []
         elif name and line.strip():
             out[name].append(line.strip())
-    return {n: '\n'.join(lines) for n, lines in out.items()}
+    keys = kernel_keys(list(out))
+    drop = lambda t: re.sub(r'_GLOBAL__N__[0-9a-f]{8}_', '_GLOBAL__N__', t)
+    return {drop(keys[n]): drop('\n'.join(lines)) for n, lines in out.items()}
 
 
 def save(root, path, kernels):

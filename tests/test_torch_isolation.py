@@ -4,6 +4,7 @@
 its entry points refuse to fall back to the CPU silently."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -173,3 +174,67 @@ def test_inference_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         inference_stage2.main(['-m', 'performer', '-c', 'emopia_finetune.yaml',
                                '-r', 'functional'])
+
+
+# --------------------------------------------------------------- configs
+
+CONFIGS = sorted(p.relative_to(ROOT / 'emo_disentanger_tpu' / 'configs')
+                 for p in (ROOT / 'emo_disentanger_tpu' / 'configs').rglob('*.yaml'))
+
+
+def test_config_copies_found():
+    assert len(CONFIGS) == 8
+
+
+@pytest.mark.parametrize('rel', CONFIGS, ids=str)
+def test_config_copy_parses_as_the_jax_yaml(rel):
+    """Each of the port's YAMLs (``emo_disentanger_tpu_torch/configs/``)
+    gives the dict the JAX package's YAML of the same name gives."""
+    from emo_disentanger_tpu.utils.io import load_yaml as jax_load
+    from emo_disentanger_tpu_torch.utils.io import load_yaml
+    copy = ROOT / 'emo_disentanger_tpu_torch' / 'configs' / rel
+    assert load_yaml(str(copy)) == jax_load(str(ROOT / 'emo_disentanger_tpu' / 'configs' / rel))
+
+
+@pytest.mark.parametrize('stage', ['1', '2'])
+def test_bare_config_names_resolve_to_the_port_copies(stage):
+    """A bare config name given to the port's CLIs resolves to the port's
+    own copy, never to a file of the JAX package."""
+    import importlib
+    cli = importlib.import_module(f'emo_disentanger_tpu_torch.cli.train_stage{stage}')
+    own = (ROOT / 'emo_disentanger_tpu_torch' / 'configs' / f'stage{stage}').resolve()
+    for name in cli.KNOWN:
+        path = Path(cli.resolve_config(name)).resolve()
+        assert path.parent == own and path.name == name
+
+
+# a record of which TPU kernel a CUDA kernel replaces names its source as
+# file:lines; that is the one form a string of the port may name the JAX
+# package's files in
+_FILE_LINE = re.compile(r'emo_disentanger_tpu/[\w/]+\.py:\d+(-\d+)?')
+
+
+def _strings(path):
+    """The string constants of a source, docstrings left out."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize('path', SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_package(path):
+    """No module of the port, nor ``chip_smoke.py`` or the chip tools,
+    builds a path into ``emo_disentanger_tpu/``: no string names the package
+    as a path component, and none names a file of it other than as a
+    file:line record."""
+    bad = [(line, s) for line, s in _strings(path)
+           if re.search(r'emo_disentanger_tpu(?!_torch)', s)
+           and not _FILE_LINE.fullmatch(s)]
+    assert not bad, f'{path.name} names the JAX package: {bad}'

@@ -15,7 +15,13 @@ each checks its inputs with a function (``_check_inputs``,
 called here on CPU tensors so that each bad dtype, shape or layout raises
 its own error.
 ``_build.library`` is replaced by a stub that fails the test, so none of
-these reaches nvcc or a launch."""
+these reaches nvcc or a launch.
+
+Widths: each check takes every width in its kernel's envelope (#13: Dh up
+to 256; #12: D = H * Dh <= 2048, Dh <= 256, F <= 8192, M <= 512; the
+FAVOR+ kernels: Dh, Dv <= 256, M <= 512, any multiple or none) and refuses
+the first width past it, naming the limit.  The launches' padding to the
+kernels' tiles is checked with a fake library."""
 
 import collections
 import types
@@ -50,7 +56,7 @@ def _flash_cases():
         'cpu': ((q, k, v), 'CUDA tensors'),
         'dtype': ((q.double(), k, v), 'float32'),
         'dtype of v': ((q, k, v.to(torch.bfloat16)), 'v:'),
-        'head width': (_qkv(Dh=32), 'Dh=64'),
+        'head width over 256': (_qkv(Dh=257), '1 <= Dh <= 256'),
         'length': (_qkv(L=192), 'multiple of 128'),
         'rank': ((q[0], k[0], v[0]), 'float32'),
         'shapes differ': ((q, k[:, :1], v), 'k:'),
@@ -72,7 +78,7 @@ def test_flash_attention_refuses(case):
 D, H, F, M = 128, 2, 128, 32
 
 
-def _layer(dtype=torch.float32, B=3):
+def _layer(dtype=torch.float32, B=3, D=D, H=H, F=F, M=M):
     g = torch.Generator().manual_seed(1)
     shapes = {'wq': (D, D), 'wk': (D, D), 'wv': (D, D), 'wo': (D, D),
               'w1': (F, D), 'w2': (D, F), 'b1': (F,)}
@@ -101,13 +107,32 @@ def _decode_cases():
         'mask shape': ((x, S, z, p, omega, mask[:-1]), 'update_mask'),
         'non-contiguous x': ((x.t().contiguous().t(), S, z, p, omega, mask), 'x must'),
         'non-contiguous weight': ((x, S, z, t_w, omega, mask), 'param w1'),
-        'width': (_layer_narrow(), 'unsupported'),
+        'model width over 2048': (_layer(D=2052, H=18, F=16, M=4), 'D <= 2048'),
+        'head width over 256': (_layer(D=257, H=1, F=16, M=4), 'Dh <= 256'),
+        'features over 512': (_layer(D=32, H=2, F=16, M=513), 'M <= 512'),
+        'd_ff over 8192': (_layer(D=32, H=2, F=8193, M=4), 'F <= 8192'),
     }
 
 
-def _layer_narrow():
-    x, S, z, p, omega, mask = _layer()
-    return (x[:, :64].contiguous(), S, z, p, omega, mask)
+# widths off the aligned designs' steps: the kernel's tail forms take them
+DECODE_WIDTHS = {
+    'width': dict(D=64, H=2, F=128, M=32),
+    'D 384 bf16': dict(D=384, H=6, F=1536, M=128, dtype=torch.bfloat16),
+    'Dh 40 M 100': dict(D=480, H=12, F=1920, M=100, dtype=torch.bfloat16),
+    'D 1280': dict(D=1280, H=16, F=5120, M=128),
+    'JAX test shape': dict(D=32, H=2, F=64, M=16),
+    'one feature, odd widths': dict(D=21, H=3, F=37, M=1),
+}
+
+
+@pytest.mark.parametrize('case', sorted(DECODE_WIDTHS))
+def test_decode_layer_takes_widths(case):
+    """Each width of the envelope passes the check ('width' was refused
+    while D and F had to be multiples of 128 and M of 16 in [32, 512])."""
+    kw = DECODE_WIDTHS[case]
+    dims, wdt, ptrs, mask = pd._check_inputs(*_layer(**kw), kw['H'])
+    assert dims == (3, kw['D'], kw['H'], kw['M'], kw['F'])
+    assert wdt == kw.get('dtype', torch.float32) and len(ptrs) == len(pd.PARAM_KEYS)
 
 
 @pytest.mark.parametrize('case', sorted(_decode_cases()))
@@ -118,6 +143,14 @@ def test_decode_layer_refuses(case):
             pd._decode_layer_cuda(*args, H)
         else:
             pd._check_inputs(*args, H)
+
+
+@pytest.mark.parametrize('Dh', [32, 40, 96, 128, 256])
+def test_flash_attention_takes_head_widths(Dh):
+    """Any Dh up to 256 passes the check ('head width' was refused at
+    Dh != 64), and the padding goes to the kernel's tile."""
+    assert fa._check_inputs(*_qkv(Dh=Dh)) == (1, 2, 128, Dh)
+    assert fa.head_tile(Dh) == {32: 32, 40: 64, 96: 128, 128: 128, 256: 256}[Dh]
 
 
 def test_good_inputs_pass_the_checks():
@@ -149,13 +182,36 @@ def _bwd_a_cases(layout):
         'dtype of g': ((q, k, v, g.double(), omega, part), 'g has dtype'),
         'g of another shape': ((q, k, v, g[..., :-4].contiguous(), omega, part),
                                r': g \('),
-        'head width under bf16': (_pass_a(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
-                                  'multiples of 16 under bf16'),
-        'features under bf16': (_pass_a(layout, M=40, dtype=torch.bfloat16),
-                                'multiples of 16 under bf16'),
+        'head width over 256': (_pass_a(layout, Dh=257, Dv=257), 'Dv <= 256'),
+        'features over 512': (_pass_a(layout, M=513), 'M <= 512'),
         'misaligned under bf16': (_misaligned(_pass_a(layout, dtype=torch.bfloat16), 2),
                                   '16-byte boundary'),
     }
+
+
+# the widths the bf16 tile and the f32 multiple of 4 used to refuse; the
+# launches pad them to the tile
+FAVOR_WIDTHS = {
+    'head width under bf16': dict(Dh=40, Dv=40, dtype=torch.bfloat16),
+    'features under bf16': dict(M=40, dtype=torch.bfloat16),
+    'features in f32': dict(M=38),
+    'JAX test shape under bf16': dict(Dh=8, Dv=8, M=16, dtype=torch.bfloat16),
+}
+
+
+def _dims(layout, kw, kernel='pass'):
+    """The dims a check returns for the widths ``kw`` of ``_pass_a``."""
+    Dh, Dv, M = kw.get('Dh', 64), kw.get('Dv', 64), kw.get('M', 32)
+    if layout == 'heads-last':
+        return (2, 80, Dh, M)
+    return (4, 80, Dh, M) if kernel == 'kmax' else (4, 80, Dh, Dv, M)
+
+
+@pytest.mark.parametrize('case', sorted(FAVOR_WIDTHS))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_a_takes_widths(layout, case):
+    kw = FAVOR_WIDTHS[case]
+    assert _check_bwd_a(layout, *_pass_a(layout, **kw)) == _dims(layout, kw)
 
 
 def _misaligned(args, i):
@@ -229,10 +285,8 @@ def _bwd_b_cases(layout):
         'dtype of w': ((q, k, v, u, w.double(), omega, part), 'w has dtype'),
         'w of another shape': ((q, k, v, u, w[:, :-1].contiguous(), omega, part),
                                r'w \('),
-        'head width under bf16': (_pass_b(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
-                                  'multiples of 16 under bf16'),
-        'features under bf16': (_pass_b(layout, M=40, dtype=torch.bfloat16),
-                                'multiples of 16 under bf16'),
+        'head width over 256': (_pass_b(layout, Dh=257, Dv=257), 'Dv <= 256'),
+        'features over 512': (_pass_b(layout, M=513), 'M <= 512'),
         'misaligned u under bf16': (_misaligned(_pass_b(layout, dtype=torch.bfloat16), 3),
                                     'bf16 u must start on a 16-byte boundary'),
     }
@@ -255,6 +309,13 @@ def test_favor_bwd_b_refuses(layout, case):
             la._favor_bwd_b_hl_cuda(*args, 2)
         else:
             la._favor_bwd_b_cuda(*args)
+
+
+@pytest.mark.parametrize('case', sorted(FAVOR_WIDTHS))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_bwd_b_takes_widths(layout, case):
+    kw = FAVOR_WIDTHS[case]
+    assert _check_bwd_b(layout, *_pass_b(layout, **kw)) == _dims(layout, kw)
 
 
 @pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
@@ -280,10 +341,8 @@ def _fwd_cases(layout):
         'dtype of omega': ((q, k, v, omega.double(), part), 'omega has dtype'),
         'partial of another length': ((q, k, v, omega, part[:, :1].contiguous()),
                                       r'partial \('),
-        'head width under bf16': (_fwd(layout, Dh=40, Dv=40, dtype=torch.bfloat16),
-                                  'multiples of 16 under bf16'),
-        'features under bf16': (_fwd(layout, M=40, dtype=torch.bfloat16),
-                                'multiples of 16 under bf16'),
+        'head width over 256': (_fwd(layout, Dh=257, Dv=257), 'Dv <= 256'),
+        'features over 512': (_fwd(layout, M=513), 'M <= 512'),
         'misaligned q under bf16': (_misaligned(_fwd(layout, dtype=torch.bfloat16), 0),
                                     'bf16 q must start on a 16-byte boundary'),
         'misaligned k under bf16': (_misaligned(_fwd(layout, dtype=torch.bfloat16), 1),
@@ -312,6 +371,13 @@ def test_favor_fwd_refuses(layout, case):
             la._favor_fwd_cuda(*args)
 
 
+@pytest.mark.parametrize('case', sorted(FAVOR_WIDTHS))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_fwd_takes_widths(layout, case):
+    kw = FAVOR_WIDTHS[case]
+    assert _check_fwd(layout, *_fwd(layout, **kw)) == _dims(layout, kw)
+
+
 @pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
 def test_favor_fwd_widths_in_f32(layout):
     """f32 keeps the multiple of 4 that bf16 refuses; bf16 takes the
@@ -335,11 +401,9 @@ def _kmax_cases(layout):
         'dtype of k': ((k.double(), omega), 'k has dtype'),
         'dtype of omega': ((k, omega.double()), 'omega has dtype'),
         'omega of another width': ((k, omega[:-1].contiguous()), r'omega \('),
-        'head width under bf16': (_kmax(layout, Dh=40, dtype=bf),
-                                  'multiples of 16 under bf16'),
-        'features under bf16': (_kmax(layout, M=40, dtype=bf),
-                                'multiples of 16 under bf16'),
-        'features in f32': (_kmax(layout, M=38), 'of 4'),
+        'head width over 256': (_kmax(layout, Dh=257, dtype=bf), 'Dv <= 256'),
+        'features over 512': (_kmax(layout, M=513, dtype=bf), 'M <= 512'),
+        'features over 512 in f32': (_kmax(layout, M=513), 'M <= 512'),
         'misaligned k under bf16': (_misaligned(_kmax(layout, dtype=bf), 0),
                                     'bf16 k must start on a 16-byte boundary'),
     }
@@ -362,6 +426,13 @@ def test_favor_kmax_refuses(layout, case):
             la._favor_kmax_hl_cuda(*args, 2)
         else:
             la._favor_kmax_cuda(*args)
+
+
+@pytest.mark.parametrize('case', sorted(FAVOR_WIDTHS))
+@pytest.mark.parametrize('layout', ['head-major', 'heads-last'])
+def test_favor_kmax_takes_widths(layout, case):
+    kw = dict(FAVOR_WIDTHS[case], Dv=FAVOR_WIDTHS[case].get('Dh', 64))
+    assert _check_kmax(layout, *_kmax(layout, **kw)) == _dims(layout, kw, 'kmax')
 
 
 @pytest.mark.parametrize('layout', ['head-major', 'heads-last'])

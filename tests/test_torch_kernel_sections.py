@@ -13,7 +13,7 @@ import pytest
 
 import kernel_sections as ks
 
-START = 'template <class T, bool HL>\n__global__ void '
+START = 'template <class T, bool HL, int MODE>\n__global__ void '
 
 
 def _kernel(text, name):
@@ -31,7 +31,7 @@ def test_instrument_stamps_each_section_of_pass_a():
     ends = ends['favor_bwd_a']
     assert _stamps(_kernel(src, 'favor_bwd_a_kernel')) == list(range(len(ends)))
     assert 10 <= len(ends) <= ks.SLOTS
-    for call in ('features_tc<false>', 'features_tc<true>', 'chain_rule_tc('):
+    for call in ('features_tc<false, MASK>', 'features_tc<true, MASK>', 'chain_rule_tc('):
         assert sum(call in end for end in ends) == 1, call
     assert all(re.match(r'favor_bwd\.cu:\d+ ', end) for end in ends)
     assert 'int read_sections(void* dst)' in src
@@ -43,7 +43,7 @@ def test_instrument_stamps_each_section_of_pass_b():
     body = _kernel(src, 'favor_bwd_b_kernel')
     assert _stamps(body) == list(range(len(ends)))
     assert 10 <= len(ends) <= ks.SLOTS
-    for call in ('features_tc<true>', 'features_tc<false>', 'chain_rule_tc('):
+    for call in ('features_tc<true, MASK>', 'features_tc<false, MASK>', 'chain_rule_tc('):
         assert sum(call in end for end in ends) == 1, call
     assert 'g_sections[1][blockIdx.x][i] = sec_[i]' in body
     assert 'g_sections[0]' in _kernel(src, 'favor_bwd_a_kernel')
@@ -81,7 +81,7 @@ def test_instrument_stamps_each_section_of_the_forward():
     body = _kernel(src, 'favor_fwd_kernel')
     assert _stamps(body) == list(range(len(ends)))
     assert 10 <= len(ends) <= ks.SLOTS
-    for call in ('row_sq_tc(', 'features_tc<false>', 'features_tc<true>'):
+    for call in ('row_sq_tc(', 'features_tc<false, MASK>', 'features_tc<true, MASK>'):
         assert sum(call in end for end in ends) == (2 if call == 'row_sq_tc(' else 1), call
     assert 'g_sections[0][blockIdx.x][i] = sec_[i]' in body
     assert 'sec_' not in _kernel(src, 'favor_kmax_kernel')
