@@ -33,8 +33,8 @@ cli       train-stage1, train-stage2, infer-stage1, infer-stage2,
           events2words and evaluate, dispatched by
           ``python -m emo_disentanger_tpu_torch <command>``
 utils     device resolution, serving precision, logs, file IO;
-          ``profiling`` (``trace`` over ``torch.profiler``, ``Throughput``,
-          ``step_timer``) and ``debug`` (``checked_train_step``,
+          ``profiling`` (``trace`` over ``torch.profiler``, the program's
+          spans and counters) and ``debug`` (``checked_train_step``,
           ``assert_all_finite``)
 
 Entry points run on the GPU (``device='cuda'``) unless the caller passes

@@ -10,7 +10,8 @@
 
 The same ``np.random.RandomState(seed)`` draws as the JAX package give the
 same key augmentations, start bars and shuffles, so both produce identical
-batches.
+batches.  While a profiler records, ``Stage2Dataset.batches`` marks the
+building of each batch with the span ``emodis.data.batch``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 
 from ..core.vocab import MAJOR_KEY, MINOR_KEY, Vocab, event_str
 from ..utils.io import pickle_load
+from ..utils.profiling import span
 
 
 def _event_type(ev: str) -> str:
@@ -368,12 +370,17 @@ class Stage2Dataset:
             idxs = order[i:i + batch_size]
             if drop_last and len(idxs) < batch_size:
                 break
-            samples = [self[int(j)] for j in idxs]
-            yield {
-                'dec_inp': np.stack([s.dec_inp for s in samples]),
-                'dec_tgt': np.stack([s.dec_tgt for s in samples]),
-                'track_mask': np.stack([s.track_mask for s in samples]),
-                'length': np.asarray([s.length for s in samples], dtype=np.int32),
-                'chord_idx': np.stack([s.chord_idx for s in samples]),
-                'melody_idx': np.stack([s.melody_idx for s in samples]),
-            }
+            # the span closes before the yield: a suspended generator's wait
+            # is the consumer's time, not the loader's
+            with span('emodis.data.batch'):
+                samples = [self[int(j)] for j in idxs]
+                batch = {
+                    'dec_inp': np.stack([s.dec_inp for s in samples]),
+                    'dec_tgt': np.stack([s.dec_tgt for s in samples]),
+                    'track_mask': np.stack([s.track_mask for s in samples]),
+                    'length': np.asarray([s.length for s in samples],
+                                         dtype=np.int32),
+                    'chord_idx': np.stack([s.chord_idx for s in samples]),
+                    'melody_idx': np.stack([s.melody_idx for s in samples]),
+                }
+            yield batch

@@ -73,6 +73,7 @@ from ..models.performer import MusicPerformer
 from ..ops.sampling import nucleus_sample
 from ..parallel.mesh import any_rows, batch_rows, gather_rows, reduce_flags
 from ..utils.device import resolve_device
+from ..utils.profiling import COUNTS, recording, span
 from .rules import build_rule_tables
 
 STATUS_RUNNING = 0
@@ -191,7 +192,14 @@ class Stage2BatchGenerator:
         return s['state']['k'].shape[self._k_axis]
 
     def _step(self, s: Dict, gen: torch.Generator) -> None:
-        """One decode step for every element, updating ``s`` in place."""
+        """One decode step for every element, updating ``s`` in place; while
+        a profiler records, in the span ``emodis.serve.step`` and counted
+        (``_count_step``)."""
+        counting = recording()
+        with span('emodis.serve.step'):
+            self._advance(s, gen, counting)
+
+    def _advance(self, s: Dict, gen: torch.Generator, counting: bool) -> None:
         gpt2 = not self.is_performer
         in_tier = gpt2 and self._cache_len(s) < self.gpt2_cache_len
         if gpt2 and not in_tier:
@@ -200,12 +208,15 @@ class Stage2BatchGenerator:
             self._maybe_reanchor(s)
         ar = self._ar
         act = s['status'] == STATUS_RUNNING
+        if counting:
+            self._count_step(s, act)
         in_primer, mode = s['in_primer'], s['mode']
 
         # --- choose this step's token per element ---
         u = torch.rand(self.batch, generator=gen, device=self.device)
-        sampled = nucleus_sample(s['logits'], self.temp, self.top_p,
-                                 u[self.rows])
+        with span('emodis.serve.sample'):
+            sampled = nucleus_sample(s['logits'], self.temp, self.top_p,
+                                     u[self.rows])
         prim_tok = s['primer'].gather(1, s['primer_pos'].clamp(
             0, s['primer'].shape[1] - 1)[:, None])[:, 0]
         bar_idx = s['bars'].clamp(max=self.max_bars - 1)
@@ -300,6 +311,16 @@ class Stage2BatchGenerator:
         s['failed'] = failed
         s['rejects'] = s['rejects'] + reject
 
+    def _count_step(self, s: Dict, act: torch.Tensor) -> None:
+        """Add the step's running slots (GPT-2: and the sum of their clocks)
+        to the device accumulator ``s['counted']``, and the step to
+        ``s['counted_steps']``; ``_poll`` moves both to ``COUNTS`` through
+        its one host read.  Each rank counts its own slots."""
+        n = (act.sum()[None] if self.is_performer else
+             torch.stack([act.sum(), (s['t'] * act).sum()]))
+        s['counted'] = s['counted'] + n if 'counted' in s else n
+        s['counted_steps'] = s.get('counted_steps', 0) + 1
+
     def _maybe_reanchor(self, s: Dict) -> None:
         if s['t_hi'] < self._reanchor_from:
             return                       # no clock can have reached a trigger
@@ -350,12 +371,21 @@ class Stage2BatchGenerator:
               ) -> Tuple[bool, bool]:
         """One host read: (whether any element is running, whether the
         running set differs from ``entry``).  It also refreshes the host's
-        bound on the clocks.  Over a mesh, the reads are global."""
+        bound on the clocks, and moves the steps counted since the last read
+        into ``COUNTS`` (this rank's).  Over a mesh, the flags are global."""
         run = self._running(s)
         changed = (run != entry).any() if entry is not None else run.any()
-        flags = torch.stack([run.any().long(), s['t'].max(),
-                             changed.long()]).tolist()
-        run, s['t_hi'], changed = reduce_flags(self.mesh, flags)
+        flags = torch.stack([run.any().long(), s['t'].max(), changed.long()])
+        counted = s.pop('counted', None)
+        if counted is not None:
+            flags = torch.cat([flags, counted])
+        flags = flags.tolist()
+        if counted is not None:
+            COUNTS['serve.steps'] += s.pop('counted_steps')
+            for name, n in zip(('serve.slot_steps', 'serve.live_rows'),
+                               flags[3:]):
+                COUNTS[name] += n
+        run, s['t_hi'], changed = reduce_flags(self.mesh, flags[:3])
         return bool(run), bool(changed)
 
     # ---- jobs and slots ----
@@ -524,6 +554,8 @@ class Stage2BatchGenerator:
                 s['state'][name] = F.pad(cache, pad)
             s['status'] = torch.where(overflow, STATUS_RUNNING, s['status'])
             iters = self._lockstep(s, gen, iters)
+        if 'counted' in s:        # steps since the last read (max_iters)
+            self._poll(s)
         got = {k: gather_rows(self.mesh, s[k]) for k in (
             'out', 'out_len', 'status', 'bars', 'reanchors', 'rejects')}
         out, out_len, status = got['out'], got['out_len'], got['status']
@@ -561,7 +593,12 @@ class Stage2BatchGenerator:
         (refills interleave jobs at mixed clocks).  Returns (streams, stats)
         in submission order; ``stats`` carries the per-job fields of
         ``generate``, ``wall_seconds``, ``chunks`` (host refill round trips)
-        and ``steps`` (loop steps over all slots)."""
+        and ``steps`` (loop steps over all slots), and per job
+        ``admitted_s`` and ``finished_s``: seconds from the call's start to
+        the end of the chunk that armed its slot or harvested its song (the
+        first slots' jobs: to the end of the state's set-up).  While a
+        profiler records, each chunk's refill is the span
+        ``emodis.serve.refill``."""
         N = len(primers)
         if len(lead_sheet_bars) != N:
             raise ValueError('one lead sheet per primer')
@@ -569,7 +606,8 @@ class Stage2BatchGenerator:
         fields = ('status', 'bars', 'events', 'reanchors', 'rejects')
         if N == 0:
             return [], {'seconds': 0.0, 'wall_seconds': 0.0, 'chunks': 0,
-                        'steps': 0, **{k: [] for k in fields}}
+                        'steps': 0, 'admitted_s': [], 'finished_s': [],
+                        **{k: [] for k in fields}}
         jobs = self._prep_jobs(primers, lead_sheet_bars, max_bars)
         t0 = time.time()
         gen = self._generator(seed)
@@ -586,39 +624,48 @@ class Stage2BatchGenerator:
         next_job = first
         streams: List[Optional[List[int]]] = [None] * N
         per_job = {k: [0] * N for k in fields}
+        admitted_s = [time.time() - t0] * first + [0.0] * (N - first)
+        finished_s = [0.0] * N
         chunks = steps = 0
         while any_rows(self.mesh, self._running(s)):
             steps += self._run_chunk(s, gen)
             chunks += 1
-            status = gather_rows(self.mesh, s['status'])
-            finished = [b for b in range(B) if slot_job[b] is not None
-                        and status[b] not in (STATUS_RUNNING, STATUS_IDLE)]
-            if not finished:
-                continue
-            out = gather_rows(self.mesh, s['out'])
-            got = {'status': status,
-                   **{k: gather_rows(self.mesh, s[f]) for k, f in (
-                       ('events', 'out_len'), ('bars', 'bars'),
-                       ('reanchors', 'reanchors'), ('rejects', 'rejects'))}}
-            for b in finished:
-                j = slot_job[b]
-                streams[j] = self._stream(out[b], got['events'][b], status[b])
-                for k in fields:
-                    per_job[k][j] = int(got[k][b])
-            mask = np.zeros(B, bool)
-            idle = np.zeros(B, bool)
-            rows = [0] * B
-            for b in finished:
-                if next_job < N:
-                    mask[b] = True
-                    rows[b] = next_job
-                    slot_job[b] = next_job
-                    next_job += 1
-                else:
-                    idle[b] = True
-                    slot_job[b] = None
-            self._reset_slots(s, mask[mine], idle[mine],
-                              self._job_rows(jobs, rows[mine]))
+            with span('emodis.serve.refill'):
+                status = gather_rows(self.mesh, s['status'])
+                now = time.time() - t0
+                finished = [b for b in range(B) if slot_job[b] is not None
+                            and status[b] not in (STATUS_RUNNING, STATUS_IDLE)]
+                if not finished:
+                    continue
+                out = gather_rows(self.mesh, s['out'])
+                got = {'status': status,
+                       **{k: gather_rows(self.mesh, s[f]) for k, f in (
+                           ('events', 'out_len'), ('bars', 'bars'),
+                           ('reanchors', 'reanchors'),
+                           ('rejects', 'rejects'))}}
+                for b in finished:
+                    j = slot_job[b]
+                    streams[j] = self._stream(out[b], got['events'][b],
+                                              status[b])
+                    finished_s[j] = now
+                    for k in fields:
+                        per_job[k][j] = int(got[k][b])
+                mask = np.zeros(B, bool)
+                idle = np.zeros(B, bool)
+                rows = [0] * B
+                for b in finished:
+                    if next_job < N:
+                        mask[b] = True
+                        rows[b] = next_job
+                        slot_job[b] = next_job
+                        admitted_s[next_job] = now
+                        next_job += 1
+                    else:
+                        idle[b] = True
+                        slot_job[b] = None
+                self._reset_slots(s, mask[mine], idle[mine],
+                                  self._job_rows(jobs, rows[mine]))
         secs = time.time() - t0
         return streams, {'seconds': secs, 'wall_seconds': secs,
-                         'chunks': chunks, 'steps': steps, **per_job}
+                         'chunks': chunks, 'steps': steps, **per_job,
+                         'admitted_s': admitted_s, 'finished_s': finished_s}

@@ -1,31 +1,77 @@
-"""Tracing and throughput utilities (port of
-``emo_disentanger_tpu/utils/profiling.py``).
+"""Tracing (port of ``emo_disentanger_tpu/utils/profiling.py``'s ``trace``)
+and the program's own spans and counters.
 
 * :func:`trace`: a context manager around ``torch.profiler`` that writes a
   trace TensorBoard reads (``torch.profiler.tensorboard_trace_handler``);
-* :class:`Throughput`: tokens/s and tokens/s a chip for train and decode
-  loops;
-* :class:`step_timer`: per-step wall times on the host clock, summarized
-  with percentiles.  On CUDA the host clock runs ahead of the device, so
-  the caller synchronizes inside the timed block; the training drivers do
-  it by reading the step's loss.
+* :func:`recording`: whether a ``torch.profiler`` is recording now (false
+  outside a profiler and in a schedule's wait and warm-up steps);
+* :func:`span`: a named host range while recording
+  (``torch.profiler.record_function``), else a shared no-op.  A span is one
+  of the profiler's own host ranges, so it sits on the clock of the device
+  activities in the same trace;
+* :data:`COUNTS` and :func:`count`: plain host integers, added to only
+  while recording.
+
+There is no switch: an operator traces the program by running it under a
+profiler (:func:`trace`, or any ``torch.profiler.profile``).  Span names
+start with ``emodis.``; counter names with their layer's name:
+
+==========================  ==================================================
+``emodis.serve.step``       one decode step of ``Stage2BatchGenerator``
+``emodis.serve.sample``     its nucleus sampler
+``emodis.serve.refill``     ``serve``'s work between two chunks: the status
+                            read, the harvest of finished songs, the re-arm
+``emodis.data.batch``       ``Stage2Dataset.batches`` building one batch
+``serve.steps``             decode steps taken while recording
+``serve.slot_steps``        running slots, summed over those steps
+``serve.live_rows``         GPT-2: each running slot's clock at the step's
+                            start, summed over those steps (a step attends
+                            to clock + 1 cache rows)
+==========================  ==================================================
+
+The serve counters are exact: the steps accumulate on the device and reach
+``COUNTS`` through the generator's next status read (``_poll``), so the
+three count the same steps even when the profiler stops between reads.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import time
-from typing import Dict, List, Optional
 
-import numpy as np
 import torch
-import torch.distributed as dist
+
+COUNTS: collections.Counter = collections.Counter()
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler is recording (about 0.1-0.2 us on a CPU host)."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """``with span('emodis.x'):`` a host range named ``name`` while
+    recording; otherwise one shared no-op, nothing allocated.  A
+    ``record_function`` costs some 13 us even when no profiler runs, so the
+    check comes first."""
+    if recording():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[name]`` while recording."""
+    if recording():
+        COUNTS[name] += n
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a host and device trace: ``with trace('tb'): step()``.  The
-    device's activities are traced where CUDA is present."""
+    device's activities are traced where CUDA is present; the program's
+    spans appear among the host ranges."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -37,67 +83,3 @@ def trace(log_dir: str):
         yield prof
     finally:
         prof.stop()
-
-
-class Throughput:
-    """Sliding tokens/sec counter.  ``n_chips`` defaults to the world size,
-    or 1 without a process group."""
-
-    def __init__(self, n_chips: Optional[int] = None):
-        if n_chips is None:
-            n_chips = dist.get_world_size() if dist.is_initialized() else 1
-        self.n_chips = n_chips
-        self.reset()
-
-    def reset(self):
-        self._tokens = 0
-        self._t0 = time.perf_counter()
-
-    def add(self, n_tokens: int):
-        self._tokens += int(n_tokens)
-
-    @property
-    def tokens_per_sec(self) -> float:
-        dt = time.perf_counter() - self._t0
-        return self._tokens / dt if dt > 0 else 0.0
-
-    @property
-    def tokens_per_sec_per_chip(self) -> float:
-        return self.tokens_per_sec / max(self.n_chips, 1)
-
-    def report(self) -> Dict[str, float]:
-        tps = self.tokens_per_sec            # snapshot once: dt keeps moving
-        return {
-            'tokens': self._tokens,
-            'tokens_per_sec': tps,
-            'tokens_per_sec_per_chip': tps / max(self.n_chips, 1),
-        }
-
-
-class step_timer:
-    """Collect per-step wall times; summarize with percentiles.  On CUDA
-    the caller synchronizes before the block ends (module docstring)."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t = None
-
-    def __enter__(self):
-        self._t = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t)
-        return False
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        a = np.asarray(self.times)
-        return {
-            'n': len(a),
-            'mean_s': float(a.mean()),
-            'p50_s': float(np.percentile(a, 50)),
-            'p95_s': float(np.percentile(a, 95)),
-            'max_s': float(a.max()),
-        }

@@ -54,7 +54,8 @@ def _port(kind, model, vocab, kw):
 
 def _strip(res):
     streams, stats = res
-    return streams, {k: v for k, v in stats.items() if 'seconds' not in k}
+    return streams, {k: v for k, v in stats.items()
+                     if 'seconds' not in k and not k.endswith('_s')}
 
 
 LEG_NAMES = [f'{kind}-{method}-{mode}' for mode in ('sampled', 'greedy')

@@ -1,9 +1,7 @@
 """The port's profiling and debug utilities against the JAX package's:
-``Throughput`` and ``step_timer`` report JAX's keys, ``assert_all_finite``
-raises JAX's message, ``checked_train_step`` is silent on a clean step
-(which equals the unchecked step) and names a non-finite loss or
-gradient, and
-``trace`` writes a trace file."""
+``assert_all_finite`` raises JAX's message, ``checked_train_step`` is
+silent on a clean step (which equals the unchecked step) and names a
+non-finite loss or gradient, and ``trace`` writes a trace file."""
 
 import os
 
@@ -12,29 +10,11 @@ import pytest
 import torch
 
 from emo_disentanger_tpu.utils import debug as jdebug
-from emo_disentanger_tpu.utils import profiling as jprof
 from emo_disentanger_tpu_torch.train import trainer as ttr
 from emo_disentanger_tpu_torch.utils import debug, profiling
 from torch_port_helpers import model_pair
 
 V, PAD = 23, 22
-
-
-def test_throughput_and_step_timer_keys_match_jax():
-    ours, theirs = profiling.Throughput(n_chips=2), jprof.Throughput(n_chips=2)
-    for t in (ours, theirs):
-        t.add(100)
-    assert ours.report().keys() == theirs.report().keys()
-    assert ours.report()['tokens'] == 100
-    assert profiling.Throughput().n_chips == 1          # no process group
-    t_ours, t_theirs = profiling.step_timer(), jprof.step_timer()
-    assert t_ours.summary() == t_theirs.summary() == {}
-    for t in (t_ours, t_theirs):
-        for _ in range(3):
-            with t:
-                pass
-    assert t_ours.summary().keys() == t_theirs.summary().keys()
-    assert t_ours.summary()['n'] == 3
 
 
 @pytest.mark.parametrize('tree', [
