@@ -27,6 +27,14 @@ masks, so the host reads whether any song runs only every
 position is a host integer here, so the chunked attention's chunk count
 needs no device read.
 
+Tracing (``utils.profiling``), as ``stage2_batch`` traces its loop: while a
+profiler records, each step is the span ``emodis.serve.step`` and its
+sampler ``emodis.serve.sample``, and the step adds its running songs and
+their clocks to a device accumulator that the next status read (``_poll``)
+moves to ``COUNTS['serve.steps']``, ``['serve.slot_steps']`` and
+``['serve.live_rows']``; the model's layers mark their cache work
+``emodis.txl.attn``.  Without a profiler none of these is made.
+
 The decode cache is in ``cache_layout`` ('khd', 'hkd' or 'dk';
 ``EMODIS_S1_CACHE_LAYOUT`` when None, else 'khd'; ``ops.attention``), as
 JAX's generators take it (``stage1.py:163-182``).  ``Stage1Generator``
@@ -52,8 +60,9 @@ from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
 from ..ops.attention import VALID_LAYOUTS
 from ..ops.sampling import nucleus_sample
-from ..parallel.mesh import any_rows, batch_rows
+from ..parallel.mesh import batch_rows, reduce_flags
 from ..utils.device import resolve_device
+from ..utils.profiling import accumulate, flush, recording, span
 from .rules import build_rule_tables, emotion_wants_major
 
 STATUS_RUNNING = 0
@@ -183,7 +192,19 @@ class SongLoop:
         a host-integer ``s['t']`` all songs share the write position (the
         chunked attention, or the whole cache with ``full_attention``); with
         a tensor [B] each has its own (``decode_step_pe``), and a song
-        that runs ``max_iters`` steps is marked STUCK."""
+        that runs ``max_iters`` steps is marked STUCK.  While a profiler
+        records, the step is the span ``emodis.serve.step`` and is counted
+        (``_count_step``)."""
+        counting = recording()
+        with span('emodis.serve.step'):
+            self._advance(s, gen, counting, max_klen=max_klen,
+                          full_attention=full_attention)
+
+    def _advance(self, s: Dict, gen: torch.Generator, counting: bool, *,
+                 max_klen: int, full_attention: Optional[bool]) -> None:
+        act = self._running(s)
+        if counting:
+            self._count_step(s, act)
         per_element = isinstance(s['t'], torch.Tensor)
         if per_element:
             logits, _ = self.model.decode_step_pe(s['last'], s['t'], s['cache'],
@@ -199,9 +220,10 @@ class SongLoop:
         key_step = (s['out_len'] == 1) & ~in_primer & self.functional
         # one batched sort: the key step's settings are chosen per row
         u = torch.rand(self.batch, generator=gen, device=self.device)
-        sampled_tok = nucleus_sample(
-            logits, torch.where(key_step, KEY_TEMP, self.temp),
-            torch.where(key_step, KEY_TOP_P, self.top_p), u[self.rows])
+        with span('emodis.serve.sample'):
+            sampled_tok = nucleus_sample(
+                logits, torch.where(key_step, KEY_TEMP, self.temp),
+                torch.where(key_step, KEY_TOP_P, self.top_p), u[self.rows])
         word = torch.where(in_primer, prim_next, sampled_tok)
 
         is_beat, is_bar = self._is_beat[word], self._is_bar[word]
@@ -212,7 +234,6 @@ class SongLoop:
         reject_pad = self._is_pad[word] & ~reject_key & ~reject_beat
         reject = (reject_key | reject_beat | reject_pad) & ~in_primer
 
-        act = self._running(s)
         sampled = act & ~in_primer
         failed = torch.where(sampled & reject_beat, s['failed'] + 1, torch.where(
             sampled & is_beat & ~reject, 0, s['failed']))
@@ -238,6 +259,25 @@ class SongLoop:
         s['failed'] = failed
         s['rejects'] = s['rejects'] + (sampled & reject)
 
+    def _count_step(self, s: Dict, act: torch.Tensor) -> None:
+        """Add the step's running songs and the sum of their clocks at the
+        step's start to the device accumulator that ``_poll`` flushes into
+        ``COUNTS`` through its one host read.  Each rank counts its own
+        songs."""
+        accumulate(s, torch.stack([act.sum(), (s['t'] * act).sum()]))
+
+    def _poll(self, s: Dict, entry: Optional[torch.Tensor] = None
+              ) -> Tuple[bool, bool]:
+        """One host read: (whether any song is running, whether the
+        running set differs from ``entry``), over every rank's rows.  It
+        also moves the steps counted since the last read into ``COUNTS``
+        (this rank's)."""
+        run = self._running(s)
+        changed = (run != entry).any() if entry is not None else run.any()
+        flags = flush(s, torch.stack([run.any().long(), changed.long()]))
+        any_run, changed = reduce_flags(self.mesh, flags)
+        return bool(any_run), bool(changed)
+
     def _lockstep(self, s: Dict, gen: torch.Generator, iters: int, *,
                   max_klen: int, full_attention: Optional[bool]) -> int:
         """Step the shared-clock songs until none runs, the loop has run
@@ -245,12 +285,14 @@ class SongLoop:
         row (the step that gets there marks the running songs OVERFLOW).
         Returns the step count."""
         while (iters < self.max_iters and s['t'] < max_klen - 1
-               and any_rows(self.mesh, self._running(s))):
+               and self._poll(s)[0]):
             for _ in range(min(HOST_CHECK_STEPS, self.max_iters - iters,
                                max_klen - 1 - s['t'])):
                 self._step(s, gen, max_klen=max_klen,
                            full_attention=full_attention)
                 iters += 1
+        if 'counted' in s:        # steps since the last read
+            self._poll(s)
         return iters
 
     def _generator(self, seed: int) -> torch.Generator:

@@ -51,6 +51,7 @@ from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
 from ..ops.attention import K_AXIS
 from ..parallel.mesh import gather_rows, reduce_flags
+from ..utils.profiling import span
 from .stage1 import (
     HOST_CHECK_STEPS, STATUS_IDLE, STATUS_OVERFLOW, STATUS_RUNNING,
     SongLoop)
@@ -137,14 +138,6 @@ class Stage1BatchGenerator(SongLoop):
                  'iters': iters}
         return songs, stats
 
-    def _poll(self, s: Dict, entry: torch.Tensor) -> Tuple[bool, bool]:
-        """One host read: (any slot running, the running set differs from
-        ``entry``), over every rank's rows."""
-        run = self._running(s)
-        any_run, changed = reduce_flags(self.mesh, torch.stack(
-            [run.any(), (run != entry).any()]).tolist())
-        return bool(any_run), bool(changed)
-
     def _run_chunk(self, s: Dict, gen: torch.Generator, chunk_steps: int) -> int:
         """Step until nothing runs, or a slot has finished and at least
         ``chunk_steps`` steps have passed (checked every HOST_CHECK_STEPS
@@ -185,7 +178,9 @@ class Stage1BatchGenerator(SongLoop):
         :meth:`generate`.  Returns (songs,
         stats) in submission order; ``stats`` has the per-job fields of
         :meth:`generate`, ``chunks`` (host refill round trips) and
-        ``steps`` (loop steps)."""
+        ``steps`` (loop steps).  While a profiler records, each chunk's
+        work between two chunks (the status reads, the harvest of finished
+        songs, the refill) is the span ``emodis.serve.refill``."""
         N, B = len(emotions), self.batch
         fields = ('status', 'bars', 'events', 'rejects')
         if N == 0:
@@ -211,36 +206,37 @@ class Stage1BatchGenerator(SongLoop):
         while True:
             steps += self._run_chunk(s, gen, chunk_steps)
             chunks += 1
-            run = gather_rows(self.mesh, self._running(s))
-            status = gather_rows(self.mesh, s['status'])
-            finished = [b for b in range(B) if slot_job[b] is not None
-                        and not run[b]]
-            if not finished:
-                if not run.any():
-                    break
-                continue
-            out = gather_rows(self.mesh, s['out'])
-            got = {'status': status,
-                   **{k: gather_rows(self.mesh, s[f]) for k, f in (
-                       ('events', 'out_len'), ('bars', 'bars'),
-                       ('rejects', 'rejects'))}}
-            for b in finished:
-                j = slot_job[b]
-                songs[j] = self._song(out[b], got['events'][b], status[b])
-                for k in fields:
-                    per_job[k][j] = int(got[k][b])
-            mask = np.zeros(B, bool)
-            idle = np.zeros(B, bool)
-            rows = [0] * B
-            for b in finished:
-                if next_job < N:
-                    mask[b] = True
-                    rows[b] = next_job
-                    slot_job[b] = next_job
-                    next_job += 1
-                else:
-                    idle[b] = True
-                    slot_job[b] = None
-            self._refill(s, mask, idle, jobs, rows)
+            with span('emodis.serve.refill'):
+                run = gather_rows(self.mesh, self._running(s))
+                status = gather_rows(self.mesh, s['status'])
+                finished = [b for b in range(B) if slot_job[b] is not None
+                            and not run[b]]
+                if not finished:
+                    if not run.any():
+                        break
+                    continue
+                out = gather_rows(self.mesh, s['out'])
+                got = {'status': status,
+                       **{k: gather_rows(self.mesh, s[f]) for k, f in (
+                           ('events', 'out_len'), ('bars', 'bars'),
+                           ('rejects', 'rejects'))}}
+                for b in finished:
+                    j = slot_job[b]
+                    songs[j] = self._song(out[b], got['events'][b], status[b])
+                    for k in fields:
+                        per_job[k][j] = int(got[k][b])
+                mask = np.zeros(B, bool)
+                idle = np.zeros(B, bool)
+                rows = [0] * B
+                for b in finished:
+                    if next_job < N:
+                        mask[b] = True
+                        rows[b] = next_job
+                        slot_job[b] = next_job
+                        next_job += 1
+                    else:
+                        idle[b] = True
+                        slot_job[b] = None
+                self._refill(s, mask, idle, jobs, rows)
         return songs, {'seconds': time.time() - t0, 'chunks': chunks,
                        'steps': steps, 'resumed': 0, **per_job}

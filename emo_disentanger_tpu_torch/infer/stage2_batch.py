@@ -73,7 +73,7 @@ from ..models.performer import MusicPerformer
 from ..ops.sampling import nucleus_sample
 from ..parallel.mesh import any_rows, batch_rows, gather_rows, reduce_flags
 from ..utils.device import resolve_device
-from ..utils.profiling import COUNTS, recording, span
+from ..utils.profiling import accumulate, flush, recording, span
 from .rules import build_rule_tables
 
 STATUS_RUNNING = 0
@@ -313,13 +313,10 @@ class Stage2BatchGenerator:
 
     def _count_step(self, s: Dict, act: torch.Tensor) -> None:
         """Add the step's running slots (GPT-2: and the sum of their clocks)
-        to the device accumulator ``s['counted']``, and the step to
-        ``s['counted_steps']``; ``_poll`` moves both to ``COUNTS`` through
-        its one host read.  Each rank counts its own slots."""
-        n = (act.sum()[None] if self.is_performer else
-             torch.stack([act.sum(), (s['t'] * act).sum()]))
-        s['counted'] = s['counted'] + n if 'counted' in s else n
-        s['counted_steps'] = s.get('counted_steps', 0) + 1
+        to the device accumulator that ``_poll`` flushes into ``COUNTS``
+        through its one host read.  Each rank counts its own slots."""
+        accumulate(s, act.sum()[None] if self.is_performer else
+                   torch.stack([act.sum(), (s['t'] * act).sum()]))
 
     def _maybe_reanchor(self, s: Dict) -> None:
         if s['t_hi'] < self._reanchor_from:
@@ -375,17 +372,9 @@ class Stage2BatchGenerator:
         into ``COUNTS`` (this rank's).  Over a mesh, the flags are global."""
         run = self._running(s)
         changed = (run != entry).any() if entry is not None else run.any()
-        flags = torch.stack([run.any().long(), s['t'].max(), changed.long()])
-        counted = s.pop('counted', None)
-        if counted is not None:
-            flags = torch.cat([flags, counted])
-        flags = flags.tolist()
-        if counted is not None:
-            COUNTS['serve.steps'] += s.pop('counted_steps')
-            for name, n in zip(('serve.slot_steps', 'serve.live_rows'),
-                               flags[3:]):
-                COUNTS[name] += n
-        run, s['t_hi'], changed = reduce_flags(self.mesh, flags[:3])
+        flags = flush(s, torch.stack([run.any().long(), s['t'].max(),
+                                      changed.long()]))
+        run, s['t_hi'], changed = reduce_flags(self.mesh, flags)
         return bool(run), bool(changed)
 
     # ---- jobs and slots ----

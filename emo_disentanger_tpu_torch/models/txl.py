@@ -27,7 +27,11 @@ are fixed at inference, so caching k/v after the fused projection gives the
 reference's recompute-from-mems attention.  In 'khd', ``decode_step`` takes
 the chunked live-prefix attention below B=32 and the whole-cache one from
 there, as JAX does (``txl.py:437``); the head-major layouts always take the
-whole-cache one (``txl.py:429-434``).
+whole-cache one (``txl.py:429-434``).  While a profiler records, each
+layer's cache work in a decode step (the k and v row writes and the
+relative-position attention, whichever form runs) is the span
+``emodis.txl.attn`` (``utils.profiling``), so the device time it launches
+can be read whatever implements it.
 
 Tensor parallelism (``parallel.sharding_rules``).  After ``shard_params``
 each rank holds n_head / tp heads: ``qkv_net`` (block by block) and
@@ -63,6 +67,7 @@ from ..ops.attention import (
     full_decode_attention_pe, layout_equations, write_row, write_row_pe)
 from ..parallel.sharding_rules import parallel_linear, tp_heads
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .embeddings import (
     LayerNorm, TokenEmbedding, head_f32, txl_positional_embedding)
 
@@ -148,25 +153,27 @@ class TXLSelfAttention(nn.Module):
         0..t.  The chunked attention (``full_attention=False``) reads
         'khd' only."""
         q, k, v = self._qkv_step(x)
-        write_row(k_layer, k, t, layout)
-        write_row(v_layer, v, t, layout)
-        args = (q + r_w_bias.to(q.dtype), k_layer, v_layer, t)
-        kw = dict(scale=1.0 / self.d_head ** 0.5,
-                  rel=(q + r_r_bias.to(q.dtype), r_heads))
-        attn = (full_decode_attention(*args, layout=layout, **kw)
-                if full_attention else flash_decode_attention(*args, **kw))
+        with span('emodis.txl.attn'):
+            write_row(k_layer, k, t, layout)
+            write_row(v_layer, v, t, layout)
+            args = (q + r_w_bias.to(q.dtype), k_layer, v_layer, t)
+            kw = dict(scale=1.0 / self.d_head ** 0.5,
+                      rel=(q + r_r_bias.to(q.dtype), r_heads))
+            attn = (full_decode_attention(*args, layout=layout, **kw)
+                    if full_attention else flash_decode_attention(*args, **kw))
         return self._out_step(x, attn)
 
     def decode_step_pe(self, x, t: torch.Tensor, k_layer, v_layer, r_heads,
                        r_w_bias, r_r_bias, layout: str = 'khd'):
         """:meth:`decode_step` with a per-element clock ``t`` [B]."""
         q, k, v = self._qkv_step(x)
-        write_row_pe(k_layer, k, t, layout)
-        write_row_pe(v_layer, v, t, layout)
-        attn = full_decode_attention_pe(
-            q + r_w_bias.to(q.dtype), k_layer, v_layer, t,
-            scale=1.0 / self.d_head ** 0.5,
-            rel=(q + r_r_bias.to(q.dtype), r_heads), layout=layout)
+        with span('emodis.txl.attn'):
+            write_row_pe(k_layer, k, t, layout)
+            write_row_pe(v_layer, v, t, layout)
+            attn = full_decode_attention_pe(
+                q + r_w_bias.to(q.dtype), k_layer, v_layer, t,
+                scale=1.0 / self.d_head ** 0.5,
+                rel=(q + r_r_bias.to(q.dtype), r_heads), layout=layout)
         return self._out_step(x, attn)
 
     def rel_heads(self, max_klen: int, dtype: torch.dtype) -> torch.Tensor:
