@@ -48,7 +48,9 @@ fused ``favor_causal_attention``.
 Two run the stage-1 Transformer-XL of ``configs/stage1/emopia_finetune.yaml``
 (12 layers, 8 heads, d_model 512, d_ff 2048) over a synthetic functional
 lead-sheet vocabulary.  No TPU kernel lies on them: their attention is
-einsums in the JAX package too, and so in the port.
+einsums in the JAX package.  The port's decode with a clock per slot
+(``serve``, and the per-element-clock decode below) runs its own kernel,
+``txl_decode_attn`` (``csrc/txl_decode_attn.cu``); the rest is einsums.
 
 * stage1_serving: the f32 forward at B=4, L=512, the f32 decode of the same
   tokens through the chunked and the whole-cache attention against it, the
@@ -80,7 +82,7 @@ the ``emopia_finetune.yaml`` values.  The eleventh, remi_generation, runs
 the REMI representation over those vocabularies: ``infer-stage1 -r remi -m
 lead_sheet``, the Performer's stage 2 over the ``.txt`` lead sheets (the
 decode-layer kernel) and the one-stage ``full_song`` baseline; every file
-is checked, and stage 1 launches no kernel.
+is checked, and stage 1 launches ``txl_decode_attn`` alone.
 
 The twelfth, multi_device, runs the port's mesh (``parallel/``) with two
 ranks that share the one card over gloo: two bf16 Performer train steps at
@@ -2054,6 +2056,73 @@ def phase_kernel_flash(dev, rec, smi):
                'scaled_dot_product_attention')
 
 
+# the txl.serve cell's decode attention: 256 slots, the 1536-row 'khd'
+# cache, 8 heads of 64; a slot's clock falls anywhere in a song of 195-501
+# steps (33-84 bars of six events after a two-event primer)
+TXL_B, TXL_K = 256, 1536
+TXL_SONG_STEPS = (195, 501)
+
+
+def phase_kernel_txl(dev, rec, smi):
+    """Stage 1's decode attention: ``txl_decode_attn`` at the txl.serve
+    cell's shape in bf16, against the plain composition (``write_row_pe``
+    on k and v, then ``full_decode_attention_pe``) in float32 on the same
+    bf16 values, its new k rows where ``write_row_pe`` puts them; then
+    its time (CUDA events), its bound (the live k and v rows read and the
+    new rows written, at the memory's peak) and the plain composition's
+    time in bf16, the path it replaced."""
+    from emo_disentanger_tpu_torch.ops import attention as attn
+    gen = torch.Generator().manual_seed(25)
+    B, K, H, Dh = TXL_B, TXL_K, N_HEAD, D_HEAD
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, bf)  # noqa: E731
+    lo, hi = TXL_SONG_STEPS
+    steps = torch.randint(lo, hi + 1, (B,), generator=gen)
+    t = (torch.rand(B, generator=gen) * steps).long().to(dev)
+    q, k_new, v_new = (x.reshape(B, H, Dh) for x in rnd(B, 3 * D_MODEL).chunk(3, -1))
+    kc, vc, r = rnd(B, K, H, Dh), rnd(B, K, H, Dh), rnd(K, H, Dh)
+    r_w, r_r = 0.1 * rnd(H, Dh), 0.1 * rnd(H, Dh)
+    scale = 1.0 / Dh ** 0.5
+    kw, vw = kc.clone(), vc.clone()
+    attn.write_row_pe(kw, k_new, t)
+    attn.write_row_pe(vw, v_new, t)
+    f = lambda x: x.float()  # noqa: E731
+    ref = attn.full_decode_attention_pe(f(q) + f(r_w), f(kw), f(vw), t, scale=scale,
+                                        rel=(f(q) + f(r_r), f(r)))
+    del kw, vw
+
+    def kernel():
+        return attn._txl_decode_attention_cuda(q, k_new, v_new, kc, vc, t, r, r_w,
+                                               r_r, scale=scale, layout='khd')
+
+    def plain():
+        attn.write_row_pe(kc, k_new, t)
+        attn.write_row_pe(vc, v_new, t)
+        return attn.full_decode_attention_pe(q + r_w, kc, vc, t, scale=scale,
+                                             rel=(q + r_r, r))
+
+    got = kernel()
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    written = bool(torch.equal(kc[torch.arange(B, device=dev), t.clamp(max=K - 1)],
+                               k_new))
+    expect(got.dtype == bf and got.shape == q.shape and written,
+           'txl_decode_attn output dtype/shape, the new rows written')
+    expect(err <= TOL_BF16, 'txl_decode_attn against the float32 composition')
+    rec['txl_decode_attn']['max_abs_err'] = max_abs(got, ref)
+    del ref
+    rows = int((t.clamp(max=K - 1) + 1).sum())
+    b_k, by_k = bound(2 * (rows + B) * H * Dh * 2, 0.0)
+    t_k = time_ms(kernel, iters=50)
+    t_p = time_ms(plain, iters=10)
+    t_k2 = time_ms(kernel, iters=50)
+    print(f'phase 2t txl_decode_attn bf16 B={B} K={K} H={H} Dh={Dh}, clocks '
+          f'{rows / B - 1:.1f} on average [{smi}]: rel err {err:.2e} (tol '
+          f'{TOL_BF16}); {t_k:.4f} / {t_k2:.4f} ms (plain {t_p:.4f}, bound '
+          f'{b_k:.4f} {by_k}: {b_k / t_k:.2f} of it)')
+    rec['txl_decode_attn'].update(ms=t_k, plain_ms=t_p, bound_ms=b_k, bound_by=by_k)
+
+
 def build_gpt2(vocab, dev, n_layer=N_LAYER):
     from emo_disentanger_tpu_torch.models import MusicGPT2
     return MusicGPT2(n_token=vocab.size, n_layer=n_layer, n_head=N_HEAD,
@@ -2850,7 +2919,8 @@ def _two_stage_run(dev, smi, paths, ck1, ck2, out, stage1, quiet):
         again = inference_stage1.main(stage1)
     expect(again['pieces'] == 0 and sorted(os.listdir(out)) == names,
            'a second infer-stage1 over the directory renders nothing')
-    expect(not launches1, 'stage 1 launched no kernel')
+    expect(set(launches1) == {'txl_decode_attn'},
+           'stage 1 (--serve) launched txl_decode_attn alone')
     expect(launches2.get('performer_decode_layer', 0) > 0,
            'performer_decode_layer launched in stage 2')
     full = [n for n in want if n.endswith('_full.mid')]
@@ -3290,8 +3360,9 @@ def phase_remi(dev, smi, root, quiet):
            and summaries['stage 2']['pieces'] == 2 * len(leads)
            and summaries['stage 1 full_song']['pieces'] == len(fulls),
            'every REMI job rendered')
-    expect(not launches['stage 1 lead_sheet'] and not launches['stage 1 full_song'],
-           'REMI stage 1 launched no kernel')
+    expect(set(launches['stage 1 lead_sheet']) == {'txl_decode_attn'}
+           and set(launches['stage 1 full_song']) == {'txl_decode_attn'},
+           'REMI stage 1 (served) launched txl_decode_attn alone')
     expect(launches['stage 2'].get('performer_decode_layer', 0) > 0,
            'performer_decode_layer launched in REMI stage 2')
     events = {}
@@ -4412,6 +4483,9 @@ def main():
                           replaces='emo_disentanger_tpu/ops/linear_attention.py:245'),
         'cla_bwd_b': dict(route='cuda', source=src + 'linear_attn.cu',
                           replaces='emo_disentanger_tpu/ops/linear_attention.py:295'),
+        # no TPU kernel: JAX's full_decode_attention_pe is jnp
+        'txl_decode_attn': dict(route='cuda', source=src + 'txl_decode_attn.cu',
+                                replaces=None),
     }
     # each kernel's launches are read on the path it was ported for
     paths = {'serving': ('favor_kmax', 'favor_fwd', 'performer_decode_layer'),
@@ -4420,26 +4494,28 @@ def main():
              'gpt2_serving': ('flash_attention_fwd',),
              'gpt2_training': ('flash_attention_fwd',),
              'composed_attention': COMPOSED,
-             # stage 1 runs none of the kernels: its attention is einsums
-             'stage1_serving': (),
+             # stage 1's clock-per-slot decode runs txl_decode_attn; its
+             # shared-clock decode and its training are einsums
+             'stage1_serving': ('txl_decode_attn',),
              'stage1_training': (),
-             # stage 1 runs no kernel; stage 2's Performer serving runs #12
-             'two_stage_generation': ('performer_decode_layer',),
+             # stage 1's serve runs txl_decode_attn, stage 2's Performer #12
+             'two_stage_generation': ('txl_decode_attn', 'performer_decode_layer'),
              # tokenizing is host work; the stage-2 train step runs #1-#4
              'tokenized_training': HEAD_MAJOR,
-             'remi_generation': ('performer_decode_layer',),
+             'remi_generation': ('txl_decode_attn', 'performer_decode_layer'),
              # the dp=2 and tp=2 train steps and the NCCL run: #1-#4; the
              # dp=2 Performer serve: #12
              'multi_device': HEAD_MAJOR + ('performer_decode_layer',),
-             # stage 1's and GPT-2's layouts run no kernel (no re-anchor
-             # there); the Performer's serve in 'md' and 'dm': #12
-             'cache_layouts': ('performer_decode_layer',),
+             # stage 1's layouts run txl_decode_attn, GPT-2's no kernel (no
+             # re-anchor there); the Performer's serve in 'md' and 'dm': #12
+             'cache_layouts': ('txl_decode_attn', 'performer_decode_layer'),
              # the 'odd' Performer's train steps in both layouts (#1-#4,
              # #8-#11), both Performers' serves (#12), GPT-2 Dh128 (#13)
              'widths': HEAD_MAJOR + HEADS_LAST + ('performer_decode_layer',
                                                   'flash_attention_fwd')}
     owner = {'favor_bwd_a': 'training', 'favor_bwd_b': 'training',
              'flash_attention_fwd': 'gpt2_serving',
+             'txl_decode_attn': 'stage1_serving',
              **{name: 'heads_last_training' for name in HEADS_LAST},
              **{name: 'composed_attention' for name in COMPOSED}}
     t_start = time.time()
@@ -4451,6 +4527,7 @@ def main():
     phase_kernel_b(dev, rec)
     phase_kernel_b_batched(dev, rec)
     phase_kernel_flash(dev, rec, smi)
+    phase_kernel_txl(dev, rec, smi)
 
     vocab = synthetic_vocab()
     launches = {}
@@ -4516,10 +4593,14 @@ def main():
     torch.cuda.synchronize()
     launches['stage1_training'] = dict(_build.LAUNCHES)
     print(f'stage-1 paths took {time.time() - t_s1:.0f} s')
-    expect(not launches['stage1_serving'] and not launches['stage1_training'],
-           'the stage-1 paths launched no kernel')
+    expect(set(launches['stage1_serving']) == {'txl_decode_attn'}
+           and not launches['stage1_training'],
+           'the stage-1 serving path launched txl_decode_attn alone, the '
+           'training path no kernel')
     t_two = time.time()
-    _, launches['two_stage_generation'] = phase_two_stage(dev, smi)
+    launches['two_stage_generation'] = dict(sum(
+        (collections.Counter(n) for n in phase_two_stage(dev, smi)),
+        collections.Counter()))
     print(f'two-stage path took {time.time() - t_two:.0f} s')
     t_tok = time.time()
     tok_root = tempfile.mkdtemp(prefix='tokenized_')

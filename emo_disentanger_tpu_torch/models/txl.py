@@ -27,7 +27,10 @@ are fixed at inference, so caching k/v after the fused projection gives the
 reference's recompute-from-mems attention.  In 'khd', ``decode_step`` takes
 the chunked live-prefix attention below B=32 and the whole-cache one from
 there, as JAX does (``txl.py:437``); the head-major layouts always take the
-whole-cache one (``txl.py:429-434``).  While a profiler records, each
+whole-cache one (``txl.py:429-434``).  ``decode_step_pe``'s row writes and
+attention are one ``ops.attention.txl_decode_attention_pe``: on CUDA one
+launch of ``csrc/txl_decode_attn.cu`` a layer, which reads each element's
+live prefix in any layout.  While a profiler records, each
 layer's cache work in a decode step (the k and v row writes and the
 relative-position attention, whichever form runs) is the span
 ``emodis.txl.attn`` (``utils.profiling``), so the device time it launches
@@ -63,8 +66,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import (
-    NEG_INF, flash_decode_attention, full_decode_attention,
-    full_decode_attention_pe, layout_equations, write_row, write_row_pe)
+    NEG_INF, flash_decode_attention, full_decode_attention, layout_equations,
+    txl_decode_attention_pe, write_row)
 from ..parallel.sharding_rules import parallel_linear, tp_heads
 from ..utils.device import resolve_device
 from ..utils.profiling import span
@@ -165,15 +168,14 @@ class TXLSelfAttention(nn.Module):
 
     def decode_step_pe(self, x, t: torch.Tensor, k_layer, v_layer, r_heads,
                        r_w_bias, r_r_bias, layout: str = 'khd'):
-        """:meth:`decode_step` with a per-element clock ``t`` [B]."""
+        """:meth:`decode_step` with a per-element clock ``t`` [B]: the row
+        writes and the attention are one ``txl_decode_attention_pe`` (on
+        CUDA one kernel launch over each element's live prefix)."""
         q, k, v = self._qkv_step(x)
         with span('emodis.txl.attn'):
-            write_row_pe(k_layer, k, t, layout)
-            write_row_pe(v_layer, v, t, layout)
-            attn = full_decode_attention_pe(
-                q + r_w_bias.to(q.dtype), k_layer, v_layer, t,
-                scale=1.0 / self.d_head ** 0.5,
-                rel=(q + r_r_bias.to(q.dtype), r_heads), layout=layout)
+            attn = txl_decode_attention_pe(
+                q, k, v, k_layer, v_layer, t, r_heads, r_w_bias, r_r_bias,
+                scale=1.0 / self.d_head ** 0.5, layout=layout)
         return self._out_step(x, attn)
 
     def rel_heads(self, max_klen: int, dtype: torch.dtype) -> torch.Tensor:

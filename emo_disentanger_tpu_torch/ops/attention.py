@@ -13,6 +13,16 @@ Transformer-XL, each with the relative-position score term
 * ``full_decode_attention_pe``: the same with a per-element clock ``t`` [B]
   (continuous batching).
 
+``txl_decode_attention_pe`` is the stage-1 model's whole per-element-clock
+cache work: the k and v row writes (``write_row_pe``) and
+``full_decode_attention_pe`` with the r_w / r_r biases added to q.  On CPU
+tensors it runs exactly that composition; on CUDA tensors it launches the
+hand-written kernel of ``csrc/txl_decode_attn.cu``, which writes the rows
+and reads each slot's live prefix [0, min(t, K - 1)] where it lies, in any
+of the three layouts, and never the rows past the clock.  JAX has no
+kernel here (its ``full_decode_attention_pe`` is jnp); the einsums over a
+'khd' cache copied the whole cache every layer.
+
 Cache layouts (a layer's cache; the model's caches add a leading n_layer):
 
 * ``'khd'`` [B, K, H, Dh], the position heads r_heads [K, H, Dh];
@@ -25,21 +35,25 @@ the cache where it lies, also through a leading view along K (the cache
 ladder's tiers); a 'khd' cache must first be copied into that form.  All
 three give the same function up to the order of the sums.
 
-Scores and the value product run as einsums in the cache's dtype; the
-softmax (and the flash recurrence) runs in float32, and the probabilities
-round to the cache's dtype before the value product, as in JAX.  None of
-these is a Pallas kernel in the JAX package, so the port keeps them as
-PyTorch operations.  JAX's ``EMODIS_PE_WRITE_IMPL`` and
-``EMODIS_PE_REL_IMPL`` pick lowerings of the same write and relative term
-(tested identical there); the port has one of each: an in-place indexed
-store, and the 'slice' form.
+Scores and the value product of the plain versions run as einsums in the
+cache's dtype; the softmax (and the flash recurrence) runs in float32, and
+the probabilities round to the cache's dtype before the value product, as
+in JAX.  The kernel keeps the scores, the softmax and the value sum in
+float32 and does not round the probabilities.  JAX's
+``EMODIS_PE_WRITE_IMPL`` and ``EMODIS_PE_REL_IMPL`` pick lowerings of the
+same write and relative term (tested identical there); the port has one of
+each: an in-place indexed store, and the 'slice' form.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+from . import _build
 
 NEG_INF = -1e30
 
@@ -242,3 +256,189 @@ def full_decode_attention_pe(
     s = torch.where(masked[:, None, :], NEG_INF, s)
     p = torch.softmax(s, dim=-1)
     return torch.einsum(eq_v, p.to(v_cache.dtype), v_cache).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# the stage-1 decode step's cache work with a clock per slot
+
+# the widths the kernel takes: Dh <= TXL_MAX_DH, and H times a head's
+# threads (ceil(Dh / 8) rounded up to a power of two) at most 256
+TXL_MAX_DH = 256
+_TXL_GROUP_THREADS = 256
+# a slot's live rows are split over about this many blocks per SM in all
+# (at least 32 rows a block): 256 slots on 132 SMs take 5 blocks a slot,
+# the fastest of 2 to 64 a SM at the txl.serve cell's clocks on the H100
+TXL_BLOCKS_PER_SM = 8
+TXL_MIN_ROWS = 32
+
+
+def _head_threads(Dh: int) -> int:
+    n = 1
+    while n * 8 < Dh:
+        n *= 2
+    return n
+
+
+def _check_txl_inputs(q, k_new, v_new, k_cache, v_cache, t, r_heads,
+                      r_w_bias, r_r_bias, layout):
+    """Raise unless the inputs are what ``txl_decode_attn`` takes: q, k_new,
+    v_new [B, H, Dh] with (H, Dh) contiguous; k and v caches of one shape
+    and strides in ``layout``; r_heads [R, H, Dh] ('khd') or [H, Dh, R]
+    with R >= K; the biases [H, Dh]; all of one dtype, float32 or bfloat16
+    (the biases, contiguous, cast to it); t [B] int64 contiguous; all on
+    q's device; 1 <= Dh <= 256 and H times a head's threads at most 256.
+    Returns (B, K, R, H, Dh)."""
+    layout_equations(layout)                       # an unknown layout raises
+    if q.dim() != 3:
+        raise ValueError(f'q must be [B, H, Dh] (got {tuple(q.shape)})')
+    B, H, Dh = q.shape
+    dt, dev = q.dtype, q.device
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'q must be float32 or bfloat16 (got {dt})')
+    if not 1 <= Dh <= TXL_MAX_DH or H * _head_threads(Dh) > _TXL_GROUP_THREADS:
+        raise ValueError(f'unsupported H={H}, Dh={Dh} (1 <= Dh <= '
+                         f'{TXL_MAX_DH}, H * threads a head <= '
+                         f'{_TXL_GROUP_THREADS})')
+    K = cache_positions(k_cache, layout)
+    want = {'khd': (B, K, H, Dh), 'hkd': (B, H, K, Dh),
+            'dk': (B, H, Dh, K)}[layout]
+    R = r_heads.shape[0] if layout == 'khd' else r_heads.shape[-1]
+    r_want = (R, H, Dh) if layout == 'khd' else (H, Dh, R)
+    checks = [('k_new', k_new, (B, H, Dh)), ('v_new', v_new, (B, H, Dh)),
+              ('k_cache', k_cache, want), ('v_cache', v_cache, want),
+              ('r_heads', r_heads, r_want)]
+    for name, x, shape in checks:
+        if x.dtype != dt or x.device != dev or tuple(x.shape) != shape:
+            raise ValueError(f'{name}: {x.dtype} {tuple(x.shape)} on '
+                             f'{x.device}; expected {dt} {shape} on {dev}')
+    for name, x in (('q', q), ('k_new', k_new), ('v_new', v_new)):
+        if x.stride(2) != 1 or (H > 1 and x.stride(1) != Dh):
+            raise ValueError(f'{name} must hold each row [H, Dh] contiguous '
+                             f'(strides {x.stride()})')
+    if v_cache.stride() != k_cache.stride():
+        raise ValueError(f'k_cache and v_cache strides differ '
+                         f'({k_cache.stride()}, {v_cache.stride()})')
+    if R < K:
+        raise ValueError(f'the relative heads need at least Kmax={K} '
+                         f'distance rows (got {R})')
+    for name, x in (('r_w_bias', r_w_bias), ('r_r_bias', r_r_bias)):
+        if (tuple(x.shape) != (H, Dh) or x.device != dev
+                or not x.is_contiguous()):
+            raise ValueError(f'{name}: {tuple(x.shape)} on {x.device}; '
+                             f'expected contiguous {(H, Dh)} on {dev}')
+    if (t.dtype != torch.int64 or tuple(t.shape) != (B,) or t.device != dev
+            or not t.is_contiguous()):
+        raise ValueError(f't: {t.dtype} {tuple(t.shape)} on {t.device}; '
+                         f'expected contiguous int64 {(B,)} on {dev}')
+    return B, K, R, H, Dh
+
+
+_TXL_SIGNATURES = {
+    # (pointers: q k_new v_new r_w r_r k v r t out part cnt; int64 dims and
+    #  strides; bf16; scale; stream)
+    'txl_decode_attn': [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_float, ctypes.c_void_p],
+}
+# Host work a call repeats is done once per (stream, layout, and the
+# shape, strides, dtype and device of every input): the checks, the
+# launch's dims and strides, and the scratch.  A bounded cache.
+_CACHE_LIMIT = 256
+_txl_plans: Dict[tuple, tuple] = {}
+
+
+def _txl_plan(args, layout, stream):
+    """(dims and strides as the C entry point takes them, the scratch and
+    its zeroed counters, B, H, Dh) of checked inputs ``args`` (q, k_new,
+    v_new, k_cache, v_cache, t, r_heads, r_w_bias, r_r_bias) in ``layout``,
+    launched on ``stream``.  A slot's rows are split over S blocks: about
+    TXL_BLOCKS_PER_SM blocks per SM over the batch, at least TXL_MIN_ROWS
+    cache rows a block."""
+    key = (stream, layout) + tuple((x.shape, x.stride(), x.dtype, x.device)
+                                   for x in args)
+    plan = _txl_plans.get(key)
+    if plan is None:
+        q, k_new, v_new, k_cache, _, _, r_heads = args[:7]
+        B, K, R, H, Dh = _check_txl_inputs(*args, layout)
+        dev = q.device
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        S = max(1, min(-(-TXL_BLOCKS_PER_SM * sms // B), -(-K // TXL_MIN_ROWS)))
+        ks, rs = k_cache.stride(), r_heads.stride()
+        kv = {'khd': (ks[0], ks[1], ks[2], ks[3]),        # b, k, h, d
+              'hkd': (ks[0], ks[2], ks[1], ks[3]),
+              'dk': (ks[0], ks[3], ks[1], ks[2])}[layout]
+        rr = rs if layout == 'khd' else (rs[2], rs[0], rs[1])   # dist, h, d
+        dims = (ctypes.c_longlong * 16)(B, K, R, H, Dh, S, q.stride(0),
+                                        k_new.stride(0), v_new.stride(0),
+                                        *kv, *rr)
+        part = torch.empty(B * S * H * (Dh + 2), dtype=torch.float32,
+                           device=dev)
+        cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+        if len(_txl_plans) >= _CACHE_LIMIT:
+            _txl_plans.clear()
+        plan = _txl_plans[key] = (dims, part, cnt, B, H, Dh)
+    return plan
+
+
+def _txl_decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t, r_heads,
+                               r_w_bias, r_r_bias, *, scale, layout):
+    """Launch ``txl_decode_attn`` (checks, scratch, launch)."""
+    if q.device.type != 'cuda':
+        raise ValueError(f'the CUDA kernel takes CUDA tensors (got {q.device})')
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dims, part, cnt, B, H, Dh = _txl_plan(
+        (q, k_new, v_new, k_cache, v_cache, t, r_heads, r_w_bias, r_r_bias),
+        layout, stream)
+    r_w = r_w_bias if r_w_bias.dtype == q.dtype else r_w_bias.to(q.dtype)
+    r_r = r_r_bias if r_r_bias.dtype == q.dtype else r_r_bias.to(q.dtype)
+    out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
+    ptrs = (ctypes.c_void_p * 12)(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), r_w.data_ptr(),
+        r_r.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        r_heads.data_ptr(), t.data_ptr(), out.data_ptr(), part.data_ptr(),
+        cnt.data_ptr())
+    lib = _build.library('txl_decode_attn', _TXL_SIGNATURES)
+    # The profiler links a kernel to the innermost operator-scope range open
+    # at its launch; a span (``utils.profiling``) is a user-scope range,
+    # which it does not link.  This range (free without a profiler) gives
+    # the launch one, so its device time counts inside the span around the
+    # call, as a PyTorch operator's does.
+    with _RecordFunctionFast('txl_decode_attn'):
+        err = lib.txl_decode_attn(ptrs, dims, int(q.dtype == torch.bfloat16),
+                                  scale, stream)
+    _build.check(lib, err, 'txl_decode_attn')
+    _build.LAUNCHES['txl_decode_attn'] += 1
+    return out
+
+
+def txl_decode_attention_pe(
+    q: torch.Tensor,              # [B, H, Dh]
+    k_new: torch.Tensor,          # [B, H, Dh]
+    v_new: torch.Tensor,          # [B, H, Dh]
+    k_cache: torch.Tensor,        # a layer's cache in ``layout``
+    v_cache: torch.Tensor,        # like k_cache
+    t: torch.Tensor,              # [B] per-element positions, >= 0
+    r_heads: torch.Tensor,        # [R, H, Dh] ('khd') or [H, Dh, R]
+    r_w_bias: torch.Tensor,       # [H, Dh]
+    r_r_bias: torch.Tensor,       # [H, Dh]
+    *,
+    scale: float,
+    layout: str = 'khd',
+) -> torch.Tensor:
+    """One Transformer-XL layer's cache work in a decode step with a clock
+    per element: ``k_new`` / ``v_new`` land at each element's row
+    ``clamp(t, 0, K - 1)`` of the caches, **in place**, and the result is
+    ``full_decode_attention_pe(q + r_w_bias, ..., rel=(q + r_r_bias,
+    r_heads))`` over the written caches, [B, H, Dh] in q's dtype.
+
+    CPU tensors run that plain composition; CUDA tensors launch
+    ``txl_decode_attn`` (module docstring) or raise (``_check_txl_inputs``),
+    one launch counted in ``_build.LAUNCHES['txl_decode_attn']``."""
+    if q.device.type == 'cpu':
+        write_row_pe(k_cache, k_new, t, layout)
+        write_row_pe(v_cache, v_new, t, layout)
+        return full_decode_attention_pe(
+            q + r_w_bias.to(q.dtype), k_cache, v_cache, t, scale=scale,
+            rel=(q + r_r_bias.to(q.dtype), r_heads), layout=layout)
+    return _txl_decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, t,
+                                      r_heads, r_w_bias, r_r_bias,
+                                      scale=scale, layout=layout)
