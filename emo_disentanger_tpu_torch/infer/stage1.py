@@ -22,18 +22,13 @@ rules, as ``_make_song_loop`` (``stage1.py:42-152``) applies them:
 
 The loop is Python over device tensors: every rule is a table lookup on
 the sampled ids, and a song that is not running is frozen by the status
-masks, so the host reads whether any song runs only every
-``HOST_CHECK_STEPS`` steps (the extra steps change nothing).  The write
-position is a host integer here, so the chunked attention's chunk count
-needs no device read.
-
-Tracing (``utils.profiling``), as ``stage2_batch`` traces its loop: while a
-profiler records, each step is the span ``emodis.serve.step`` and its
-sampler ``emodis.serve.sample``, and the step adds its running songs and
-their clocks to a device accumulator that the next status read (``_poll``)
-moves to ``COUNTS['serve.steps']``, ``['serve.slot_steps']`` and
-``['serve.live_rows']``; the model's layers mark their cache work
-``emodis.txl.attn``.  Without a profiler none of these is made.
+masks.  The slots, the step's span, the status poll and the serve queue are
+``slots.SlotLoop``'s; this module adds the step body, whose sampler is the
+span ``emodis.serve.sample`` and whose counts are the running songs and
+their clocks (``serve.slot_steps``, ``serve.live_rows``), while the model's
+layers mark their cache work ``emodis.txl.attn``.  In the shared-clock loop
+the write position is a host integer, so the chunked attention's chunk
+count needs no device read.
 
 The decode cache is in ``cache_layout`` ('khd', 'hkd' or 'dk';
 ``EMODIS_S1_CACHE_LAYOUT`` when None, else 'khd'; ``ops.attention``), as
@@ -44,7 +39,7 @@ the whole-cache attention, as JAX does (``stage1.py:46-49``).
 Over a mesh (``Stage1BatchGenerator``'s ``mesh``), a rank runs its rows of
 the B songs: every step draws ``torch.rand(B)`` uniforms on every rank and
 each keeps its rows, and the host reads are reduced over the data axes, so
-every rank steps as often as one device would (``stage2_batch``).
+every rank steps as often as one device would (``slots``).
 """
 
 from __future__ import annotations
@@ -60,10 +55,9 @@ from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
 from ..ops.attention import VALID_LAYOUTS
 from ..ops.sampling import nucleus_sample
-from ..parallel.mesh import batch_rows, reduce_flags
-from ..utils.device import resolve_device
-from ..utils.profiling import accumulate, flush, recording, span
+from ..utils.profiling import accumulate, span
 from .rules import build_rule_tables, emotion_wants_major
+from .slots import HOST_CHECK_STEPS, SlotLoop
 
 STATUS_RUNNING = 0
 STATUS_DONE = 1
@@ -73,11 +67,9 @@ STATUS_IDLE = 4          # serve(): slot has no job (queue exhausted)
 
 # the key step's sampling settings (``inference_utils.py:90-94``)
 KEY_TEMP, KEY_TOP_P = 1.1, 0.97
-# steps between host reads of the status
-HOST_CHECK_STEPS = 16
 
 
-class SongLoop:
+class SongLoop(SlotLoop):
     """The per-step body of stage-1 generation for B songs on one device,
     or this rank's rows of them over a ``mesh``'s data axes.
     ``Stage1Generator`` (B=1) and ``Stage1BatchGenerator`` build on it."""
@@ -86,22 +78,16 @@ class SongLoop:
                  temp: float, top_p: float, max_events: int, max_bars: int,
                  device: Union[str, torch.device], functional: bool = True,
                  mesh=None, cache_layout: Optional[str] = None):
-        self.device = resolve_device(device)
         self.cache_layout = (cache_layout if cache_layout is not None else
                              os.environ.get('EMODIS_S1_CACHE_LAYOUT', 'khd'))
         if self.cache_layout not in VALID_LAYOUTS:
             raise ValueError(f'cache_layout must be one of {VALID_LAYOUTS} '
                              f'(got {self.cache_layout!r})')
-        self.mesh, self.rows = batch_rows(mesh, batch)
-        self.nb = self.rows.stop - self.rows.start      # this rank's songs
         if not isinstance(model, PlainTransformer):
             raise TypeError(f'expected PlainTransformer, got '
                             f'{type(model).__name__}')
-        if model.device != self.device:
-            raise ValueError(f'model on {model.device}; expected {self.device}')
-        self.model = model
+        super().__init__(model, batch=batch, mesh=mesh, device=device)
         self.vocab = vocab
-        self.batch = batch
         self.temp = temp
         self.top_p = top_p
         self.max_events = max_events
@@ -163,12 +149,10 @@ class SongLoop:
         return {'primer': prim, 'primer_len': plen, 'prompt_bars': pb,
                 'target_bars': tb, 'want_major': want}
 
-    def _fresh(self, jobs: Dict[str, np.ndarray], rows) -> Dict[str, torch.Tensor]:
-        """Per-slot state of the jobs ``rows`` (one a slot of this rank),
-        before any step: the primer's first token is next, and the output
-        holds the primer."""
-        r = np.asarray(rows)
-        f = {k: torch.from_numpy(v[r]).to(self.device) for k, v in jobs.items()}
+    def _fresh(self, f: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-slot state of the jobs whose fields are ``f`` (``_job_rows``,
+        one a slot of this rank), before any step: the primer's first token
+        is next, and the output holds the primer."""
         E = self.max_events + 8
         out = torch.zeros(self.nb, E, dtype=torch.long, device=self.device)
         out[:, :f['primer'].shape[1]] = f['primer']
@@ -186,22 +170,14 @@ class SongLoop:
     def _running(self, s: Dict) -> torch.Tensor:
         return (s['status'] == STATUS_RUNNING) & (s['bars'] < s['target_bars'])
 
-    def _step(self, s: Dict, gen: torch.Generator, *, max_klen: int,
-              full_attention: Optional[bool] = None) -> None:
-        """One decode step and rule update for every song, in place.  With
-        a host-integer ``s['t']`` all songs share the write position (the
-        chunked attention, or the whole cache with ``full_attention``); with
-        a tensor [B] each has its own (``decode_step_pe``), and a song
-        that runs ``max_iters`` steps is marked STUCK.  While a profiler
-        records, the step is the span ``emodis.serve.step`` and is counted
-        (``_count_step``)."""
-        counting = recording()
-        with span('emodis.serve.step'):
-            self._advance(s, gen, counting, max_klen=max_klen,
-                          full_attention=full_attention)
-
     def _advance(self, s: Dict, gen: torch.Generator, counting: bool, *,
-                 max_klen: int, full_attention: Optional[bool]) -> None:
+                 max_klen: int, full_attention: Optional[bool] = None) -> None:
+        """The decode step and rule update of ``_step``, for every song.
+        With a host-integer ``s['t']`` all songs share the write position
+        (the chunked attention, or the whole cache with
+        ``full_attention``); with a tensor [B] each has its own
+        (``decode_step_pe``), and a song that runs ``max_iters`` steps is
+        marked STUCK."""
         act = self._running(s)
         if counting:
             self._count_step(s, act)
@@ -266,18 +242,6 @@ class SongLoop:
         songs."""
         accumulate(s, torch.stack([act.sum(), (s['t'] * act).sum()]))
 
-    def _poll(self, s: Dict, entry: Optional[torch.Tensor] = None
-              ) -> Tuple[bool, bool]:
-        """One host read: (whether any song is running, whether the
-        running set differs from ``entry``), over every rank's rows.  It
-        also moves the steps counted since the last read into ``COUNTS``
-        (this rank's)."""
-        run = self._running(s)
-        changed = (run != entry).any() if entry is not None else run.any()
-        flags = flush(s, torch.stack([run.any().long(), changed.long()]))
-        any_run, changed = reduce_flags(self.mesh, flags)
-        return bool(any_run), bool(changed)
-
     def _lockstep(self, s: Dict, gen: torch.Generator, iters: int, *,
                   max_klen: int, full_attention: Optional[bool]) -> int:
         """Step the shared-clock songs until none runs, the loop has run
@@ -294,9 +258,6 @@ class SongLoop:
         if 'counted' in s:        # steps since the last read
             self._poll(s)
         return iters
-
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
 
     def _song(self, out_row: np.ndarray, n: int, status: int
               ) -> Optional[List[str]]:
@@ -340,7 +301,7 @@ class Stage1Generator(SongLoop):
                           None if prompt_bars is None else [prompt_bars],
                           target_bars)
         t0 = time.time()
-        s = self._fresh(jobs, [0])
+        s = self._fresh(self._job_rows(jobs, [0]))
         plen = int(jobs['primer_len'][0])
         s['cache'] = self.model.init_decode_cache(1, self.max_klen,
                                                   self.cache_layout)

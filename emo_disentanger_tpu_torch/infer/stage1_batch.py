@@ -21,22 +21,18 @@ full size (K is the third axis of a layer's cache in 'khd', the fourth in
 layouts such a view is still one batched matrix a (b, h) at one stride, so
 the attention reads it in place.
 
-``serve`` streams N jobs through the B slots with a clock per slot
-(``decode_step_pe``) at the full Kmax with no ladder (an OVERFLOW is
-final there).  The host reads the status every ``HOST_CHECK_STEPS`` steps;
-after a slot finishes and at least ``chunk_steps`` steps have passed, one
-masked update re-arms every finished slot with the next queued job.  A
-refilled slot needs no cache clear: it writes from position 0 and attends
-only to positions <= its clock.  Slots that are not running keep stepping
-and their clocks keep counting; a clock past the cache writes its last row
-(clamped) and is a dead slot until a refill.
+``serve`` streams N jobs through the B slots in ``slots.SlotLoop``'s
+queue loop, with a clock per slot (``decode_step_pe``) at the full Kmax and
+no ladder (an OVERFLOW is final there).  A re-armed slot needs no cache
+clear: it writes from position 0 and attends only to positions <= its
+clock.  Slots that are not running keep stepping and their clocks keep
+counting; a clock past the cache writes its last row (clamped) and is a
+dead slot until a refill.
 
 Over a ``mesh`` whose data axes (dp * dcn) exceed one, each rank runs its
 B / (dp * dcn) rows (``SongLoop``).  The ladder's tier moves are decided on
-the global status, so every rank moves at the same step; ``serve`` gathers
-the slot statuses at every chunk and every rank makes the same refill
-decision over all B slots.  Both return the global songs and stats on
-every rank.
+the global status, so every rank moves at the same step.  Both
+``generate`` and ``serve`` return the global songs and stats on every rank.
 """
 
 from __future__ import annotations
@@ -51,10 +47,11 @@ from ..core.vocab import Vocab
 from ..models.txl import PlainTransformer
 from ..ops.attention import K_AXIS
 from ..parallel.mesh import gather_rows, reduce_flags
-from ..utils.profiling import span
-from .stage1 import (
-    HOST_CHECK_STEPS, STATUS_IDLE, STATUS_OVERFLOW, STATUS_RUNNING,
-    SongLoop)
+from .stage1 import STATUS_IDLE, STATUS_OVERFLOW, STATUS_RUNNING, SongLoop
+
+# serve's per-job stats and the state entries they are read from
+SERVE_FIELDS = {'status': 'status', 'bars': 'bars', 'events': 'out_len',
+                'rejects': 'rejects'}
 
 
 class Stage1BatchGenerator(SongLoop):
@@ -106,7 +103,8 @@ class Stage1BatchGenerator(SongLoop):
         jobs = self._jobs(emotions, primers, prompt_bars, target_bars)
         t0 = time.time()
         gen = self._generator(seed)
-        s = self._fresh(jobs, list(range(self.batch))[self.rows])
+        s = self._fresh(self._job_rows(jobs,
+                                       list(range(self.batch))[self.rows]))
         full = self.model.init_decode_cache(self.nb, self.full_klen,
                                             self.cache_layout)
         k_axis = 1 + K_AXIS[self.cache_layout]      # of [n_layer, B, ...]
@@ -138,30 +136,25 @@ class Stage1BatchGenerator(SongLoop):
                  'iters': iters}
         return songs, stats
 
-    def _run_chunk(self, s: Dict, gen: torch.Generator, chunk_steps: int) -> int:
-        """Step until nothing runs, or a slot has finished and at least
-        ``chunk_steps`` steps have passed (checked every HOST_CHECK_STEPS
-        steps); returns the steps run."""
-        entry = self._running(s)
-        i = 0
-        while True:
-            any_run, changed = self._poll(s, entry)
-            if not any_run or (i >= chunk_steps and changed):
-                return i
-            for _ in range(HOST_CHECK_STEPS):
-                self._step(s, gen, max_klen=self.full_klen)
-            i += HOST_CHECK_STEPS
+    def _open(self, jobs: Dict[str, np.ndarray]) -> Dict:
+        """``serve``'s state before its first re-arm: blank slots, a clock
+        per slot and a cache of the full Kmax."""
+        s = self._fresh({k: torch.zeros((self.nb,) + v.shape[1:],
+                                        dtype=torch.from_numpy(v).dtype,
+                                        device=self.device)
+                         for k, v in jobs.items()})
+        s['cache'] = self.model.init_decode_cache(self.nb, self.full_klen,
+                                                  self.cache_layout)
+        s['t'] = torch.zeros(self.nb, dtype=torch.long, device=self.device)
+        return s
 
-    def _refill(self, s: Dict, mask: np.ndarray, idle: np.ndarray,
-                jobs: Dict[str, np.ndarray], rows) -> None:
-        """One masked update: the slots in ``mask`` take the jobs ``rows``
-        (over all B slots, unmasked entries ignored) with fresh counters and
-        clock 0; the slots in ``idle`` become IDLE.  A rank applies the
-        decision to its own rows."""
-        mask, idle, rows = mask[self.rows], idle[self.rows], rows[self.rows]
+    def _rearm(self, s: Dict, mask: np.ndarray, idle: np.ndarray,
+               rows: Dict[str, torch.Tensor]) -> None:
+        """One masked update of this rank's slots: those in ``mask`` take
+        their jobs from ``rows`` (``_job_rows``; unmasked rows ignored) with
+        fresh counters and clock 0, those in ``idle`` become IDLE."""
         m = torch.from_numpy(mask).to(self.device)
-        fresh = self._fresh(jobs, rows)
-        for k, v in fresh.items():
+        for k, v in self._fresh(rows).items():
             s[k] = torch.where(m.reshape((-1,) + (1,) * (v.dim() - 1)), v, s[k])
         s['t'] = torch.where(m, 0, s['t'])
         s['status'] = torch.where(torch.from_numpy(idle).to(self.device),
@@ -174,69 +167,15 @@ class Stage1BatchGenerator(SongLoop):
               prompt_bars: Optional[List[int]] = None,
               ) -> Tuple[List[Optional[List[str]]], dict]:
         """Continuous batching of N jobs through the B slots
-        (``stage1_batch.py:397-556``); ``primers`` / ``prompt_bars`` as in
-        :meth:`generate`.  Returns (songs,
-        stats) in submission order; ``stats`` has the per-job fields of
-        :meth:`generate`, ``chunks`` (host refill round trips) and
-        ``steps`` (loop steps).  While a profiler records, each chunk's
-        work between two chunks (the status reads, the harvest of finished
-        songs, the refill) is the span ``emodis.serve.refill``."""
-        N, B = len(emotions), self.batch
-        fields = ('status', 'bars', 'events', 'rejects')
-        if N == 0:
-            return [], {'seconds': 0.0, 'chunks': 0, 'steps': 0,
-                        'resumed': 0, **{k: [] for k in fields}}
-        jobs = self._jobs(emotions, primers, prompt_bars, target_bars)
-        t0 = time.time()
-        gen = self._generator(seed)
-        first = min(B, N)
-        slot_job: List[Optional[int]] = list(range(first)) + [None] * (B - first)
-        s = self._fresh(jobs, (list(range(first)) + [0] * (B - first))[self.rows])
-        s['cache'] = self.model.init_decode_cache(self.nb, self.full_klen,
-                                                  self.cache_layout)
-        s['t'] = torch.zeros(self.nb, dtype=torch.long, device=self.device)
-        idle = (np.arange(B) >= first)[self.rows]
-        if idle.any():
-            s['status'] = torch.where(torch.from_numpy(idle).to(self.device),
-                                      STATUS_IDLE, s['status'])
-        next_job = first
-        songs: List[Optional[List[str]]] = [None] * N
-        per_job = {k: [0] * N for k in fields}
-        chunks = steps = 0
-        while True:
-            steps += self._run_chunk(s, gen, chunk_steps)
-            chunks += 1
-            with span('emodis.serve.refill'):
-                run = gather_rows(self.mesh, self._running(s))
-                status = gather_rows(self.mesh, s['status'])
-                finished = [b for b in range(B) if slot_job[b] is not None
-                            and not run[b]]
-                if not finished:
-                    if not run.any():
-                        break
-                    continue
-                out = gather_rows(self.mesh, s['out'])
-                got = {'status': status,
-                       **{k: gather_rows(self.mesh, s[f]) for k, f in (
-                           ('events', 'out_len'), ('bars', 'bars'),
-                           ('rejects', 'rejects'))}}
-                for b in finished:
-                    j = slot_job[b]
-                    songs[j] = self._song(out[b], got['events'][b], status[b])
-                    for k in fields:
-                        per_job[k][j] = int(got[k][b])
-                mask = np.zeros(B, bool)
-                idle = np.zeros(B, bool)
-                rows = [0] * B
-                for b in finished:
-                    if next_job < N:
-                        mask[b] = True
-                        rows[b] = next_job
-                        slot_job[b] = next_job
-                        next_job += 1
-                    else:
-                        idle[b] = True
-                        slot_job[b] = None
-                self._refill(s, mask, idle, jobs, rows)
-        return songs, {'seconds': time.time() - t0, 'chunks': chunks,
-                       'steps': steps, 'resumed': 0, **per_job}
+        (``stage1_batch.py:397-556``; ``slots.SlotLoop._serve``);
+        ``primers`` / ``prompt_bars`` as in :meth:`generate`.  Returns
+        (songs, stats) in submission order; ``stats`` has the per-job fields
+        of :meth:`generate` and the loop's ``chunks``, ``steps``,
+        ``wall_seconds``, ``admitted_s`` and ``finished_s``."""
+        jobs = (self._jobs(emotions, primers, prompt_bars, target_bars)
+                if emotions else None)
+        songs, stats = self._serve(jobs, len(emotions), seed=seed,
+                                   chunk_steps=chunk_steps,
+                                   fields=SERVE_FIELDS, result=self._song,
+                                   max_klen=self.full_klen)
+        return songs, {**stats, 'resumed': 0}

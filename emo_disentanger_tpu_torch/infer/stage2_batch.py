@@ -34,27 +34,22 @@ or 'dk' [n_layer, B, H, Dh, K] (``EMODIS_S2_CACHE_LAYOUT`` when None, else
 (``EMODIS_PERF_STATE_LAYOUT`` when None, else 'dm').  The ladder pads and
 the re-anchor writes along the cache's K axis in either layout.
 
-The body is a Python loop over device tensors.  Elements that are not
-running are frozen by the status masks, so the host reads ``any(running)``
-only every ``HOST_CHECK_STEPS`` steps; the extra steps change nothing.  The
-host also keeps an upper bound of the clocks (``t_hi``), so it reads the
+The body is a Python loop over device tensors, and elements that are not
+running are frozen by the status masks; the slots, the step's span, the
+status poll and ``serve``'s queue are ``slots.SlotLoop``'s.  Each poll also
+reads an upper bound of the clocks (``t_hi``), so the host reads the
 re-anchor flags and the tier overflow each step only while some clock can
-have reached them.  ``serve()`` streams N jobs through the B slots,
-refilling every finished slot in one masked update (which zeroes a
-Performer slot's (S, z); a GPT-2 slot overwrites its cache from position 0
-before attending to it).
+have reached them.  ``serve``'s re-arm zeroes a Performer slot's (S, z); a
+GPT-2 slot overwrites its cache from position 0 before attending to it.
 
 Data parallelism.  With a ``mesh`` whose data axes (dp * dcn) exceed one,
 each rank runs its B / (dp * dcn) rows of the B slots (``mesh.local_rows``).
 Every step draws ``torch.rand(B)`` uniforms on every rank and each keeps its
 rows, so a row samples what it samples on one device.  The ranks stay in
-lockstep through one all-reduce at each host check (any slot running, the
-clocks' bound, whether a slot finished), and the tier moves are decided on
-the global status.  ``serve`` gathers the slot statuses at every chunk, so
-every rank makes the same refill decision over all B slots and applies it
-to its own rows; ``generate`` and ``serve`` return the global streams and
-stats on every rank.  A re-anchor forward runs on the ranks that hold a
-flagged element.
+lockstep through the poll's all-reduce (``slots``), and the tier moves are
+decided on the global status; ``generate`` and ``serve`` return the global
+streams and stats on every rank.  A re-anchor forward runs on the ranks
+that hold a flagged element.
 """
 
 from __future__ import annotations
@@ -71,10 +66,10 @@ from ..core.vocab import Vocab
 from ..models.gpt2 import MusicGPT2
 from ..models.performer import MusicPerformer
 from ..ops.sampling import nucleus_sample
-from ..parallel.mesh import any_rows, batch_rows, gather_rows, reduce_flags
-from ..utils.device import resolve_device
-from ..utils.profiling import accumulate, flush, recording, span
+from ..parallel.mesh import any_rows, gather_rows
+from ..utils.profiling import accumulate, span
 from .rules import build_rule_tables
+from .slots import HOST_CHECK_STEPS, SlotLoop
 
 STATUS_RUNNING = 0
 STATUS_EOS = 2
@@ -87,16 +82,16 @@ STATUS_OVERFLOW = 7      # gpt2_tiers: element outgrew this tier's cache
 MODE_SAMPLE = 0
 MODE_INJECT = 1
 
-# steps between host reads of the status; at most 32
-HOST_CHECK_STEPS = 16
-
 _JOB_FIELDS = ('inj_tokens', 'inj_segs', 'inj_len', 'primer', 'primer_len',
                'target_bars')
 _COUNTERS = ('t', 'primer_pos', 'bars', 'inj_pos', 'cur_pos', 'failed',
              'rejects', 'esteps', 'reanchors')
+# serve's per-job stats and the state entries they are read from
+SERVE_FIELDS = {'status': 'status', 'bars': 'bars', 'events': 'out_len',
+                'reanchors': 'reanchors', 'rejects': 'rejects'}
 
 
-class Stage2BatchGenerator:
+class Stage2BatchGenerator(SlotLoop):
     """Whole-batch stage-2 generation (Performer or GPT-2) on one device,
     or data-parallel over a mesh (module docstring)."""
 
@@ -113,7 +108,6 @@ class Stage2BatchGenerator:
         """``batch`` counts the slots over all ranks; ``mesh`` splits them
         over its data axes (``batch`` must divide by dp * dcn).
         ``cache_layout`` / ``state_layout``: the module docstring."""
-        self.device = resolve_device(device)
         self.cache_layout = (cache_layout if cache_layout is not None else
                              os.environ.get('EMODIS_S2_CACHE_LAYOUT', 'khd'))
         if self.cache_layout not in ('khd', 'dk'):
@@ -126,14 +120,11 @@ class Stage2BatchGenerator:
                              f'{self.state_layout!r})')
         # the K axis of the GPT-2 cache [n_layer, B, ...]
         self._k_axis = 2 if self.cache_layout == 'khd' else 4
-        self.mesh, self.rows = batch_rows(mesh, batch)
-        self.nb = self.rows.stop - self.rows.start      # this rank's slots
         self.is_performer = isinstance(model, MusicPerformer)
         if not self.is_performer and not isinstance(model, MusicGPT2):
             raise TypeError(f'expected MusicPerformer or MusicGPT2, got '
                             f'{type(model).__name__}')
-        if model.device != self.device:
-            raise ValueError(f'model on {model.device}; expected {self.device}')
+        super().__init__(model, batch=batch, mesh=mesh, device=device)
         if self.is_performer:
             if omegas is None:
                 raise ValueError('Performer decoding needs drawn omegas')
@@ -150,9 +141,7 @@ class Stage2BatchGenerator:
             if model.training:
                 raise ValueError('GPT-2 re-anchors run the deterministic '
                                  'forward; call model.eval() first')
-        self.model = model
         self.vocab = vocab
-        self.batch = batch
         self.temp = temp
         self.top_p = top_p
         self.max_events = max_events
@@ -190,14 +179,6 @@ class Stage2BatchGenerator:
 
     def _cache_len(self, s: Dict) -> int:
         return s['state']['k'].shape[self._k_axis]
-
-    def _step(self, s: Dict, gen: torch.Generator) -> None:
-        """One decode step for every element, updating ``s`` in place; while
-        a profiler records, in the span ``emodis.serve.step`` and counted
-        (``_count_step``)."""
-        counting = recording()
-        with span('emodis.serve.step'):
-            self._advance(s, gen, counting)
 
     def _advance(self, s: Dict, gen: torch.Generator, counting: bool) -> None:
         gpt2 = not self.is_performer
@@ -364,18 +345,9 @@ class Stage2BatchGenerator:
     def _running(self, s: Dict) -> torch.Tensor:
         return s['status'] == STATUS_RUNNING
 
-    def _poll(self, s: Dict, entry: Optional[torch.Tensor] = None
-              ) -> Tuple[bool, bool]:
-        """One host read: (whether any element is running, whether the
-        running set differs from ``entry``).  It also refreshes the host's
-        bound on the clocks, and moves the steps counted since the last read
-        into ``COUNTS`` (this rank's).  Over a mesh, the flags are global."""
-        run = self._running(s)
-        changed = (run != entry).any() if entry is not None else run.any()
-        flags = flush(s, torch.stack([run.any().long(), s['t'].max(),
-                                      changed.long()]))
-        run, s['t_hi'], changed = reduce_flags(self.mesh, flags)
-        return bool(run), bool(changed)
+    def _bounds(self, s: Dict) -> Dict[str, torch.Tensor]:
+        """The poll refreshes the host's bound on the clocks."""
+        return {'t_hi': s['t'].max()}
 
     # ---- jobs and slots ----
 
@@ -420,18 +392,13 @@ class Stage2BatchGenerator:
                     primer=primer_arr, primer_len=primer_len,
                     target_bars=target_bars)
 
-    def _job_rows(self, jobs: Dict[str, np.ndarray], rows) -> Dict:
-        r = np.asarray(rows)
-        return {f: torch.from_numpy(jobs[f][r]).to(self.device)
-                for f in _JOB_FIELDS}
-
-    def _reset_slots(self, s: Dict, mask: np.ndarray, idle: np.ndarray,
-                     rows: Dict) -> None:
+    def _rearm(self, s: Dict, mask: np.ndarray, idle: np.ndarray,
+               rows: Dict[str, torch.Tensor]) -> None:
         """One masked update that re-arms every slot in ``mask`` with its job
-        from ``rows`` (B-shaped; unmasked rows ignored) and idles the slots
-        in ``idle``.  A Performer slot's (S, z) is zeroed (the masked update
-        ADDS to it); a GPT-2 slot needs no clear, since it overwrites each
-        cache position before attending to it."""
+        from ``rows`` (``_job_rows``; unmasked rows ignored) and idles the
+        slots in ``idle``.  A Performer slot's (S, z) is zeroed (the masked
+        update ADDS to it); a GPT-2 slot needs no clear, since it overwrites
+        each cache position before attending to it."""
         B = self.nb
         m = torch.from_numpy(mask).to(self.device)
         bmask = lambda t: m.reshape((B,) + (1,) * (t.dim() - 1))
@@ -460,6 +427,14 @@ class Stage2BatchGenerator:
         """A fresh state with the jobs of ``rows`` in this rank's slots; a
         GPT-2 cache of ``cache_len`` positions (``gpt2_cache_len`` when
         None)."""
+        s = self._open(jobs, cache_len)
+        self._rearm(s, np.ones(self.nb, bool), np.zeros(self.nb, bool),
+                    self._job_rows(jobs, rows))
+        return s
+
+    def _open(self, jobs: Dict[str, np.ndarray],
+              cache_len: Optional[int] = None) -> Dict:
+        """A state of blank slots, to be armed or idled by ``_rearm``."""
         B, dev = self.nb, self.device
         zl = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)
         state = (self.model.init_decode_state(B, self.state_layout)
@@ -476,13 +451,8 @@ class Stage2BatchGenerator:
                                    device=dev),
              't_hi': 0}
         s.update({f: zl(B) for f in _COUNTERS})
-        first = self._job_rows(jobs, rows)
-        s.update({f: torch.zeros_like(t) for f, t in first.items()})
-        self._reset_slots(s, np.ones(B, bool), np.zeros(B, bool), first)
+        s.update({f: zl(B, *jobs[f].shape[1:]) for f in _JOB_FIELDS})
         return s
-
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
 
     @staticmethod
     def _stream(out_row: np.ndarray, n: int, status: int) -> List[int]:
@@ -557,104 +527,23 @@ class Stage2BatchGenerator:
                  'tier_resumes': resumed}
         return streams, stats
 
-    def _run_chunk(self, s: Dict, gen: torch.Generator) -> int:
-        """Run until a slot finishes and at least ``serve_chunk_steps`` steps
-        have passed, or nothing is left running (checked every
-        ``HOST_CHECK_STEPS`` steps); returns the steps run."""
-        entry = self._running(s)
-        i = 0
-        while True:
-            any_run, changed = self._poll(s, entry)
-            if not any_run or (i >= self.serve_chunk_steps and changed):
-                return i
-            for _ in range(HOST_CHECK_STEPS):
-                self._step(s, gen)
-            i += HOST_CHECK_STEPS
-
     @torch.no_grad()
     def serve(self, primers: Sequence[Sequence[int]],
               lead_sheet_bars: Sequence[List[List[int]]], *,
               seed: int = 0, max_bars: Optional[int] = None,
               ) -> Tuple[List[List[int]], dict]:
-        """Continuous batching: N jobs stream through the B slots; a finished
-        slot is harvested and re-armed with the next queued job at the end
-        of the chunk it finished in.  The GPT-2 cache ladder does not apply
-        (refills interleave jobs at mixed clocks).  Returns (streams, stats)
-        in submission order; ``stats`` carries the per-job fields of
-        ``generate``, ``wall_seconds``, ``chunks`` (host refill round trips)
-        and ``steps`` (loop steps over all slots), and per job
-        ``admitted_s`` and ``finished_s``: seconds from the call's start to
-        the end of the chunk that armed its slot or harvested its song (the
-        first slots' jobs: to the end of the state's set-up).  While a
-        profiler records, each chunk's refill is the span
-        ``emodis.serve.refill``."""
+        """Continuous batching: N jobs stream through the B slots in chunks
+        of at least ``serve_chunk_steps`` steps (``slots.SlotLoop._serve``).
+        The GPT-2 cache ladder does not apply (refills interleave jobs at
+        mixed clocks).  Returns (streams, stats) in submission order;
+        ``stats`` carries the per-job fields of ``generate`` and the loop's
+        ``wall_seconds``, ``chunks``, ``steps``, ``admitted_s`` and
+        ``finished_s``."""
         N = len(primers)
         if len(lead_sheet_bars) != N:
             raise ValueError('one lead sheet per primer')
-        B = self.batch
-        fields = ('status', 'bars', 'events', 'reanchors', 'rejects')
-        if N == 0:
-            return [], {'seconds': 0.0, 'wall_seconds': 0.0, 'chunks': 0,
-                        'steps': 0, 'admitted_s': [], 'finished_s': [],
-                        **{k: [] for k in fields}}
-        jobs = self._prep_jobs(primers, lead_sheet_bars, max_bars)
-        t0 = time.time()
-        gen = self._generator(seed)
-        first = min(B, N)
-        mine = self.rows
-        s = self._init_state(jobs, (list(range(first))
-                                    + [0] * (B - first))[mine])
-        slot_job: List[Optional[int]] = list(range(first)) + [None] * (B - first)
-        if first < B:
-            idle0 = np.zeros(B, bool)
-            idle0[first:] = True
-            self._reset_slots(s, np.zeros(self.nb, bool), idle0[mine],
-                              self._job_rows(jobs, [0] * self.nb))
-        next_job = first
-        streams: List[Optional[List[int]]] = [None] * N
-        per_job = {k: [0] * N for k in fields}
-        admitted_s = [time.time() - t0] * first + [0.0] * (N - first)
-        finished_s = [0.0] * N
-        chunks = steps = 0
-        while any_rows(self.mesh, self._running(s)):
-            steps += self._run_chunk(s, gen)
-            chunks += 1
-            with span('emodis.serve.refill'):
-                status = gather_rows(self.mesh, s['status'])
-                now = time.time() - t0
-                finished = [b for b in range(B) if slot_job[b] is not None
-                            and status[b] not in (STATUS_RUNNING, STATUS_IDLE)]
-                if not finished:
-                    continue
-                out = gather_rows(self.mesh, s['out'])
-                got = {'status': status,
-                       **{k: gather_rows(self.mesh, s[f]) for k, f in (
-                           ('events', 'out_len'), ('bars', 'bars'),
-                           ('reanchors', 'reanchors'),
-                           ('rejects', 'rejects'))}}
-                for b in finished:
-                    j = slot_job[b]
-                    streams[j] = self._stream(out[b], got['events'][b],
-                                              status[b])
-                    finished_s[j] = now
-                    for k in fields:
-                        per_job[k][j] = int(got[k][b])
-                mask = np.zeros(B, bool)
-                idle = np.zeros(B, bool)
-                rows = [0] * B
-                for b in finished:
-                    if next_job < N:
-                        mask[b] = True
-                        rows[b] = next_job
-                        slot_job[b] = next_job
-                        admitted_s[next_job] = now
-                        next_job += 1
-                    else:
-                        idle[b] = True
-                        slot_job[b] = None
-                self._reset_slots(s, mask[mine], idle[mine],
-                                  self._job_rows(jobs, rows[mine]))
-        secs = time.time() - t0
-        return streams, {'seconds': secs, 'wall_seconds': secs,
-                         'chunks': chunks, 'steps': steps, **per_job,
-                         'admitted_s': admitted_s, 'finished_s': finished_s}
+        jobs = (self._prep_jobs(primers, lead_sheet_bars, max_bars) if N
+                else None)
+        return self._serve(jobs, N, seed=seed,
+                           chunk_steps=self.serve_chunk_steps,
+                           fields=SERVE_FIELDS, result=self._stream)

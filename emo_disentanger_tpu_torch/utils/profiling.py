@@ -20,13 +20,12 @@ profiler (:func:`trace`, or any ``torch.profiler.profile``).  Span names
 start with ``emodis.``; counter names with their layer's name:
 
 ==========================  ==================================================
-``emodis.serve.step``       one decode step of ``Stage2BatchGenerator``
-                            (``_step``) or of stage 1's ``SongLoop._step``
-                            (``Stage1BatchGenerator``, ``Stage1Generator``)
+``emodis.serve.step``       one decode step of either stage's generator
+                            (``infer.slots.SlotLoop._step``)
 ``emodis.serve.sample``     its nucleus sampler
-``emodis.serve.refill``     either stage's ``serve`` between two chunks: the
-                            status read, the harvest of finished songs, the
-                            re-arm
+``emodis.serve.refill``     ``serve`` between two chunks
+                            (``infer.slots``): the read, the harvest of
+                            finished songs, the re-arm
 ``emodis.txl.attn``         one Transformer-XL layer's cache work in a decode
                             step: the k and v row writes and the
                             relative-position attention
@@ -42,9 +41,8 @@ start with ``emodis.``; counter names with their layer's name:
 
 The serve counters are exact: the steps accumulate on the device
 (:func:`accumulate`) and reach ``COUNTS`` through the generator's next
-status read (:func:`flush` in ``_poll`` of ``stage2_batch`` or of stage
-1's ``SongLoop``), so the three count the same steps even when the
-profiler stops between reads.
+status read (:func:`flush` in ``infer.slots.SlotLoop._poll``), so the
+three count the same steps even when the profiler stops between reads.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 ``torch.profiler`` the song loop's step and sampler ranges, ``serve``'s
 refill ranges and the Transformer-XL layers' ``emodis.txl.attn`` ranges,
 with exact slot counts; none of them, and no ``record_function``, without
-a profiler; the same songs and stats with the profiler on and off."""
+a profiler; the same songs and stats with the profiler on and off; per-job
+times in ``serve``'s stats."""
 
 import pytest
 import torch
@@ -20,6 +21,7 @@ EVENTS = sorted(['Emotion_Positive', 'Emotion_Negative', 'Key_C', 'Key_a',
                  'Note_Octave_5', 'Note_Degree_I', 'Note_Degree_V',
                  'Note_Duration_480'] + [f'Beat_{b}' for b in range(16)])
 SLOTS, N_LAYER = 3, 2
+TIMES = ('seconds', 'wall_seconds', 'admitted_s', 'finished_s')
 PRIMERS = [['Emotion_Positive', 'Key_C'], ['Emotion_Negative', 'Key_a'],
            ['Emotion_Positive', 'Key_C', 'Bar_None', 'Beat_4']] * 2 + [
            ['Emotion_Negative', 'Key_a']]
@@ -81,7 +83,8 @@ def _inside(inner, outer):
 def test_counts_and_ranges_of_a_whole_profiled_serve():
     """Every step, sample, refill and layer's cache work is a range; the
     counters hold the call's steps, its songs' slot-steps and their clocks
-    exactly (a song's k steps run at clocks 0 .. k - 1)."""
+    exactly (a song's k steps run at clocks 0 .. k - 1); the per-job times
+    follow the chunks."""
     gen = _generator(batch=SLOTS)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _, stats = _serve(gen)
@@ -100,6 +103,10 @@ def test_counts_and_ranges_of_a_whole_profiled_serve():
     refills = _ranges(prof, 'emodis.serve.refill')
     assert len(refills) == stats['chunks']
     assert not any(a < y and x < b for a, b in refills for x, y in step_r)
+    adm, fin = stats['admitted_s'], stats['finished_s']
+    assert len(set(adm[:SLOTS])) == 1
+    assert all(0 <= a < f <= stats['wall_seconds'] for a, f in zip(adm, fin))
+    assert set(adm[SLOTS:]) <= set(fin) and adm[SLOTS:] == sorted(adm[SLOTS:])
 
 
 @pytest.mark.parametrize('call', ['generate', 'single'])
@@ -165,5 +172,5 @@ def test_no_profiler_no_range_and_the_same_songs(monkeypatch):
         on = _serve(gen)
     assert made
     assert on[0] == off[0]
-    assert ({k: v for k, v in on[1].items() if k != 'seconds'}
-            == {k: v for k, v in off[1].items() if k != 'seconds'})
+    assert ({k: v for k, v in on[1].items() if k not in TIMES}
+            == {k: v for k, v in off[1].items() if k not in TIMES})
